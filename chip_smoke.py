@@ -10,17 +10,24 @@ Phases, each printed as one JSON line and each fatal on failure:
 2. ``build``   — compile every CUDA kernel of the port from its source.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the shapes the main path gives it (tolerance ``1e-4 + 1e-5·|ref|``),
-   with its time, the plain time, a one-call library yardstick where one
-   exists, and the least time the card could take (``bound_ms``).
+   with the kernels' own time (``kernel_only_ms``: back-to-back launches
+   of a prepared call), the whole wrapper call (``call_ms``), the plain
+   time, a one-call library yardstick computed over query chunks of at
+   most 8 GB (``library_ms``, ``library_chunks``), the least time the card
+   could take (``bound_ms``), and the partial kernel's registers and
+   spills as ``nvcc -Xptxas -v`` reports them.
 4. ``pop16384`` / ``pop1e6`` — the main path: two-Gaussian model selection
    (BASELINE config #2) through ``ABCSMC.run`` with ``MedianEpsilon`` and
    ``VectorizedSampler``, held to the analytic model posterior and mean
    (the JAX package's ``tools/verify_northstar_posterior.py`` gate), with
    the kernel's launch count read around each run.
 
-``--phases profile`` (not in the default run) profiles the slowest
-generation of the pop-1e6 run with ``torch.profiler``: device time by
-kernel and the device's idle share.
+Opt-in phases (``--phases``, not in the default run): ``profile``
+profiles the slowest generation of the pop-1e6 run with
+``torch.profiler``: device time by kernel and the device's idle share.
+``k1perm`` times K1 at the pop-1e6 finalize shape on the sorted grid
+support and on the same rows permuted: with no branch on the data the
+two take the same time.
 
 The ``kernels`` summary line and the ``nvidia-smi`` name/power-limit
 line come just before the last line, which is ``{"ok": true, "device":
@@ -42,7 +49,7 @@ from pathlib import Path
 
 ALL_PHASES = ("card", "build", "kernels", "pop16384", "pop1e6")
 #: opt-in phases (``--phases``): not part of the default smoke
-EXTRA_PHASES = ("profile",)
+EXTRA_PHASES = ("profile", "k1perm")
 TOL_ABS = 1e-4
 TOL_REL = 1e-5
 #: largest [M, N] float32 block the library yardstick may materialize
@@ -96,12 +103,61 @@ def phase_build(torch, state):
     from pyabc_tpu_torch.ops import _build
     t0 = time.perf_counter()
     built = _build.build_all()
-    regs = {name: [ln for ln in info["ptxas"].splitlines()
-                   if "registers" in ln]
-            for name, info in built.items()}
+    report = {name: _build.ptxas_report(info["ptxas"])
+              for name, info in built.items()}
+    state["ptxas"] = report.get("kde_logpdf")
     emit({"phase": "build", "ok": True,
           "seconds": time.perf_counter() - t0,
-          "built": sorted(built), "ptxas": regs})
+          "built": sorted(built), "ptxas": report})
+
+
+def _partial_regs(state, d: int):
+    """Registers and spill bytes of the partial kernel's template for d."""
+    name = (f"kde_partial_kernel<{d},1>" if d <= 8
+            else "kde_partial_kernel<32,0>")
+    for row in state.get("ptxas") or []:
+        if row["function"] == name:
+            return {"function": name, "registers": row["registers"],
+                    "stack": row["stack"],
+                    "spill_stores": row["spill_stores"],
+                    "spill_loads": row["spill_loads"]}
+    return None
+
+
+def time_loop(torch, fn, reps: int, warmup: int = 2) -> float:
+    """Milliseconds per call of ``fn()`` over ``reps`` back-to-back calls
+    between two CUDA events: the device's time when the host keeps it
+    fed, without the host's per-call work."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def library_logsumexp_ms(torch, kde_plain, c, reps: int = 3) -> dict:
+    """One-call yardstick: ``torch.logsumexp(z_x @ z_s.T + b_s, 1)`` on
+    pre-whitened inputs, over query chunks whose ``[chunk, N]`` block
+    stays within ``LIBRARY_MAX_BYTES``; the chunks' times are summed."""
+    args = (c["x"], c["support"], c["log_w"], c["chol"])
+    z_x, z_s = kde_plain.whiten(*args)
+    b_s = c["log_w"] - 0.5 * (z_s * z_s).sum(1)
+    a_x = 0.5 * (z_x * z_x).sum(1)
+    rows = max(1, int(LIBRARY_MAX_BYTES // (4 * c["n"])))
+
+    def run():
+        for q0 in range(0, c["m"], rows):
+            torch.logsumexp(z_x[q0:q0 + rows] @ z_s.T + b_s, 1) \
+                - a_x[q0:q0 + rows] + c["log_norm"]
+
+    ms = time_cuda(torch, run, reps=reps)
+    return {"library_ms": ms, "library_chunks": -(-c["m"] // rows)}
 
 
 def _kde_case(torch, gen, dev, label, m, n, d, pad_frac=0.0,
@@ -142,6 +198,17 @@ def _kde_case(torch, gen, dev, label, m, n, d, pad_frac=0.0,
             "chol": chol, "log_norm": log_norm, "m": m, "n": n, "d": d}
 
 
+KDE_CASES = [
+    ("a pop16384 finalize", 16384, 16384, 1, {"pad_frac": 0.2}),
+    ("b pop1e6 grid 2^13", 1_000_000, 8192, 1, {"grid": True}),
+    ("b pop1e6 grid 2^14", 1_000_000, 16384, 1, {"grid": True}),
+    ("b pop1e6 grid 2^16", 1_000_000, 65536, 1, {"grid": True}),
+    ("c 65536^2 d=2", 65536, 65536, 2, {}),
+    ("c 65536^2 d=5", 65536, 65536, 5, {}),
+    ("d ragged d=3", 1000, 1537, 3, {"pad_last_tile": True}),
+]
+
+
 def phase_kernels(torch, state):
     from pyabc_tpu_torch.ops import kde as kde_plain
     from pyabc_tpu_torch.ops import kde_cuda
@@ -149,18 +216,9 @@ def phase_kernels(torch, state):
     dev = torch.device("cuda", 0)
     gen = torch.Generator(device=dev)
     gen.manual_seed(20261016)
-    cases = [
-        ("a pop16384 finalize", 16384, 16384, 1, {"pad_frac": 0.2}),
-        ("b pop1e6 grid 2^13", 1_000_000, 8192, 1, {"grid": True}),
-        ("b pop1e6 grid 2^14", 1_000_000, 16384, 1, {"grid": True}),
-        ("b pop1e6 grid 2^16", 1_000_000, 65536, 1, {"grid": True}),
-        ("c 65536^2 d=2", 65536, 65536, 2, {}),
-        ("c 65536^2 d=5", 65536, 65536, 5, {}),
-        ("d ragged d=3", 1000, 1537, 3, {"pad_last_tile": True}),
-    ]
     rows = []
     ok_all = True
-    for label, m, n, d, kw in cases:
+    for label, m, n, d, kw in KDE_CASES:
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
@@ -169,34 +227,77 @@ def phase_kernels(torch, state):
         err = (got - ref).abs()
         finite = bool(torch.isfinite(got).all() and torch.isfinite(ref).all())
         ok = finite and bool((err <= TOL_ABS + TOL_REL * ref.abs()).all())
-        ms = time_cuda(torch, lambda: kde_cuda.weighted_kde_logpdf_cuda(
+        call_ms = time_cuda(torch, lambda: kde_cuda.weighted_kde_logpdf_cuda(
             *args), reps=10, warmup=2)
+        call = kde_cuda.KdeCall(*args)
+        kernel_only_ms = time_loop(torch, call.run, reps=20)
         plain_ms = time_cuda(torch, lambda: kde_plain.weighted_kde_logpdf(
             *args), reps=3)
-        library_ms = None
-        if 4.0 * m * n <= LIBRARY_MAX_BYTES:
-            z_x, z_s = kde_plain.whiten(*args[:4])
-            b_s = c["log_w"] - 0.5 * (z_s * z_s).sum(1)
-            a_x = 0.5 * (z_x * z_x).sum(1)
-            library_ms = time_cuda(torch, lambda: torch.logsumexp(
-                z_x @ z_s.T + b_s, 1) - a_x + c["log_norm"], reps=5)
-            del z_x, z_s
+        lib = library_logsumexp_ms(torch, kde_plain, c)
         bound_ms = 1e3 * kde_cuda.bound_seconds(m, n, d,
                                                 state["sm_clock_hz"])
+        chunk, splits = kde_cuda.split_plan(m, n, d)
         row = {"phase": "kernels", "kernel": "kde_logpdf", "shape": label,
                "M": m, "N": n, "d": d, "ok": ok,
-               "max_abs_err": float(err.max()), "kernel_ms": ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "max_abs_err": float(err.max()),
+               "kernel_only_ms": kernel_only_ms, "call_ms": call_ms,
+               "plain_ms": plain_ms, **lib,
                "bound_ms": bound_ms, "bound_by": "operations",
-               "pairs_per_s": m * n / (ms * 1e-3)}
+               "bound_share": bound_ms / kernel_only_ms,
+               "pairs_per_s": m * n / (kernel_only_ms * 1e-3),
+               "chunk": chunk, "splits": splits,
+               "partial_kernel": _partial_regs(state, d)}
         emit(row)
         rows.append(row)
         ok_all = ok_all and ok
-        del c, args, got, ref, err
+        del c, args, got, ref, err, call
         torch.cuda.empty_cache()
     state["kernel_rows"] = rows
     if not ok_all:
         raise RuntimeError("K1 disagrees with its plain version")
+
+
+def phase_k1perm(torch, state):
+    """K1 at the main path's pop-1e6 finalize shape, on the sorted grid
+    support and on the same support rows (and log weights) permuted by one
+    fixed random permutation.  The sum is the same up to order; the time
+    difference is what the sorted rows' rising maxima cost."""
+    from pyabc_tpu_torch.ops import kde as kde_plain
+    from pyabc_tpu_torch.ops import kde_cuda
+
+    dev = torch.device("cuda", 0)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261016)
+    c = _kde_case(torch, gen, dev, "b pop1e6 grid 2^13", 1_000_000, 8192, 1,
+                  grid=True)
+    perm = torch.randperm(c["n"], generator=gen, device=dev)
+    sorted_args = (c["x"], c["support"], c["log_w"], c["chol"],
+                   c["log_norm"])
+    perm_args = (c["x"], c["support"][perm].contiguous(),
+                 c["log_w"][perm].contiguous(), c["chol"], c["log_norm"])
+    ref = kde_plain.weighted_kde_logpdf(*sorted_args)
+    errs = {}
+    for key, args in (("sorted", sorted_args), ("permuted", perm_args)):
+        got = kde_cuda.weighted_kde_logpdf_cuda(*args)
+        errs[key] = float((got - ref).abs().max())
+        ok = bool(torch.all((got - ref).abs()
+                            <= TOL_ABS + TOL_REL * ref.abs()))
+        if not ok:
+            raise RuntimeError(f"K1 on the {key} support disagrees")
+    times = {"sorted": [], "permuted": []}
+    for key in ("sorted", "permuted", "permuted", "sorted"):
+        args = sorted_args if key == "sorted" else perm_args
+        times[key].append(time_cuda(
+            torch, lambda: kde_cuda.weighted_kde_logpdf_cuda(*args),
+            reps=10, warmup=2))
+    sorted_ms = statistics.mean(times["sorted"])
+    permuted_ms = statistics.mean(times["permuted"])
+    emit({"phase": "k1perm", "ok": True, "shape": c["label"],
+          "M": c["m"], "N": c["n"], "max_abs_err": errs,
+          "sorted_ms": sorted_ms, "permuted_ms": permuted_ms,
+          "sorted_ms_runs": times["sorted"],
+          "permuted_ms_runs": times["permuted"],
+          "sorted_over_permuted": sorted_ms / permuted_ms})
 
 
 def run_main_path(torch, pop: int, gens: int, seed: int = 0) -> dict:
@@ -330,12 +431,16 @@ def phase_profile(torch, state):
 
 
 def kernels_line(state) -> dict:
-    """The per-kernel summary: times at the pop-16384 finalize shape,
-    the largest error over every compared shape, launches on the main
-    path."""
+    """The per-kernel summary: times at the pop-16384 finalize shape
+    (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
+    alone), the same numbers at every compared shape, the largest error
+    over all of them, launches on the main path."""
     rows = state.get("kernel_rows", [])
     main = rows[0] if rows else {}
     launches = state.get("launches", {})
+    keys = ("kernel_only_ms", "call_ms", "plain_ms", "library_ms",
+            "library_chunks", "bound_ms", "bound_share", "max_abs_err",
+            "partial_kernel")
     return {"kernels": [{
         "name": "kde_logpdf", "route": "cuda",
         "source": "pyabc_tpu_torch/csrc/kde_logpdf.cu",
@@ -343,15 +448,20 @@ def kernels_line(state) -> dict:
         "launches": sum(launches.values()),
         "launches_by_phase": launches,
         "max_abs_err": max((r["max_abs_err"] for r in rows), default=None),
-        "ms": main.get("kernel_ms"), "plain_ms": main.get("plain_ms"),
+        "ms": main.get("call_ms"),
+        "kernel_only_ms": main.get("kernel_only_ms"),
+        "plain_ms": main.get("plain_ms"),
         "bound_ms": main.get("bound_ms"), "bound_by": "operations",
         "library_ms": main.get("library_ms"),
-        "shape": main.get("shape")}]}
+        "shape": main.get("shape"),
+        "by_shape": [{"shape": r["shape"], **{k: r.get(k) for k in keys}}
+                     for r in rows]}]}
 
 
 PHASES = {"card": phase_card, "build": phase_build,
           "kernels": phase_kernels, "pop16384": phase_pop16384,
-          "pop1e6": phase_pop1e6, "profile": phase_profile}
+          "pop1e6": phase_pop1e6, "profile": phase_profile,
+          "k1perm": phase_k1perm}
 
 
 def main(argv=None) -> int:

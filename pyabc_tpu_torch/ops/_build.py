@@ -14,11 +14,12 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, List, Optional
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -89,6 +90,50 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     if failures:
         raise RuntimeError("\n".join(failures))
     return built
+
+
+def _kernel_name(mangled: str) -> str:
+    """``kde_partial_kernel<1,1>`` from ``_Z18kde_partial_kernelILi1ELb1EE…``
+    (template arguments that are integers or booleans); else as given."""
+    m = re.match(r"_Z(\d+)", mangled)
+    if not m:
+        return mangled
+    start = m.end()
+    name = mangled[start:start + int(m.group(1))]
+    rest = mangled[start + int(m.group(1)):]
+    if rest.startswith("I"):
+        args = re.findall(r"L[ib](\d+)E", rest[:rest.find("EE") + 2])
+        name += "<" + ",".join(args) + ">"
+    return name
+
+
+def ptxas_report(log: str) -> List[dict]:
+    """Per ``__global__`` function: registers, stack frame and spill
+    bytes and static shared memory, parsed from ``nvcc -Xptxas -v``
+    output."""
+    rows, cur = [], None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            cur = {"function": _kernel_name(m.group(1)), "registers": None,
+                   "stack": None, "spill_stores": None, "spill_loads": None,
+                   "smem": 0}
+            rows.append(cur)
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                      r"stores, (\d+) bytes spill loads", line)
+        if m:
+            cur["stack"] = int(m.group(1))
+            cur["spill_stores"] = int(m.group(2))
+            cur["spill_loads"] = int(m.group(3))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            cur["registers"] = int(m.group(1))
+            s = re.search(r"(\d+) bytes smem", line)
+            cur["smem"] = int(s.group(1)) if s else 0
+    return rows
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -8,8 +8,8 @@ neither JAX nor the JAX package, so it runs on the machine with the card
         tests/test_torch_kde_cuda.py
 
 Tolerance ``1e-4 + 1e-5·|ref|``, the chip smoke's: the kernel and the
-plain version do the same float32 arithmetic in another summation order
-and with ``__expf``.
+plain version do the same float32 arithmetic in another summation order,
+in base 2 and with ``ex2.approx``.
 """
 
 import math
@@ -51,7 +51,7 @@ def _close(got, ref):
                 and torch.all((got - ref).abs() <= 1e-4 + 1e-5 * ref.abs()))
 
 
-@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8, 12, 32])
+@pytest.mark.parametrize("d", [1, 2, 3, 4, 5, 6, 7, 8, 9, 12, 20, 32])
 def test_every_dimension_matches_plain(dev, d):
     """Each fixed-d template (1..8) and the generic path (9..32)."""
     t, ln = _problem(dev, 1500, 2500, d, seed=d)
@@ -108,8 +108,111 @@ def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
         kde_cuda.weighted_kde_logpdf_cuda(x, support[:10], log_w, chol, ln)
     z = torch.zeros(10, 33, device=dev)
     with pytest.raises(ValueError, match="d <="):
-        kde_cuda.kde_logpdf_whitened(z, z, torch.zeros(10, device=dev),
-                                     torch.zeros(1, device=dev))
-    with pytest.raises(ValueError, match="contiguous"):
-        kde_cuda.kde_logpdf_whitened(
-            x.T.contiguous().T, support, log_w, torch.zeros(1, device=dev))
+        kde_cuda.weighted_kde_logpdf_cuda(
+            z, z, torch.zeros(10, device=dev),
+            torch.eye(33, device=dev), ln)
+    with pytest.raises(ValueError, match="log_norm"):
+        kde_cuda.weighted_kde_logpdf_cuda(x, support, log_w, chol,
+                                          torch.zeros(2, device=dev))
+
+
+def test_non_contiguous_inputs_and_tensor_log_norm(dev):
+    """Strided inputs are made contiguous by the wrapper; a log_norm given
+    as a one-element card tensor is read on the card."""
+    t, ln = _problem(dev, 700, 900, 2, seed=11)
+    x, support, log_w, chol = t
+    a = kde_cuda.weighted_kde_logpdf_cuda(x, support, log_w, chol, ln)
+    xt = x.T.contiguous().T
+    lnt = torch.tensor(ln, device=dev)
+    b = kde_cuda.weighted_kde_logpdf_cuda(xt, support, log_w, chol, lnt)
+    assert not xt.is_contiguous()
+    assert torch.equal(a, b)
+
+
+def _grid_problem(dev, x, n=8192, empty=0.1, seed=3):
+    """A grid-compressed 1-D support as _compress_support makes it: sorted
+    cell centroids, Gaussian mass, empty cells at -1e30, bandwidth 64
+    cells."""
+    rng = np.random.default_rng(seed)
+    centers = np.linspace(-1.0, 3.0, n, dtype=np.float32)
+    mass = np.exp(-0.5 * ((centers - 1.0) / 0.4) ** 2)
+    mass *= rng.uniform(size=n) > empty
+    log_w = np.where(mass > 0, np.log(np.maximum(mass, 1e-38) / mass.sum()),
+                     -1e30).astype(np.float32)
+    h = 64 * 4.0 / n
+    t = [torch.as_tensor(a, device=dev) for a in (
+        np.asarray(x, np.float32).reshape(-1, 1), centers[:, None], log_w,
+        np.array([[h]], np.float32))]
+    return t, -0.5 * math.log(2 * math.pi) - math.log(h)
+
+
+def test_sorted_grid_support_with_queries_inside_and_beyond_both_ends(dev):
+    rng = np.random.default_rng(5)
+    x = np.concatenate([1.0 + 0.4 * rng.standard_normal(20000),
+                        rng.uniform(-3.0, -1.0, 500),
+                        rng.uniform(3.0, 5.0, 500)])
+    t, ln = _grid_problem(dev, x)
+    assert _close(kde_cuda.weighted_kde_logpdf_cuda(*t, ln),
+                  kde.weighted_kde_logpdf(*t, ln))
+
+
+def test_far_queries_underflow_except_near_the_max(dev):
+    """Queries hundreds of bandwidths away: every term but those near the
+    max is below float32's range, and the result is still right."""
+    x = np.array([-40.0, -12.0, -2.5, 4.5, 17.0, 60.0] * 50, np.float32)
+    t, ln = _grid_problem(dev, x, n=4096)
+    got = kde_cuda.weighted_kde_logpdf_cuda(*t, ln)
+    ref = kde.weighted_kde_logpdf(*t, ln)
+    assert float(ref.min()) < -1e4
+    assert _close(got, ref)
+
+
+@pytest.mark.parametrize("d", [1, 2, 5])
+def test_whitened_z_of_a_few_tens(dev, d):
+    t, ln = _problem(dev, 3000, 5000, d, seed=20 + d)
+    x, support, log_w, chol = t
+    x, support = 10.0 * x, 10.0 * support     # |z| up to ~40 / h
+    chol = chol * 3.0
+    ln = ln - d * math.log(3.0)
+    got = kde_cuda.weighted_kde_logpdf_cuda(x, support, log_w, chol, ln)
+    ref = kde.weighted_kde_logpdf(x, support, log_w, chol, ln)
+    assert float(((x - support.mean(0)) / chol[0, 0]).abs().max()) > 20
+    assert _close(got, ref)
+
+
+@pytest.mark.parametrize("d", [1, 3])
+def test_all_pad_split_and_all_pad_support(dev, d):
+    """A split of pads only (-1e30 rows filling whole splits) adds
+    nothing; an all-pad support gives what the plain version gives."""
+    t, ln = _problem(dev, 2000, 20000, d, seed=9, n_pad=12000)
+    assert kde_cuda.split_plan(2000, 20000, d)[0] < 12000
+    assert _close(kde_cuda.weighted_kde_logpdf_cuda(*t, ln),
+                  kde.weighted_kde_logpdf(*t, ln))
+    x, support, log_w, chol = t
+    log_w = torch.full_like(log_w, -1e30)
+    got = kde_cuda.weighted_kde_logpdf_cuda(x, support, log_w, chol, ln)
+    ref = kde.weighted_kde_logpdf(x, support, log_w, chol, ln)
+    assert _close(got, ref)
+    assert torch.all(ref == -1e30)
+
+
+@pytest.mark.parametrize("m,n,d", [(513, 17, 1), (511, 4111, 1),
+                                   (2049, 1001, 2), (1023, 33, 5),
+                                   (257, 4095, 8), (130, 19, 12)])
+def test_ragged_m_and_n(dev, m, n, d):
+    """M not a multiple of Q * BLOCK, N not a multiple of K or of G: the
+    edges are masked, not counted."""
+    p, q, k, _ = kde_cuda.geometry(d)
+    assert m % (q * kde_cuda.BLOCK) and n % k and n % kde_cuda.G
+    t, ln = _problem(dev, m, n, d, seed=m + n)
+    assert _close(kde_cuda.weighted_kde_logpdf_cuda(*t, ln),
+                  kde.weighted_kde_logpdf(*t, ln))
+
+
+def test_kernel_matches_its_base2_mirror(dev):
+    """The CPU tests hold kde_cuda.base2_logpdf to the plain version; on
+    the card the kernel agrees with that mirror too."""
+    t, ln = _problem(dev, 3000, 7001, 2, seed=13, n_pad=1000)
+    got = kde_cuda.weighted_kde_logpdf_cuda(*t, ln)
+    mirror = kde_cuda.base2_logpdf(*t, ln)
+    assert _close(got, mirror)
