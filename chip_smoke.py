@@ -21,13 +21,27 @@ Phases, each printed as one JSON line and each fatal on failure:
    ``VectorizedSampler``, held to the analytic model posterior and mean
    (the JAX package's ``tools/verify_northstar_posterior.py`` gate), with
    the kernel's launch count read around each run.
+5. ``lv1e5`` / ``sir1e5`` — BASELINE configs #3 (Lotka-Volterra SDE) and
+   #4 (SIR tau-leap) at full width, pop 1e5, 8 generations, with the
+   adaptive p-norm refit over the record stream each generation
+   (``AdaptivePNormDistance``, ``MedianEpsilon``, batch 2^19,
+   ``stores_sum_stats=False``).  Each holds every generation's ε finite
+   and positive, K1 launched in every generation t >= 1, a weight fit per
+   generation from at least ``pop`` rows, the posterior mean within 4
+   posterior standard deviations of the generating parameters, and each
+   posterior standard deviation at most 0.75 of the prior's.
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
 ``torch.profiler``: device time by kernel and the device's idle share.
-``k1perm`` times K1 at the pop-1e6 finalize shape on the sorted grid
-support and on the same rows permuted: with no branch on the data the
-two take the same time.
+``simprof`` does the same for the last generation of ``lv1e5`` and
+``sir1e5``, then runs one more generation with the simulator timed
+between device syncs (its share of ``sample_s``), and profiles one
+simulator call at the batch size (device time, kernel launches).
+Timeline rows carry each generation's peak device memory
+(``peak_mem_gb``); a phase reports the largest.  ``k1perm`` times K1 at
+the pop-1e6 finalize shape on the sorted grid support and on the same
+rows permuted: with no branch on the data the two take the same time.
 
 The ``kernels`` summary line and the ``nvidia-smi`` name/power-limit
 line come just before the last line, which is ``{"ok": true, "device":
@@ -47,9 +61,10 @@ import sys
 import time
 from pathlib import Path
 
-ALL_PHASES = ("card", "build", "kernels", "pop16384", "pop1e6")
+ALL_PHASES = ("card", "build", "kernels", "pop16384", "pop1e6", "lv1e5",
+              "sir1e5")
 #: opt-in phases (``--phases``): not part of the default smoke
-EXTRA_PHASES = ("profile", "k1perm")
+EXTRA_PHASES = ("profile", "simprof", "k1perm")
 TOL_ABS = 1e-4
 TOL_REL = 1e-5
 #: largest [M, N] float32 block the library yardstick may materialize
@@ -206,6 +221,11 @@ KDE_CASES = [
     ("c 65536^2 d=2", 65536, 65536, 2, {}),
     ("c 65536^2 d=5", 65536, 65536, 5, {}),
     ("d ragged d=3", 1000, 1537, 3, {"pad_last_tile": True}),
+    # the adaptive workloads' finalize: one model, so the support is the
+    # whole previous population of 1e5 rows (ABCSMC._pad_bucket caps the
+    # power-of-two bucket at the population: no pad rows)
+    ("e lv1e5 finalize d=4", 100_000, 100_000, 4, {}),
+    ("f sir1e5 finalize d=2", 100_000, 100_000, 2, {}),
 ]
 
 
@@ -344,19 +364,19 @@ def run_main_path(torch, pop: int, gens: int, seed: int = 0) -> dict:
         "mu_b": mu, "tol_mu": tol_mu, "kde_launches": launches,
         "wall_s": wall,
         "final_eps": float(abc.history.get_all_populations().epsilon.iloc[-1]),
-        "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
         "generations": [
             {"t": r["t"], "wall_s": r["wall_s"], "sample_s": r["sample_s"],
              "eps": r["eps"], "evaluations": r["evaluations"],
              "acceptance_rate": r["acceptance_rate"], "batch": r["batch"],
              "accepted_per_s": r["n"] / r["wall_s"],
              "kde_launches": r["kde_launches"],
-             "kde_support": r["kde_support"]} for r in rows],
+             "kde_support": r["kde_support"],
+             "peak_mem_gb": r["peak_mem_gb"]} for r in rows],
     }
 
 
 def _phase_pop(torch, state, name: str, pop: int, gens: int):
-    torch.cuda.reset_peak_memory_stats()
     row = run_main_path(torch, pop, gens)
     if pop >= 1 << 18:
         # every model keeps >= 2^14 particles at this size, so from t = 1
@@ -379,26 +399,116 @@ def phase_pop1e6(torch, state):
     _phase_pop(torch, state, "pop1e6", 1_000_000, 11)
 
 
-def phase_profile(torch, state):
-    """Device time by kernel and the device's idle share over the slowest
-    generation of the pop-1e6 run: generations 0-9 run unprofiled, then
-    generation 10 runs as a resumed ``run()`` under ``torch.profiler``."""
+#: BASELINE configs #3 and #4 as the JAX package's pop-1e5 bench rows run
+#: them: (problem factory, generating parameters, generations)
+ADAPTIVE = {"lv1e5": ("make_lotka_volterra_problem", "LV_TRUTH", 8),
+            "sir1e5": ("make_sir_problem", "SIR_TRUTH", 8)}
+ADAPTIVE_POP = 100_000
+
+
+def adaptive_abc(name: str):
+    """``(abc, distance, priors, truth)`` of one adaptive workload on the
+    card: full-width model, ``AdaptivePNormDistance(p=2)`` with the
+    median-absolute-deviation scale, ``MedianEpsilon``, batch 2^19."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch import models as pt_models
+
+    make, truth, _ = ADAPTIVE[name]
+    models, priors, distance, observed = getattr(pt_models, make)()
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=ADAPTIVE_POP,
+        eps=pt.MedianEpsilon(),
+        sampler=pt.VectorizedSampler(min_batch_size=1 << 19,
+                                     max_batch_size=1 << 19, device="cuda"),
+        stores_sum_stats=False, seed=0, device="cuda")
+    abc.new("sqlite://", observed)
+    return abc, distance, priors, getattr(pt_models, truth)
+
+
+def run_adaptive(torch, name: str) -> dict:
+    """One adaptive workload through ``ABCSMC.run`` on the card, with its
+    per-generation timeline and the gates of the module docstring."""
+    import numpy as np
+
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    gens = ADAPTIVE[name][2]
+    abc, distance, priors, truth = adaptive_abc(name)
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    abc.run(max_nr_populations=gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weighted_kde_logpdf_cuda.launches
+    rows = abc.timeline
+    names = priors[0].get_parameter_names()
+    df, w = abc.history.get_distribution(m=0, t=abc.history.max_t)
+    x = df[names].to_numpy(np.float64)
+    w = np.asarray(w, np.float64) / np.sum(w)
+    mean = (w[:, None] * x).sum(0)
+    std = np.sqrt((w[:, None] * (x - mean) ** 2).sum(0))
+    log_truth = np.log(np.asarray(truth))
+    prior_std = np.array([priors[0][k].scale for k in names]) / 12 ** 0.5
+    # weights[t] (t >= 1) is fitted from generation t - 1's records,
+    # weights[0] from the calibration sample of pop rows
+    checks = {
+        "gens": len(rows) == gens,
+        "eps": all(math.isfinite(r["eps"]) and r["eps"] > 0 for r in rows),
+        "launches": all(r["kde_launches"] >= 1 for r in rows if r["t"] >= 1),
+        "weights": (sorted(distance.weights) == list(range(gens))
+                    and all(r["records"] >= ADAPTIVE_POP
+                            for r in rows[:-1])),
+        "mean": bool(np.all(np.abs(mean - log_truth) <= 4 * std)),
+        "std": bool(np.all(std <= 0.75 * prior_std)),
+    }
+    return {
+        "pop": ADAPTIVE_POP, "gens_asked": gens, "gens_run": len(rows),
+        "ok": all(checks.values()), "checks": checks,
+        "kde_launches": launches, "wall_s": wall,
+        "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
+        "params": names, "posterior_mean": mean.tolist(),
+        "posterior_std": std.tolist(), "truth": log_truth.tolist(),
+        "prior_std": prior_std.tolist(),
+        "generations": [
+            {"t": r["t"], "wall_s": r["wall_s"], "sample_s": r["sample_s"],
+             "host_s": r["wall_s"] - r["sample_s"], "eps": r["eps"],
+             "evaluations": r["evaluations"],
+             "acceptance_rate": r["acceptance_rate"], "ess": r["ess"],
+             "batch": r["batch"], "kde_launches": r["kde_launches"],
+             "kde_support": r["kde_support"], "records": r["records"],
+             "refit_s": r["refit_s"], "peak_mem_gb": r["peak_mem_gb"],
+             "weight_min": float(distance.weights[r["t"]].min()),
+             "weight_max": float(distance.weights[r["t"]].max()),
+             "zero_weights": int((distance.weights[r["t"]] == 0).sum())}
+            for r in rows if r["t"] in distance.weights],
+    }
+
+
+def _phase_adaptive(torch, state, name: str):
+    row = run_adaptive(torch, name)
+    state.setdefault("launches", {})[name] = row["kde_launches"]
+    emit({"phase": name, **row})
+    if not row["ok"]:
+        raise RuntimeError(f"{name} failed its checks: {row['checks']}")
+
+
+def phase_lv1e5(torch, state):
+    _phase_adaptive(torch, state, "lv1e5")
+
+
+def phase_sir1e5(torch, state):
+    _phase_adaptive(torch, state, "sir1e5")
+
+
+def profile_last_generation(torch, abc, gens: int) -> dict:
+    """Run ``gens - 1`` generations unprofiled, then the last one as a
+    resumed ``run()`` under ``torch.profiler``: its device time by kernel
+    and the device's idle share."""
     import numpy as np
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    import pyabc_tpu_torch as pt
-    from pyabc_tpu_torch.models import make_two_gaussians_problem
-
-    models, priors, distance, observed, _ = make_two_gaussians_problem()
-    abc = pt.ABCSMC(
-        models, priors, distance, population_size=1_000_000,
-        eps=pt.MedianEpsilon(),
-        sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
-                                     max_rounds_per_call=16, device="cuda"),
-        stores_sum_stats=False, seed=0, device="cuda")
-    abc.new("sqlite://", observed)
-    abc.run(max_nr_populations=10)
+    abc.run(max_nr_populations=gens - 1)
     torch.cuda.synchronize()
     # device activity only: host-side op events would double the
     # attribution (an ATen op carries its kernel's time) and take minutes
@@ -417,17 +527,100 @@ def phase_profile(torch, state):
     kernels = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
     busy_s = sum(dev_us(e) for e in kernels) * 1e-6
-    top = sorted(kernels, key=dev_us, reverse=True)[:10]
-    emit({"phase": "profile", "ok": busy_s > 0, "t": gen["t"],
-          "wall_s": wall, "evaluations": gen["evaluations"],
-          "rounds": int(np.ceil(gen["evaluations"] / gen["batch"])),
-          "batch": gen["batch"], "device_busy_s": busy_s,
-          "device_idle_share": 1.0 - busy_s / wall,
-          "kde_launches": gen["kde_launches"],
-          "top_device": [{"name": e.key[:80], "calls": e.count,
-                          "device_s": dev_us(e) * 1e-6} for e in top]})
     if busy_s <= 0:
         raise RuntimeError("the profiler saw no device time")
+    top = sorted(kernels, key=dev_us, reverse=True)[:10]
+    return {"t": gen["t"], "wall_s": wall, "sample_s": gen["sample_s"],
+            "evaluations": gen["evaluations"],
+            "rounds": int(np.ceil(gen["evaluations"] / gen["batch"])),
+            "batch": gen["batch"], "device_busy_s": busy_s,
+            "device_idle_share": 1.0 - busy_s / wall,
+            "device_launches": sum(e.count for e in kernels),
+            "kde_launches": gen["kde_launches"],
+            "top_device": [{"name": e.key[:80], "calls": e.count,
+                            "device_s": dev_us(e) * 1e-6} for e in top]}
+
+
+def phase_profile(torch, state):
+    """The slowest generation of the pop-1e6 run (generation 10)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+
+    models, priors, distance, observed, _ = make_two_gaussians_problem()
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=1_000_000,
+        eps=pt.MedianEpsilon(),
+        sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
+                                     max_rounds_per_call=16, device="cuda"),
+        stores_sum_stats=False, seed=0, device="cuda")
+    abc.new("sqlite://", observed)
+    emit({"phase": "profile", "ok": True,
+          **profile_last_generation(torch, abc, 11)})
+
+
+def simulator_call(torch, model, theta) -> dict:
+    """The device time and kernel launches of one simulator call at the
+    batch size, as ``torch.profiler`` sees them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    gen = torch.Generator(device=theta.device)
+    gen.manual_seed(1)
+    model.simulate(gen, theta)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        model.simulate(gen, theta)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    busy = sum(getattr(e, "self_device_time_total",
+                       getattr(e, "self_cuda_time_total", 0.0))
+               for e in kernels) * 1e-6
+    return {"batch": int(theta.shape[0]), "device_s": busy,
+            "launches": sum(e.count for e in kernels)}
+
+
+def timed_generation(torch, abc) -> dict:
+    """One more generation, unprofiled, with the model's ``simulate``
+    timed on the host clock between two device syncs: the simulator's
+    seconds against the generation's ``sample_s``."""
+    model = abc.models[0]
+    spent = []
+
+    def timed(generator, theta):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = real(generator, theta)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return out
+
+    real, model.simulate = model.simulate, timed
+    try:
+        abc.run(max_nr_populations=1)
+    finally:
+        del model.simulate
+    gen = abc.timeline[-1]
+    return {"t": gen["t"], "sample_s": gen["sample_s"],
+            "simulator_calls": len(spent), "simulator_s": sum(spent),
+            "simulator_share_of_sample_s": sum(spent) / gen["sample_s"]}
+
+
+def phase_simprof(torch, state):
+    """For each adaptive workload: its last generation profiled, one more
+    with the simulator timed, and one simulator call at the batch size
+    profiled on its own."""
+    for name in ADAPTIVE:
+        abc, _, priors, _ = adaptive_abc(name)
+        row = profile_last_generation(torch, abc, ADAPTIVE[name][2])
+        split = timed_generation(torch, abc)
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        theta = priors[0].rvs_array(gen, row["batch"])
+        emit({"phase": "simprof", "workload": name, "ok": True, **row,
+              "timed_generation": split,
+              "simulator_call": simulator_call(torch, abc.models[0],
+                                               theta)})
 
 
 def kernels_line(state) -> dict:
@@ -460,8 +653,9 @@ def kernels_line(state) -> dict:
 
 PHASES = {"card": phase_card, "build": phase_build,
           "kernels": phase_kernels, "pop16384": phase_pop16384,
-          "pop1e6": phase_pop1e6, "profile": phase_profile,
-          "k1perm": phase_k1perm}
+          "pop1e6": phase_pop1e6, "lv1e5": phase_lv1e5,
+          "sir1e5": phase_sir1e5, "profile": phase_profile,
+          "simprof": phase_simprof, "k1perm": phase_k1perm}
 
 
 def main(argv=None) -> int:

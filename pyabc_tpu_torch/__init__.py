@@ -1,18 +1,21 @@
 """pyabc_tpu_torch: the PyTorch / CUDA port of pyabc_tpu.
 
-A second package beside the JAX reference.  This slice runs the
-sequential ABC-SMC path of configs #1 and #2 (``ABCSMC`` ->
-``VectorizedSampler`` -> candidate rounds -> Gaussian-KDE transition ->
-PNorm distance -> quantile epsilon -> uniform acceptor -> sqlite
-History) with the weighted-KDE log-density as a hand-written CUDA kernel
-(``csrc/kde_logpdf.cu``).  Entry points run on the card unless the
+A second package beside the JAX reference.  It runs the sequential
+ABC-SMC path of configs #1 to #4 (``ABCSMC`` -> ``VectorizedSampler`` ->
+candidate rounds -> Gaussian-KDE transition -> PNorm or adaptive PNorm
+distance over the record stream -> quantile epsilon -> uniform acceptor
+-> sqlite History; models: Gaussians, Lotka-Volterra SDE, SIR
+tau-leap) with the weighted-KDE log-density as a hand-written CUDA
+kernel (``csrc/kde_logpdf.cu``).  Entry points run on the card unless the
 caller passes ``device="cpu"`` (see :mod:`.device`).  Nothing here
 imports JAX or the JAX package.
 """
 
 from .acceptor import Acceptor, UniformAcceptor
 from .device import resolve_device
-from .distance import Distance, PNormDistance
+from .distance import AdaptivePNormDistance, Distance, PNormDistance
+from .distance import scale
+from .distance.scale import SCALE_FUNCTIONS
 from .epsilon import (ConstantEpsilon, Epsilon, ListEpsilon, MedianEpsilon,
                       QuantileEpsilon)
 from .model import Model, SimpleModel
@@ -27,6 +30,7 @@ from .transition import MultivariateNormalTransition
 
 __all__ = [
     "ABCSMC", "Acceptor", "UniformAcceptor", "Distance", "PNormDistance",
+    "AdaptivePNormDistance", "scale", "SCALE_FUNCTIONS",
     "Epsilon", "ConstantEpsilon", "ListEpsilon", "QuantileEpsilon",
     "MedianEpsilon", "Model", "SimpleModel", "Parameter", "ParameterSpace",
     "Population", "ConstantPopulationSize", "RV", "Distribution",

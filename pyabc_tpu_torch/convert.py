@@ -10,7 +10,11 @@ it to pin each generation's params on the run's device once.
 
 ``to_numpy`` is the converse for anything the port holds (a population's
 ``m``/``theta`` tensors, a params dict), so both packages can evaluate
-e.g. ``proposal_log_density`` on one identical input.  Loading a
+e.g. ``proposal_log_density`` on one identical input.
+
+``install_weights`` puts a distance weight schedule ``{t: w[S]}`` — host
+numpy in both packages, e.g. the JAX package's fitted
+``AdaptivePNormDistance.weights`` — into a port distance.  Loading a
 database written by ``pyabc_tpu`` needs its PTW1 blob codec and comes
 later.
 """
@@ -53,3 +57,11 @@ def to_numpy(tree):
     if torch.is_tensor(tree):
         return tree.detach().cpu().numpy()
     return np.asarray(tree)
+
+
+def install_weights(distance, weights: dict):
+    """Replace ``distance.weights`` with ``{int(t): float32 w}`` copied
+    from ``weights``; returns the distance."""
+    distance.weights = {int(t): np.array(to_numpy(w), dtype=np.float32)
+                        for t, w in weights.items()}
+    return distance

@@ -1,12 +1,17 @@
-"""Distance base contract (port of ``pyabc_tpu/distance/base.py``; the
-adaptive lifecycle — ``configure_sampler``/``update`` — comes with the
-adaptive distances).
+"""Distance base contract (port of ``pyabc_tpu/distance/base.py``).
 
 A distance splits into host lifecycle state and a pure batched kernel:
 
 - ``get_params(t)`` -> dict of host arrays, moved to the run's device once
   per generation by the sampler;
 - ``compute(stats[N, S], obs[S], params) -> [N]`` on tensors.
+
+The adaptation lifecycle mutates only the host state behind
+``get_params``: ``initialize`` calibrates from the calibration sample,
+``configure_sampler`` requests the record stream (rejected candidates
+too) when ``requires_all_sum_stats`` is set, and ``update(t,
+get_all_stats)`` refits once per generation and returns whether the
+params changed.
 """
 
 from __future__ import annotations
@@ -21,6 +26,11 @@ from ..sumstat import SumStatSpec
 class Distance:
     """Abstract distance over flattened summary statistics."""
 
+    #: whether this distance needs every candidate's stats recorded,
+    #: rejected ones included (``configure_sampler`` sets the sampler's
+    #: ``record_rejected``)
+    requires_all_sum_stats: bool = False
+
     def __init__(self):
         self.spec: Optional[SumStatSpec] = None
 
@@ -34,8 +44,30 @@ class Distance:
 
     def initialize(self, t: int, get_sample_stats: Optional[Callable],
                    x_0: Mapping, spec: SumStatSpec):
+        """Calibrate from the calibration sample: ``get_sample_stats()``
+        lazily returns its stats as ``{key: [N, ...]}``."""
         if self.spec is None or spec is not self.spec:
             self.bind(spec, x_0)
+
+    def configure_sampler(self, sampler):
+        """Request sampler features."""
+        if self.requires_all_sum_stats:
+            sampler.record_rejected = True
+
+    def update(self, t: int, get_all_stats: Optional[Callable] = None
+               ) -> bool:
+        """Per-generation adaptation; True iff the params changed."""
+        return False
+
+    def params_time_invariant(self) -> bool:
+        """True iff ``get_params(t)`` is the same for every t of the run.
+        Conservative: a subclass from outside this package that overrides
+        ``get_params`` counts as time-variant."""
+        gp = type(self).get_params
+        if gp is Distance.get_params:
+            return True
+        return (getattr(gp, "__module__", "")
+                or "").startswith("pyabc_tpu_torch.")
 
     def get_params(self, t: int) -> dict:
         return {}

@@ -1,15 +1,21 @@
-"""Concrete distances (port of ``PNormDistance`` from
-``pyabc_tpu/distance/distance.py``; the adaptive and aggregated
-distances come with a later slice)."""
+"""Concrete distances: port of ``PNormDistance`` and
+``AdaptivePNormDistance`` from ``pyabc_tpu/distance/distance.py`` (the
+aggregated, z-score, PCA, range, min-max and percentile distances are
+not ported yet).
+
+The adaptive weights are host numpy ``{t: w[S]}``, as in the JAX
+package; the scale refit behind them runs on the record block's device.
+"""
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Optional
+from typing import Callable, Dict, Mapping, Optional, Union
 
 import numpy as np
 import torch
 
 from .base import Distance
+from .scale import SCALE_FUNCTIONS, median_absolute_deviation
 
 
 class PNormDistance(Distance):
@@ -50,6 +56,10 @@ class PNormDistance(Distance):
         ts = [tt for tt in self.weights if tt <= t]
         return self.weights[max(ts) if ts else min(self.weights)]
 
+    def params_time_invariant(self) -> bool:
+        # a time-indexed weight schedule changes get_params across t
+        return len(self.weights) <= 1 and super().params_time_invariant()
+
     def get_params(self, t: int) -> dict:
         w = self._weights_for(t)
         f = self.factors if self.factors is not None else np.ones_like(w)
@@ -63,3 +73,90 @@ class PNormDistance(Distance):
 
     def get_config(self):
         return {"name": type(self).__name__, "p": self.p}
+
+
+class AdaptivePNormDistance(PNormDistance):
+    """p-norm with per-generation inverse-scale weights.
+
+    Each generation the weights are refit as ``w_s = 1 / scale_s`` from
+    the stats of every candidate of the previous generation, rejected
+    ones included — the record stream, which ``configure_sampler``
+    requests.  The weights of generation ``t`` sit in ``weights[t]``;
+    ``get_params(t)`` uses the latest entry at or before ``t``.
+
+    A custom ``scale_function(data[R, S], x_0[S]) -> [S]`` gets tensors on
+    the record block's device and must be NaN-aware like the built-in
+    :data:`~.scale.SCALE_FUNCTIONS`.
+    """
+
+    requires_all_sum_stats = True
+
+    def __init__(self, p: float = 2.0,
+                 factors: Optional[Mapping] = None,
+                 adaptive: bool = True,
+                 scale_function: Union[str, Callable]
+                 = median_absolute_deviation,
+                 normalize_weights: bool = True,
+                 max_weight_ratio: Optional[float] = None,
+                 log_file: Optional[str] = None):
+        super().__init__(p=p, weights=None, factors=factors)
+        self.adaptive = adaptive
+        if isinstance(scale_function, str):
+            scale_function = SCALE_FUNCTIONS[scale_function]
+        self.scale_function = scale_function
+        self.normalize_weights = normalize_weights
+        self.max_weight_ratio = max_weight_ratio
+        #: JSON trajectory of the weights, rewritten after every fit
+        self.log_file = log_file
+        self._x0_flat: Optional[torch.Tensor] = None
+
+    def _on_bind(self, x_0):
+        PNormDistance._on_bind(self, x_0)
+        if x_0 is not None:
+            self._x0_flat = self.spec.flatten_single(x_0)
+
+    def initialize(self, t, get_sample_stats, x_0, spec):
+        Distance.initialize(self, t, get_sample_stats, x_0, spec)
+        if get_sample_stats is not None:
+            self._fit(t, spec.flatten(get_sample_stats()))
+
+    def update(self, t, get_all_stats=None) -> bool:
+        if not self.adaptive or get_all_stats is None:
+            return False
+        if t in self.weights:
+            # the schedule for t is already decided; the population's
+            # distances are still re-evaluated under it
+            return True
+        data = self.spec.flatten(get_all_stats())
+        if data.shape[0] == 0:
+            return False  # nothing recorded: keep the previous weights
+        self._fit(t, data)
+        return True
+
+    def params_time_invariant(self) -> bool:
+        return (not self.adaptive) and super().params_time_invariant()
+
+    def _fit(self, t: int, data: torch.Tensor):
+        """Scales on the data's device; weights on the host."""
+        x0 = self._x0_flat.to(data.device)
+        scale = self.scale_function(data, x0).detach().cpu().numpy()
+        with np.errstate(divide="ignore"):
+            w = np.where(scale > 0, 1.0 / np.maximum(scale, 1e-30), 0.0)
+        if self.max_weight_ratio is not None:
+            pos = w[w > 0]
+            if pos.size:
+                w = np.minimum(w, pos.min() * self.max_weight_ratio)
+        if self.normalize_weights and w.sum() > 0:
+            w = w * w.size / w.sum()
+        self.weights[t] = w.astype(np.float32)
+        if self.log_file:
+            from ..storage import save_dict_to_json
+            save_dict_to_json(self.weights, self.log_file)
+
+    def get_config(self):
+        return {
+            "name": type(self).__name__, "p": self.p,
+            "scale_function": getattr(self.scale_function, "__name__",
+                                      "custom"),
+            "max_weight_ratio": self.max_weight_ratio,
+        }

@@ -20,6 +20,9 @@ class Epsilon:
                    acceptor_config: Optional[dict] = None):
         pass
 
+    def configure_sampler(self, sampler):
+        """Request sampler features (none for the schedules ported)."""
+
     def update(self, t: int,
                get_weighted_distances: Optional[Callable] = None,
                get_all_records: Optional[Callable] = None,

@@ -1,7 +1,12 @@
-"""Model problems of configs #1 and #2."""
+"""Model problems of configs #1 to #4."""
 
 from .gaussian import GaussianModel, make_gaussian_problem
+from .lotka_volterra import (LV_TRUTH, LotkaVolterraSDE,
+                             make_lotka_volterra_problem)
 from .mixture import make_two_gaussians_problem
+from .sir import SIR_TRUTH, SIRTauLeap, make_sir_problem
 
 __all__ = ["GaussianModel", "make_gaussian_problem",
-           "make_two_gaussians_problem"]
+           "make_two_gaussians_problem", "LotkaVolterraSDE",
+           "make_lotka_volterra_problem", "LV_TRUTH", "SIRTauLeap",
+           "make_sir_problem", "SIR_TRUTH"]

@@ -10,13 +10,20 @@ repeats rounds until ``n`` are accepted.  Rounds are ordered, so keeping
 the accepted rows in (round, lane) order and truncating to the first
 ``n`` is the reference's de-biasing protocol.  ``nr_evaluations`` counts
 rounds × B.
+
+The record stream: with ``record_rejected`` set (an adaptive distance
+asks for it), every valid candidate — accepted or not — is recorded, up
+to ``max_records`` per generation, earliest first.  The records stay on
+the device: their one consumer, the adaptive distance's scale refit, is
+itself a device reduction.
 """
 
 from __future__ import annotations
 
-from typing import List
+from typing import List, Optional
 
 import numpy as np
+import torch
 
 from ..population import Population
 
@@ -24,13 +31,20 @@ from ..population import Population
 class RoundResult:
     """One batch of B candidates (tensors on the run's device)."""
 
-    def __init__(self, m, theta, distance, accepted, log_weight, stats):
+    def __init__(self, m, theta, distance, accepted, log_weight, stats,
+                 valid=None, log_proposal=None):
         self.m = m                    # int64[B]
         self.theta = theta            # float32[B, D]
         self.distance = distance      # float32[B]
         self.accepted = accepted      # bool[B]
         self.log_weight = log_weight  # float32[B]
         self.stats = stats            # float32[B, S]
+        #: candidates that count as records (inside the prior support)
+        self.valid = valid if valid is not None else accepted
+        #: log density of the proposal that generated each candidate: the
+        #: prior at t = 0, NaN where the round deferred the density
+        self.log_proposal = (log_proposal if log_proposal is not None
+                             else torch.zeros_like(log_weight))
 
 
 class SamplingError(Exception):
@@ -38,20 +52,35 @@ class SamplingError(Exception):
 
 
 _ROW_KEYS = ("m", "theta", "distance", "log_weight", "stats")
+#: the record columns (``rec_<key>`` in the device loop's harvest)
+RECORD_KEYS = ("stats", "distance", "accepted", "m", "theta",
+               "log_proposal")
 
 
 class Sample:
-    """Host-side accumulator over rounds: accepted rows as numpy batches."""
+    """Host-side accumulator over rounds: accepted rows as numpy batches,
+    records as device tensors."""
 
-    def __init__(self):
+    def __init__(self, record_rejected: bool = False,
+                 max_records: int = 1 << 21):
+        self.record_rejected = record_rejected
+        self.max_records = int(max_records)
         self._acc: List[dict] = []
+        self._rec: List[dict] = []
+        self._n_recorded = 0
         self.nr_evaluations = 0
         #: ALL acceptances observed, incl. beyond the requested n (for an
         #: acceptance rate unbiased by the batch rounding)
         self.raw_accepted = 0
+        #: the accepted rows as device tensors (``m``, ``theta``,
+        #: ``distance``, ``log_weight``, ``stats``), when the sampler kept
+        #: them: the orchestrator re-evaluates distances from these stats
+        #: without an upload
+        self.device_population: Optional[dict] = None
 
     def append_round(self, rr: RoundResult):
-        """Ingest one round's accepted rows (one host transfer)."""
+        """Ingest one round's accepted rows (one host transfer) and, when
+        recording, its valid rows."""
         acc = rr.accepted.cpu().numpy()
         self.nr_evaluations += int(acc.shape[0])
         self.raw_accepted += int(acc.sum())
@@ -59,14 +88,40 @@ class Sample:
         if idx.size:
             self._acc.append({k: getattr(rr, k).cpu().numpy()[idx]
                               for k in _ROW_KEYS})
+        if self.record_rejected:
+            valid = torch.nonzero(rr.valid).flatten()
+            self.append_record_batch(
+                {"rec_" + k: getattr(rr, k)[valid] for k in RECORD_KEYS}
+                | {"rec_count": int(valid.numel())})
 
-    def append_device_batch(self, out: dict, n_evals: int, count: int):
+    def append_device_batch(self, out: dict, n_evals: int, count: int,
+                            device_view: Optional[dict] = None):
         """Ingest a generation's compacted accepted buffers: ``out`` holds
-        the first ``min(count, n)`` rows as host numpy."""
+        the first ``min(count, n)`` rows as host numpy, ``device_view``
+        the same rows on the device."""
         self.nr_evaluations += int(n_evals)
         self.raw_accepted += int(count)
         if out["m"].shape[0]:
             self._acc.append(out)
+        if device_view is not None:
+            self.device_population = device_view
+
+    def append_record_batch(self, rec: dict):
+        """Ingest one record harvest (``rec_<key>`` tensors whose first
+        ``rec_count`` rows are filled, in (round, lane) order).  Keeps the
+        earliest rows up to ``max_records`` across calls; the kept rows
+        are sliced to the exact count (views, no copy)."""
+        if not self.record_rejected:
+            return
+        rc = min(int(rec["rec_count"]), self.max_records - self._n_recorded)
+        if rc <= 0:
+            return
+        self._rec.append({k: rec["rec_" + k][:rc] for k in RECORD_KEYS})
+        self._n_recorded += rc
+
+    @property
+    def n_recorded(self) -> int:
+        return self._n_recorded
 
     @property
     def n_accepted(self) -> int:
@@ -83,8 +138,9 @@ class Sample:
         if self.n_accepted < n:
             raise SamplingError(
                 f"expected {n} accepted particles, have {self.n_accepted}")
+        # the stats are absent when the sampler kept them on the device
         cols = {k: np.concatenate([a[k] for a in self._acc])[:n]
-                for k in _ROW_KEYS}
+                for k in _ROW_KEYS if all(k in a for a in self._acc)}
         logw = cols["log_weight"]
         logw = logw - logw.max() if logw.size else logw
         w = np.exp(np.asarray(logw, dtype=np.float64))
@@ -94,7 +150,23 @@ class Sample:
         return Population(
             m=cols["m"].astype(np.int32), theta=cols["theta"],
             weight=(w / s).astype(np.float32), distance=cols["distance"],
-            sum_stats={"__flat__": cols["stats"]})
+            sum_stats={"__flat__": cols["stats"]} if "stats" in cols else {})
+
+    def get_all_stats(self):
+        """Every recorded candidate's stats ``[R, S]`` (rejected ones
+        included) on the device; without records, the accepted stats."""
+        if self._rec:
+            return torch.cat([r["stats"] for r in self._rec])
+        if self._acc and all("stats" in a for a in self._acc):
+            return np.concatenate([a["stats"] for a in self._acc])
+        return np.zeros((0, 0), np.float32)
+
+    def get_records(self) -> Optional[dict]:
+        """The record columns concatenated over calls (device tensors),
+        or None without records."""
+        if not self._rec:
+            return None
+        return {k: torch.cat([r[k] for r in self._rec]) for k in RECORD_KEYS}
 
 
 class Sampler:
@@ -102,6 +174,19 @@ class Sampler:
 
     def __init__(self):
         self.nr_evaluations_ = 0
+        #: record every valid candidate (set by configure_sampler of a
+        #: distance that adapts to them)
+        self.record_rejected = False
+        #: records must carry real proposal densities (temperature
+        #: schemes; not ported yet, so nothing sets it)
+        self.record_proposal_density = False
+        #: cap on recorded candidates per generation (the orchestrator
+        #: sets it from ABCSMC.max_nr_recorded_particles)
+        self.max_records = 1 << 21
+        #: copy the accepted stats to the host; the orchestrator clears it
+        #: when nothing reads them there (no History blob, no refit over
+        #: accepted stats) and they stay on the device
+        self.fetch_stats = True
 
     def sample_until_n_accepted(self, n: int, round_fn, generator, params,
                                 max_eval: float = np.inf,

@@ -12,6 +12,11 @@ where the proposal density is ``log Σ_s p_s · jump_pmf(s → m) + log
 q_m(θ)`` with ``q_m`` the model's KDE.  Everything runs on the device of
 the params and the generator; per-generation values arrive in
 ``params`` (tensors), so nothing here changes between generations.
+
+Each round also marks the candidates that count as records (``valid``:
+inside the prior support) and their generating proposal's log density
+(``log_proposal``: the prior at t = 0, NaN where the density is
+deferred).
 """
 
 from __future__ import annotations
@@ -118,8 +123,11 @@ class RoundKernel:
             theta = torch.where((m == j)[:, None], th_j, theta)
         stats, d, accepted, log_acc_term = self._evaluate(
             generator, theta, m, params, all_accepted=all_accepted)
+        # every prior draw is a record; its generating density is the prior
         return RoundResult(m=m, theta=theta, distance=d, accepted=accepted,
-                           log_weight=log_acc_term, stats=stats)
+                           log_weight=log_acc_term, stats=stats,
+                           valid=torch.ones_like(accepted),
+                           log_proposal=self._log_prior(m, theta))
 
     # ---- generation round -------------------------------------------------
 
@@ -166,11 +174,15 @@ class RoundKernel:
         accepted = sim_accepted & valid
         log_weight = log_prior + log_acc_term
         if with_proposal:
-            log_weight = log_weight - self.proposal_log_density(m, theta,
-                                                                params)
+            log_proposal = self.proposal_log_density(m, theta, params)
+            log_weight = log_weight - log_proposal
+        else:
+            # deferred: the records carry NaN, never a wrong density
+            log_proposal = torch.full_like(log_weight, math.nan)
         log_weight = torch.where(accepted, log_weight, -math.inf)
         return RoundResult(m=m, theta=theta, distance=d, accepted=accepted,
-                           log_weight=log_weight, stats=stats)
+                           log_weight=log_weight, stats=stats, valid=valid,
+                           log_proposal=log_proposal)
 
     # read by the sampler (through the bound method) to decide deferral
     generation_round.supports_deferred_proposal = True

@@ -10,9 +10,13 @@ ladder chosen by the :class:`~pyabc_tpu_torch.autotune.BatchAutotuner`
 The proposal density is always deferred out of the rounds when the round
 function supports it: rounds produce partial weights and ``finalize``
 subtracts the KDE density once over the accepted rows — one KDE kernel
-launch per model per generation.  The f16 wire codec and the record
-buffers of the JAX package are not ported: the host reads the float32
-buffers, and adaptive distances and temperature schemes come later.
+launch per model per generation.  The f16 wire codec of the JAX package
+is not ported: the host reads the float32 buffers.
+
+With ``record_rejected`` set, each call's rounds also record their valid
+candidates (``record_cap = min(max_records, B · max_rounds_per_call)``
+rows per call); the records are harvested once per call and handed to
+``Sample.append_record_batch`` on the device.
 """
 
 from __future__ import annotations
@@ -26,7 +30,7 @@ from ..autotune import BatchAutotuner
 from ..convert import to_numpy, to_torch
 from ..device import resolve_device
 from .base import Sample, Sampler, SamplingError
-from .device_loop import build_stateful_loop
+from .device_loop import build_stateful_loop, harvest_rec
 
 logger = logging.getLogger("ABC.Sampler")
 
@@ -68,7 +72,8 @@ class VectorizedSampler(Sampler):
     def sample_until_n_accepted(self, n, round_fn, generator, params,
                                 max_eval=np.inf, all_accepted=False
                                 ) -> Sample:
-        sample = Sample()
+        sample = Sample(record_rejected=self.record_rejected,
+                        max_records=self.max_records)
         # params arrive as host numpy (fits are control plane); pin them
         # on the device once per generation
         params = to_torch(params, self.device)
@@ -96,6 +101,8 @@ class VectorizedSampler(Sampler):
             return sample
 
         B = self.last_batch = self.choose_batch(n)
+        record_cap = (min(self.max_records, B * self.max_rounds_per_call)
+                      if self.record_rejected else 0)
         defer = (getattr(round_fn, "supports_deferred_proposal", False)
                  and hasattr(round_fn, "__self__"))
         if defer:
@@ -107,13 +114,18 @@ class VectorizedSampler(Sampler):
             weight_fn = None
         owner = getattr(round_fn, "__self__", round_fn)
         loop_key = (getattr(owner, "_uid", id(owner)),
-                    getattr(round_fn, "__name__", ""), B, n, defer)
+                    getattr(round_fn, "__name__", ""), B, n, defer,
+                    record_cap)
         cached = self._states.pop(loop_key, None)
         start, step, finalize, reset = build_stateful_loop(
-            raw, B, n, self.max_rounds_per_call, weight_correction=weight_fn)
+            raw, B, n, self.max_rounds_per_call, weight_correction=weight_fn,
+            record_cap=record_cap)
         state = reset(cached) if cached is not None else start()
         while True:
             state = step(generator, params, state)
+            if record_cap:
+                rec, state = harvest_rec(state)
+                sample.append_record_batch(rec)
             count, rounds = int(state["count"]), state["rounds"]
             self._tuner.observe(count, max(rounds * B, 1), rounds=rounds)
             if count >= n:
@@ -123,7 +135,10 @@ class VectorizedSampler(Sampler):
                                max_eval, count, n)
                 break
         view = finalize(state, params)
-        sample.append_device_batch(to_numpy(view), rounds * B, count)
+        host = {k: v for k, v in view.items()
+                if k != "stats" or self.fetch_stats}
+        sample.append_device_batch(to_numpy(host), rounds * B, count,
+                                   device_view=view)
         self._states[loop_key] = state
         while len(self._states) > 4:
             self._states.pop(next(iter(self._states)))

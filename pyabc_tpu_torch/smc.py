@@ -8,10 +8,17 @@ plane (fits, epsilon, model probabilities, History) is host numpy, as in
 the JAX package; the candidate rounds and the KDE run on the run's device
 with one ``torch.Generator`` seeded from ``seed``.
 
-Not ported in this slice (ROADMAP): the fused, one-dispatch, pipelined
-and lazy-History engines — the JAX package takes the pipelined and lazy
+An adaptive distance (``AdaptivePNormDistance``) requests the record
+stream at the start of every ``run``; each generation it refits its
+weights over the previous generation's records (rejected candidates
+included) on the device, and the population's distances are re-evaluated
+under the new weights before the acceptor and epsilon see them — at
+calibration, at every generation and on resume.
+
+Not ported yet (ROADMAP): the fused, one-dispatch, pipelined and
+lazy-History engines — the JAX package takes the pipelined and lazy
 branches at pop 1e6 by default, this port always runs the classic loop —
-and the adaptive, stochastic and multi-fidelity components.
+and the stochastic and multi-fidelity components.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import numpy as np
 import torch
 
 from .acceptor import Acceptor, UniformAcceptor
+from .convert import to_torch
 from .device import make_generator, resolve_device
 from .distance import Distance, PNormDistance
 from .epsilon import Epsilon, MedianEpsilon
@@ -76,6 +84,7 @@ class ABCSMC:
                  sampler: Optional[Sampler] = None,
                  stop_if_only_single_model_alive: bool = False,
                  stores_sum_stats: bool = True,
+                 max_nr_recorded_particles: int = 1 << 21,
                  seed: int = 0,
                  device=None):
         if not isinstance(models, (list, tuple)):
@@ -119,13 +128,21 @@ class ABCSMC:
         self.acceptor = acceptor if acceptor is not None else UniformAcceptor()
         self.stop_if_only_single_model_alive = stop_if_only_single_model_alive
         self.stores_sum_stats = bool(stores_sum_stats)
+        #: per-generation cap on recorded candidates (the sampler's
+        #: max_records when a component requests records)
+        self.max_nr_recorded_particles = int(max_nr_recorded_particles)
         #: the run's one random stream, on the run's device
         self.generator = make_generator(self.device, seed)
         #: per-generation rows: t, wall_s (append to append), sample_s,
         #: eps, n, evaluations, acceptance_rate, ess, batch, kde_launches
         #: (KDE kernel launches in the generation), kde_support (per
-        #: model: pdf support rows, grid-compressed or not)
+        #: model: pdf support rows, grid-compressed or not), records
+        #: (candidates recorded), refit_s (seconds of the distance fit
+        #: whose params the generation used), peak_mem_gb (peak device
+        #: memory allocated in the generation, on the card; None on the
+        #: CPU)
         self.timeline: List[dict] = []
+        self._refit_s = 0.0
         self.stop_reason: Optional[str] = None
 
         self.history: Optional[History] = None
@@ -242,6 +259,27 @@ class ABCSMC:
     def _param_names(self) -> list:
         return [list(p.get_parameter_names()) for p in self.parameter_priors]
 
+    def _distance_is_adaptive(self) -> bool:
+        """True when the distance may consume candidate stats in
+        ``update``: it says so by an ``adaptive`` flag, or it is a class
+        from outside this package that overrides ``update``."""
+        d = self.distance_function
+        if getattr(d, "adaptive", False):
+            return True
+        upd = type(d).update
+        if upd is Distance.update:
+            return False
+        return not getattr(upd, "__module__",
+                           "").startswith("pyabc_tpu_torch.")
+
+    def _distances_under(self, t: int, stats) -> np.ndarray:
+        """The distances of ``stats[N, S]`` under the distance's params
+        for generation ``t`` (on the run's device; host result)."""
+        stats = torch.as_tensor(stats, device=self.device)
+        params = to_torch(self.distance_function.get_params(t), self.device)
+        return self.distance_function.compute(
+            stats, self._obs_flat, params).cpu().numpy().astype(np.float32)
+
     # ---- calibration and resume ----------------------------------------
 
     def _calibrate(self, t0: int):
@@ -252,12 +290,16 @@ class ABCSMC:
             n, self._kernel.prior_round, self.generator, params,
             all_accepted=True)
         pop = sample.get_accepted_population(n)
-        stats_flat = pop.sum_stats["__flat__"]
-        # the distances of this slice are fixed: initializing changes no
-        # params, so the round's distances stand (an adaptive distance
-        # re-evaluates them here)
+        stats_dev = torch.as_tensor(pop.sum_stats["__flat__"],
+                                    device=self.device)
+        refit_mark = time.perf_counter()
         self.distance_function.initialize(
-            t0, lambda: self.spec.unflatten(stats_flat), self.x_0, self.spec)
+            t0, lambda: self.spec.unflatten(stats_dev), self.x_0, self.spec)
+        self._refit_s = time.perf_counter() - refit_mark
+        # the round's distances were provisional (an adaptive distance is
+        # calibrated only now): re-evaluate under the initialized distance
+        pop = Population(pop.m, pop.theta, pop.weight,
+                         self._distances_under(t0, stats_dev), pop.sum_stats)
 
         def get_weighted_distances():
             return np.asarray(pop.distance), np.asarray(pop.weight)
@@ -284,9 +326,17 @@ class ABCSMC:
 
         get_stats = None
         if "__flat__" in pop.sum_stats:
-            flat = pop.sum_stats["__flat__"]
+            flat = torch.as_tensor(pop.sum_stats["__flat__"],
+                                   device=self.device)
             get_stats = lambda: self.spec.unflatten(flat)  # noqa: E731
+        refit_mark = time.perf_counter()
         self.distance_function.initialize(t0, get_stats, self.x_0, self.spec)
+        self._refit_s = time.perf_counter() - refit_mark
+        if get_stats is not None:
+            # as at calibration and every generation: the acceptor and
+            # epsilon see the distances under the (re)fitted weights
+            pop = Population(pop.m, pop.theta, pop.weight,
+                             self._distances_under(t0, flat), pop.sum_stats)
         self.acceptor.initialize(
             t0, get_weighted_distances, self.distance_function, self.x_0)
         self.eps.initialize(t0, get_weighted_distances, lambda: None,
@@ -311,6 +361,20 @@ class ABCSMC:
             self._calibrate(t0)
         else:
             self._initialize_from_history(t0)
+        # fresh feature requests each run: a previous run's components
+        # must not leave stale record flags on a reused sampler
+        self.sampler.record_rejected = False
+        self.sampler.record_proposal_density = False
+        self.distance_function.configure_sampler(self.sampler)
+        self.eps.configure_sampler(self.sampler)
+        self.sampler.max_records = self.max_nr_recorded_particles
+        # the accepted stats go to the host only for a reader there: the
+        # History blob, or an adaptive refit that has no record stream
+        records_cover_refit = (self.sampler.record_rejected
+                               and self.max_nr_recorded_particles > 0)
+        self.sampler.fetch_stats = (
+            self.stores_sum_stats
+            or (self._distance_is_adaptive() and not records_cover_refit))
 
         t = t0
         t_max = (t0 + max_nr_populations
@@ -318,6 +382,9 @@ class ABCSMC:
         total_sims = 0
         gen_mark = time.perf_counter()
         launches_mark = weighted_kde_logpdf_cuda.launches
+        on_card = self.device.type == "cuda"
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(self.device)
         model_names = [m.name for m in self.models]
         while t < t_max:
             current_eps = float(self.eps(t))
@@ -365,9 +432,14 @@ class ABCSMC:
                                  - launches_mark),
                 "kde_support": ([_pdf_support_rows(p)
                                  for p in params["transition"]]
-                                if t > 0 else [])})
+                                if t > 0 else []),
+                "records": sample.n_recorded, "refit_s": self._refit_s,
+                "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
+                                / 1e9 if on_card else None)})
             gen_mark = now
             launches_mark = weighted_kde_logpdf_cuda.launches
+            if on_card:
+                torch.cuda.reset_peak_memory_stats(self.device)
             logger.info("t: %d, acceptance rate: %.4g, ESS: %.4g, evals: %d",
                         t, acceptance_rate, ess, sample.nr_evaluations)
 
@@ -386,17 +458,44 @@ class ABCSMC:
                 break
             if t + 1 >= t_max:
                 break
-            self._prepare_next_iteration(t + 1, population, acceptance_rate)
+            self._prepare_next_iteration(t + 1, sample, population,
+                                         acceptance_rate)
             t += 1
         self.history.done()
         return self.history
 
-    def _prepare_next_iteration(self, t: int, population: Population,
+    def _prepare_next_iteration(self, t: int, sample, population: Population,
                                 acceptance_rate: float):
-        """Refit the transitions and advance acceptor and epsilon from
-        generation ``t - 1`` (the distances of this slice are fixed, so
-        nothing is re-evaluated)."""
+        """Refit the transitions and the distance, and advance acceptor
+        and epsilon, from generation ``t - 1``.  When the distance's params
+        change, the population's distances are re-evaluated under them —
+        from the accepted stats still on the device — before the acceptor
+        and epsilon see them."""
         self._fit_transitions(t, population=population)
+
+        def get_all_stats():
+            flat = sample.get_all_stats()
+            if (flat.ndim != 2 or flat.shape[0] == 0
+                    or flat.shape[-1] != self.spec.total_size):
+                flat = np.zeros((0, self.spec.total_size), np.float32)
+            return self.spec.unflatten(flat)
+
+        refit_mark = time.perf_counter()
+        changed = self.distance_function.update(t, get_all_stats)
+        self._refit_s = time.perf_counter() - refit_mark
+        if changed:
+            dev = sample.device_population
+            if dev is not None:
+                stats = dev["stats"][:len(population)]
+            else:
+                stats = population.sum_stats.get("__flat__")
+            if stats is not None:
+                population = Population(
+                    population.m, population.theta, population.weight,
+                    self._distances_under(t, stats), population.sum_stats)
+            else:
+                logger.debug("distance changed at t=%d but the population "
+                             "has no stats; keeping stored distances", t)
 
         def get_weighted_distances():
             return (np.asarray(population.distance),

@@ -42,7 +42,8 @@ class SumStatSpec:
         parts = []
         for k in self.keys:
             v = torch.as_tensor(x[k]).to(torch.float32)
-            parts.append(v.reshape(v.shape[0], -1))
+            # explicit width: a block of 0 rows has no -1 to infer
+            parts.append(v.reshape(v.shape[0], self.sizes[k]))
         return torch.cat(parts, dim=-1)
 
     def flatten_single(self, x0: Mapping, device=None) -> torch.Tensor:

@@ -98,6 +98,33 @@ def test_compressed_transition_density_runs_the_kernel(dev):
     assert _close(got, ref)
 
 
+@pytest.mark.parametrize("d,n,n_pad", [(4, 6000, 6000), (2, 6000, 8192)])
+def test_finalize_geometry_of_the_adaptive_workloads(dev, d, n, n_pad):
+    """The Lotka-Volterra (d = 4) and SIR (d = 2) finalize in small form:
+    the queries are the new population, the support the previous one with
+    its fitted full covariance, unweighted rows padded to the bucket as
+    ``ABCSMC._fit_transitions`` pads them; one launch per call."""
+    rng = np.random.default_rng(d)
+    mix = rng.standard_normal((d, d)) * 0.3 + np.eye(d)
+
+    def population(size):
+        return (rng.standard_normal((size, d)) @ mix.T).astype(np.float32)
+
+    tr = MultivariateNormalTransition().fit(population(n),
+                                            rng.uniform(0.5, 1.5, n))
+    params = tr.pad_params(tr.get_params(), n_pad)
+    assert "c_support" not in params
+    params = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+              for k, v in params.items()}
+    x = torch.as_tensor(population(n), device=dev)
+    before = kde_cuda.weighted_kde_logpdf_cuda.launches
+    got = tr.log_pdf_from_params(x, params)
+    assert kde_cuda.weighted_kde_logpdf_cuda.launches == before + 1
+    ref = kde.weighted_kde_logpdf(x, params["support"], params["log_w"],
+                                  params["chol"], params["log_norm"])
+    assert _close(got, ref)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     t, ln = _problem(dev, 100, 200, 2)
     x, support, log_w, chol = t
