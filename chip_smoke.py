@@ -7,7 +7,8 @@
 Phases, each printed as one JSON line and each fatal on failure:
 
 1. ``card``    — the card's name, power limit and maximum SM clock.
-2. ``build``   — compile every CUDA kernel of the port from its source.
+2. ``build``   — create the CUDA context and compile every CUDA kernel of
+   the port from its source.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the shapes the main path gives it (tolerance ``1e-4 + 1e-5·|ref|``),
    with the kernels' own time (``kernel_only_ms``: back-to-back launches
@@ -30,6 +31,26 @@ Phases, each printed as one JSON line and each fatal on failure:
    generation from at least ``pop`` rows, the posterior mean within 4
    posterior standard deviations of the generating parameters, and each
    posterior standard deviation at most 0.75 of the prior's.
+6. ``petab1e5`` / ``sbml1e5`` — BASELINE config #5: exact stochastic ABC
+   (``StochasticAcceptor``, ``Temperature``, the llh kernel) over ODE
+   models, pop 1e5, batch 2^18.  ``petab1e5`` is the JAX package's
+   ``petab_ode_pop100k`` bench row through ``ODEPetabImporter`` (one rate,
+   RK4 at dt = 0.1, ``Temperature(aggregate_fun=max)``, 6 generations);
+   ``sbml1e5`` imports the SBML decay model with two experimental
+   conditions through ``PetabProblem`` and ``SBMLPetabImporter`` (RK4 at
+   200 steps, ``Temperature()``, up to 8 generations).  Each holds the
+   last temperature at 1, the temperatures non-increasing, K1's launches
+   in every generation t >= 1 at the count the code gives (the finalize,
+   one per record batch, and the new proposal's density when a scheme
+   read the records), and the last population against the exact
+   posterior, by quadrature of the model's own llh on the CPU: |mean −
+   μ_q| ≤ max(1e-3, 4·σ_q/√ESS), |std/σ_q − 1| ≤ 0.05 + 4/√(2·ESS).
+   ``petab1e5`` runs all 6 generations; its quadrature must read 0.685 /
+   0.0523.
+
+The ``kernels`` phase runs last: its row (g) takes config #5's record
+shape [records × support] from the ``petab1e5`` run's timeline (a stated
+default shape without that run).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -37,7 +58,9 @@ profiles the slowest generation of the pop-1e6 run with
 ``simprof`` does the same for the last generation of ``lv1e5`` and
 ``sir1e5``, then runs one more generation with the simulator timed
 between device syncs (its share of ``sample_s``), and profiles one
-simulator call at the batch size (device time, kernel launches).
+simulator call at the batch size (device time, kernel launches, the
+unprofiled call's wall); for ``petab1e5`` and ``sbml1e5`` it profiles
+one simulator call at batch 2^18.
 Timeline rows carry each generation's peak device memory
 (``peak_mem_gb``); a phase reports the largest.  ``k1perm`` times K1 at
 the pop-1e6 finalize shape on the sorted grid support and on the same
@@ -61,8 +84,8 @@ import sys
 import time
 from pathlib import Path
 
-ALL_PHASES = ("card", "build", "kernels", "pop16384", "pop1e6", "lv1e5",
-              "sir1e5")
+ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
+              "petab1e5", "sbml1e5", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm")
 TOL_ABS = 1e-4
@@ -116,6 +139,9 @@ def phase_card(torch, state):
 
 def phase_build(torch, state):
     from pyabc_tpu_torch.ops import _build
+    # the process's CUDA context is made here, not inside the first
+    # main-path phase's timed run
+    torch.ones(1, device="cuda").sum().item()
     t0 = time.perf_counter()
     built = _build.build_all()
     report = {name: _build.ptxas_report(info["ptxas"])
@@ -227,6 +253,18 @@ KDE_CASES = [
     ("e lv1e5 finalize d=4", 100_000, 100_000, 4, {}),
     ("f sir1e5 finalize d=2", 100_000, 100_000, 2, {}),
 ]
+#: row (g) without a petab1e5 run: two rounds of 2^18 candidates against
+#: the smallest grid-compressed support
+RECORD_SHAPE_DEFAULT = (1 << 19, 8192)
+
+
+def record_case(state) -> tuple:
+    """Row (g): config #5's record density, [records × support] at d = 1
+    over the grid-compressed support, from the petab1e5 run's generation
+    with the most records."""
+    m, n = state.get("petab_record_shape", RECORD_SHAPE_DEFAULT)
+    source = "petab1e5" if "petab_record_shape" in state else "default"
+    return (f"g petab1e5 records ({source})", m, n, 1, {"grid": True})
 
 
 def phase_kernels(torch, state):
@@ -238,7 +276,7 @@ def phase_kernels(torch, state):
     gen.manual_seed(20261016)
     rows = []
     ok_all = True
-    for label, m, n, d, kw in KDE_CASES:
+    for label, m, n, d, kw in KDE_CASES + [record_case(state)]:
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
@@ -500,6 +538,247 @@ def phase_sir1e5(torch, state):
     _phase_adaptive(torch, state, "sir1e5")
 
 
+#: BASELINE config #5, as the JAX package's petab_ode_pop100k row runs it
+STOCHASTIC_POP = 100_000
+STOCHASTIC_BATCH = 1 << 18
+STOP_TEMPERATURE = "Stopping: temperature reached 1"
+
+#: the SBML decay model of the JAX package's PEtab tests
+SBML_DECAY = """\
+<?xml version="1.0" encoding="UTF-8"?>
+<sbml xmlns="http://www.sbml.org/sbml/level3/version2/core"
+      level="3" version="2">
+  <model id="decay">
+    <listOfCompartments>
+      <compartment id="cell" size="1" constant="true"/>
+    </listOfCompartments>
+    <listOfSpecies>
+      <species id="A" compartment="cell" initialConcentration="1"
+               boundaryCondition="false" constant="false"/>
+    </listOfSpecies>
+    <listOfParameters>
+      <parameter id="k1" value="0.7" constant="true"/>
+    </listOfParameters>
+    <listOfReactions>
+      <reaction id="degrade" reversible="false">
+        <listOfReactants>
+          <speciesReference species="A" stoichiometry="1"/>
+        </listOfReactants>
+        <kineticLaw>
+          <math xmlns="http://www.w3.org/1998/Math/MathML">
+            <apply><times/><ci>k1</ci><ci>A</ci></apply>
+          </math>
+        </kineticLaw>
+      </reaction>
+    </listOfReactions>
+  </model>
+</sbml>
+"""
+
+
+def petab_importer():
+    """bench.py's petab_ode_pop100k problem: one rate ``k``, uniform on
+    [0.01, 3] (lin scale), ``dy/dt = −k·y``, y0 = 1, t_max 2 in 20 RK4
+    steps, observed after steps 4, 9, 14, 19 with σ = 0.05, data from
+    ``default_rng(0)``."""
+    import numpy as np
+    import pandas as pd
+
+    from pyabc_tpu_torch.petab import ODEPetabImporter
+
+    par_df = pd.DataFrame({
+        "parameterId": ["k"], "parameterScale": ["lin"],
+        "lowerBound": [0.01], "upperBound": [3.0], "estimate": [1],
+        "objectivePriorType": ["uniform"],
+        "objectivePriorParameters": ["0.01;3.0"]}).set_index("parameterId")
+    t_max, n_steps = 2.0, 20
+    obs_idx = np.asarray([4, 9, 14, 19])
+    times = (obs_idx + 1) * (t_max / n_steps)
+    rng = np.random.default_rng(0)
+    data = np.exp(-0.7 * times) + 0.05 * rng.normal(size=times.shape)
+    return ODEPetabImporter(
+        par_df, rhs=lambda y, theta: -theta[:, 0:1] * y, y0=[1.0],
+        t_max=t_max, n_steps=n_steps, obs_idx=obs_idx,
+        measurements={"y0": data}, sigma=0.05)
+
+
+def sbml_importer():
+    """The SBML decay model in two conditions (A(0) = 1 in ``c0``, 2 in
+    ``c1`` through the condition table), measured at t = 0.5, 1, 1.5, 2
+    in each (``c0``: exp(−0.7 t) + 0.05·N(0, 1) from ``default_rng(0)``;
+    ``c1``: 2·exp(−0.7 t) + 0.05·N(0, 1) from ``default_rng(1)``); ``k1``
+    uniform on [0.01, 3]; the problem built from in-memory tables (no
+    YAML), the importer's default 200 RK4 steps."""
+    import numpy as np
+    import pandas as pd
+
+    from pyabc_tpu_torch.petab import PetabProblem, SBMLPetabImporter
+
+    times = np.asarray([0.5, 1.0, 1.5, 2.0])
+    c0 = np.exp(-0.7 * times) + 0.05 * np.random.default_rng(0).normal(
+        size=times.shape)
+    c1 = 2.0 * np.exp(-0.7 * times) + 0.05 * np.random.default_rng(
+        1).normal(size=times.shape)
+    problem = PetabProblem(
+        SBML_DECAY,
+        parameter_df=pd.DataFrame({
+            "parameterId": ["k1"], "parameterScale": ["lin"],
+            "lowerBound": [0.01], "upperBound": [3.0], "estimate": [1],
+            "objectivePriorType": ["uniform"],
+            "objectivePriorParameters": ["0.01;3.0"]}),
+        observable_df=pd.DataFrame({
+            "observableId": ["obs_a"], "observableFormula": ["A"],
+            "noiseFormula": [0.05]}),
+        measurement_df=pd.DataFrame({
+            "observableId": "obs_a",
+            "simulationConditionId": ["c0"] * 4 + ["c1"] * 4,
+            "time": list(times) * 2, "measurement": list(c0) + list(c1)}),
+        condition_df=pd.DataFrame({"conditionId": ["c0", "c1"],
+                                   "A": [1.0, 2.0]}))
+    return SBMLPetabImporter(problem)
+
+
+#: name -> (importer, generations, temperature aggregation, quadrature
+#: points over the prior)
+STOCHASTIC = {"petab1e5": (petab_importer, 6, max, 40001),
+              "sbml1e5": (sbml_importer, 8, min, 20001)}
+
+
+def quadrature(torch, model, points: int) -> tuple:
+    """(mean, std) of the exact posterior of the one parameter: the
+    model's own llh on the CPU over ``points`` equally spaced values of
+    the uniform prior [0.01, 3], weighted by exp(llh)."""
+    k = torch.linspace(0.01, 3.0, points, dtype=torch.float64)
+    gen = torch.Generator()
+    gen.manual_seed(0)
+    llh = model.simulate(gen, k.to(torch.float32)[:, None])["llh"].double()
+    p = torch.exp(llh - llh.max())
+    p = p / p.sum()
+    mean = float((p * k).sum())
+    return mean, float((p * (k - mean) ** 2).sum().sqrt())
+
+
+def scheme_solved(proposals: dict) -> bool:
+    """Whether the temperature of a generation came from its schemes
+    (which read the records, and with them the new proposal's density)
+    rather than from the final, clamped, initial or installed value."""
+    return not ({"final", "clamped", "initial_temperature", "installed"}
+                & set(proposals))
+
+
+def run_stochastic(torch, name: str) -> dict:
+    """One config-#5 workload through ``ABCSMC.run`` on the card, with its
+    per-generation timeline and the gates of the module docstring."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    make, gens, aggregate, points = STOCHASTIC[name]
+    importer = make()
+    t_q = time.perf_counter()
+    mu_q, sd_q = quadrature(torch, importer.create_model(), points)
+    quadrature_s = time.perf_counter() - t_q
+    temperature = pt.Temperature(aggregate_fun=aggregate)
+    acceptor = pt.StochasticAcceptor()
+    abc = pt.ABCSMC(
+        importer.create_model(), importer.create_prior(),
+        importer.create_kernel(), population_size=STOCHASTIC_POP,
+        eps=temperature, acceptor=acceptor,
+        sampler=pt.VectorizedSampler(min_batch_size=STOCHASTIC_BATCH,
+                                     max_batch_size=STOCHASTIC_BATCH,
+                                     device="cuda"),
+        seed=0, device="cuda")
+    abc.new("sqlite://", importer.get_observed())
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    abc.run(max_nr_populations=gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weighted_kde_logpdf_cuda.launches
+    rows = abc.timeline
+    name_k = importer.create_prior().get_parameter_names()[0]
+    df, w = abc.history.get_distribution(m=0, t=abc.history.max_t)
+    k = df[name_k].to_numpy(np.float64)
+    w = np.asarray(w, np.float64) / np.sum(w)
+    mean = float(np.sum(w * k))
+    std = float(np.sqrt(np.sum(w * (k - mean) ** 2)))
+    ess = float(1.0 / np.sum(w ** 2))
+    temps = [temperature(r["t"]) for r in rows]
+
+    # K1 per generation t >= 1 (one model): the finalize's deferred
+    # proposal density, one density per record batch at ingest, and the
+    # new proposal's density at the previous generation's records when a
+    # scheme read them (ABCSMC._prepare_next_iteration)
+    def expected(r):
+        if r["t"] == 0:
+            return 0
+        return (1 + r["record_batches"]
+                + scheme_solved(temperature.temperature_proposals[r["t"]]))
+
+    checks = {
+        "final_temperature": temps[-1] == 1.0,
+        "monotone": all(a >= b for a, b in zip(temps, temps[1:])),
+        "stop": abc.stop_reason == STOP_TEMPERATURE,
+        "launches": all(r["kde_launches"] == expected(r)
+                        and (r["t"] == 0 or r["kde_launches"] >= 2)
+                        for r in rows),
+        "mean": abs(mean - mu_q) <= max(1e-3, 4 * sd_q / ess ** 0.5),
+        "std": abs(std / sd_q - 1) <= 0.05 + 4 / (2 * ess) ** 0.5,
+    }
+    if name == "petab1e5":
+        checks["gens"] = len(rows) == gens
+        checks["quadrature"] = (f"{mu_q:.3g}", f"{sd_q:.3g}") == \
+            ("0.685", "0.0523")
+    return {
+        "pop": STOCHASTIC_POP, "gens_asked": gens, "gens_run": len(rows),
+        "ok": all(checks.values()), "checks": checks,
+        "stop_reason": abc.stop_reason, "kde_launches": launches,
+        "wall_s": wall, "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
+        "param": name_k, "posterior_mean": mean, "posterior_std": std,
+        "ess": ess, "quadrature_mean": mu_q, "quadrature_std": sd_q,
+        "quadrature_points": points, "quadrature_s": quadrature_s,
+        "tol_mean": max(1e-3, 4 * sd_q / ess ** 0.5),
+        "tol_std_ratio": 0.05 + 4 / (2 * ess) ** 0.5,
+        "generations": [
+            {"t": r["t"], "wall_s": r["wall_s"], "sample_s": r["sample_s"],
+             "host_s": r["wall_s"] - r["sample_s"],
+             "temperature": r["eps"],
+             "pdf_norm": acceptor.pdf_norms[r["t"]],
+             "proposals": temperature.temperature_proposals[r["t"]],
+             "evaluations": r["evaluations"],
+             "acceptance_rate": r["acceptance_rate"], "ess": r["ess"],
+             "batch": r["batch"], "kde_launches": r["kde_launches"],
+             "kde_launches_expected": expected(r),
+             "kde_support": r["kde_support"], "records": r["records"],
+             "record_batches": r["record_batches"],
+             "peak_mem_gb": r["peak_mem_gb"]} for r in rows],
+    }
+
+
+def _phase_stochastic(torch, state, name: str):
+    row = run_stochastic(torch, name)
+    state.setdefault("launches", {})[name] = row["kde_launches"]
+    if name == "petab1e5":
+        # K1 row (g): the generation with the most records
+        g = max((r for r in row["generations"] if r["t"] >= 1),
+                key=lambda r: r["records"], default=None)
+        if g is not None:
+            state["petab_record_shape"] = (g["records"],
+                                           g["kde_support"][0]["rows"])
+    emit({"phase": name, **row})
+    if not row["ok"]:
+        raise RuntimeError(f"{name} failed its checks: {row['checks']}")
+
+
+def phase_petab1e5(torch, state):
+    _phase_stochastic(torch, state, "petab1e5")
+
+
+def phase_sbml1e5(torch, state):
+    _phase_stochastic(torch, state, "sbml1e5")
+
+
 def profile_last_generation(torch, abc, gens: int) -> dict:
     """Run ``gens - 1`` generations unprofiled, then the last one as a
     resumed ``run()`` under ``torch.profiler``: its device time by kernel
@@ -560,7 +839,8 @@ def phase_profile(torch, state):
 
 def simulator_call(torch, model, theta) -> dict:
     """The device time and kernel launches of one simulator call at the
-    batch size, as ``torch.profiler`` sees them."""
+    batch size, as ``torch.profiler`` sees them, and the wall of one
+    unprofiled call between two device syncs."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -568,6 +848,10 @@ def simulator_call(torch, model, theta) -> dict:
     gen.manual_seed(1)
     model.simulate(gen, theta)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.simulate(gen, theta)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         model.simulate(gen, theta)
         torch.cuda.synchronize()
@@ -577,7 +861,7 @@ def simulator_call(torch, model, theta) -> dict:
                        getattr(e, "self_cuda_time_total", 0.0))
                for e in kernels) * 1e-6
     return {"batch": int(theta.shape[0]), "device_s": busy,
-            "launches": sum(e.count for e in kernels)}
+            "launches": sum(e.count for e in kernels), "wall_s": wall}
 
 
 def timed_generation(torch, abc) -> dict:
@@ -609,7 +893,16 @@ def timed_generation(torch, abc) -> dict:
 def phase_simprof(torch, state):
     """For each adaptive workload: its last generation profiled, one more
     with the simulator timed, and one simulator call at the batch size
-    profiled on its own."""
+    profiled on its own; for each config-#5 workload, one simulator call
+    at its batch size."""
+    for name, (make, *_) in STOCHASTIC.items():
+        importer = make()
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        theta = importer.create_prior().rvs_array(gen, STOCHASTIC_BATCH)
+        emit({"phase": "simprof", "workload": name, "ok": True,
+              "simulator_call": simulator_call(
+                  torch, importer.create_model(), theta)})
     for name in ADAPTIVE:
         abc, _, priors, _ = adaptive_abc(name)
         row = profile_last_generation(torch, abc, ADAPTIVE[name][2])
@@ -654,7 +947,8 @@ def kernels_line(state) -> dict:
 PHASES = {"card": phase_card, "build": phase_build,
           "kernels": phase_kernels, "pop16384": phase_pop16384,
           "pop1e6": phase_pop1e6, "lv1e5": phase_lv1e5,
-          "sir1e5": phase_sir1e5, "profile": phase_profile,
+          "sir1e5": phase_sir1e5, "petab1e5": phase_petab1e5,
+          "sbml1e5": phase_sbml1e5, "profile": phase_profile,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 
 

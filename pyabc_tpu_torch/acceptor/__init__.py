@@ -1,6 +1,10 @@
-"""Acceptors (port of ``pyabc_tpu/acceptor``; uniform only in this
-slice)."""
+"""Acceptors (port of ``pyabc_tpu/acceptor``: uniform and stochastic,
+with the pdf normalizations)."""
 
-from .acceptor import Acceptor, UniformAcceptor
+from .acceptor import (Acceptor, StochasticAcceptor, UniformAcceptor,
+                       stochastic_accept)
+from .pdf_norm import ScaledPDFNorm, pdf_norm_from_kernel, pdf_norm_max_found
 
-__all__ = ["Acceptor", "UniformAcceptor"]
+__all__ = ["Acceptor", "UniformAcceptor", "StochasticAcceptor",
+           "stochastic_accept", "pdf_norm_from_kernel", "pdf_norm_max_found",
+           "ScaledPDFNorm"]

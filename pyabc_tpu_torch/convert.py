@@ -14,9 +14,11 @@ e.g. ``proposal_log_density`` on one identical input.
 
 ``install_weights`` puts a distance weight schedule ``{t: w[S]}`` — host
 numpy in both packages, e.g. the JAX package's fitted
-``AdaptivePNormDistance.weights`` — into a port distance.  Loading a
-database written by ``pyabc_tpu`` needs its PTW1 blob codec and comes
-later.
+``AdaptivePNormDistance.weights`` — into a port distance.
+``install_annealing`` puts an annealing schedule — e.g. a JAX run's
+``Temperature.temperatures`` and ``StochasticAcceptor.pdf_norms`` — into
+a port ``Temperature`` and ``StochasticAcceptor``.  Loading a database
+written by ``pyabc_tpu`` needs its PTW1 blob codec and comes later.
 """
 
 from __future__ import annotations
@@ -65,3 +67,16 @@ def install_weights(distance, weights: dict):
     distance.weights = {int(t): np.array(to_numpy(w), dtype=np.float32)
                         for t, w in weights.items()}
     return distance
+
+
+def install_annealing(temperature, acceptor, temperatures: dict,
+                      pdf_norms: dict):
+    """Install ``{t: T}`` into ``temperature`` and ``{t: log c}`` into
+    ``acceptor``: in a run, each installed generation keeps its
+    temperature and pdf norm instead of computing them (its schemes and
+    norm method are not consulted).  Returns ``(temperature, acceptor)``."""
+    temperature.installed = {int(t): float(v)
+                             for t, v in temperatures.items()}
+    acceptor.installed_norms = {int(t): float(v)
+                                for t, v in pdf_norms.items()}
+    return temperature, acceptor

@@ -1,9 +1,18 @@
-"""Epsilon schedules (port of ``pyabc_tpu/epsilon``; temperature schemes
-come with a later slice)."""
+"""Epsilon schedules (port of ``pyabc_tpu/epsilon``: threshold schedules
+and the temperature schedules of the stochastic acceptor)."""
 
 from .base import Epsilon
 from .epsilon import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                       QuantileEpsilon)
+from .temperature import (AcceptanceRateScheme, DalyScheme, EssScheme,
+                          ExpDecayFixedIterScheme, ExpDecayFixedRatioScheme,
+                          FrielPettittScheme, ListTemperature,
+                          PolynomialDecayFixedIterScheme, Temperature,
+                          TemperatureBase, TemperatureScheme)
 
 __all__ = ["Epsilon", "ConstantEpsilon", "ListEpsilon", "QuantileEpsilon",
-           "MedianEpsilon"]
+           "MedianEpsilon", "TemperatureBase", "ListTemperature",
+           "Temperature", "TemperatureScheme", "AcceptanceRateScheme",
+           "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",
+           "PolynomialDecayFixedIterScheme", "DalyScheme",
+           "FrielPettittScheme", "EssScheme"]

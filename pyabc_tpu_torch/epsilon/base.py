@@ -21,7 +21,8 @@ class Epsilon:
         pass
 
     def configure_sampler(self, sampler):
-        """Request sampler features (none for the schedules ported)."""
+        """Request sampler features (the record stream, for a
+        temperature scheme that reads it)."""
 
     def update(self, t: int,
                get_weighted_distances: Optional[Callable] = None,

@@ -1,7 +1,8 @@
 """Random variables, priors and the model-perturbation kernel.
 
-Port of the parts of ``pyabc_tpu/random_variables.py`` that the
-sequential path of configs #1/#2 uses: ``RV("norm")``, ``RV("uniform")``,
+Port of the parts of ``pyabc_tpu/random_variables.py`` that configs #1
+to #5 use: ``RV("norm")``, ``RV("uniform")``, ``RV("lognorm")`` and
+``RV("laplace")`` (the last two for the PEtab prior mapping),
 :class:`Distribution` (batched ``rvs_array`` / ``log_pdf_array`` over
 dense ``[N, D]`` tensors) and :class:`ModelPerturbationKernel`.
 Randomness comes from an explicit ``torch.Generator``; samples land on
@@ -73,8 +74,47 @@ class Uniform(RVBase):
                            torch.full_like(x, -math.inf))
 
 
-#: the native families this slice ports; the rest come later (ROADMAP)
-_NAME_MAP = {"norm": Norm, "uniform": Uniform}
+class LogNorm(RVBase):
+    """scipy.stats.lognorm(s, scale) convention: ``X = scale · exp(s·Z)``."""
+
+    def __init__(self, s=1.0, scale=1.0):
+        self.s = float(s)
+        self.scale = float(scale)
+
+    def sample(self, generator, shape=()):
+        z = torch.randn(shape, generator=generator,
+                        device=device_of(generator))
+        return self.scale * torch.exp(self.s * z)
+
+    def log_pdf(self, x):
+        safe = torch.where(x > 0, x, torch.ones_like(x))
+        logx = torch.log(safe / self.scale)
+        val = (-(logx * logx) / (2.0 * self.s ** 2)
+               - torch.log(safe * (self.s * math.sqrt(2.0 * math.pi))))
+        return torch.where(x > 0, val, torch.full_like(x, -math.inf))
+
+
+class Laplace(RVBase):
+    """Laplace with location ``loc`` and scale ``scale``."""
+
+    def __init__(self, loc=0.0, scale=1.0):
+        self.loc = float(loc)
+        self.scale = float(scale)
+
+    def sample(self, generator, shape=()):
+        # inverse cdf of u in (-1/2, 1/2): -sign(u) log(1 - 2|u|)
+        u = torch.rand(shape, generator=generator,
+                       device=device_of(generator)) - 0.5
+        return self.loc - self.scale * torch.sign(u) * torch.log1p(
+            -2.0 * u.abs())
+
+    def log_pdf(self, x):
+        return -(x - self.loc).abs() / self.scale - math.log(2.0 * self.scale)
+
+
+#: the native families ported so far; the rest come later (ROADMAP)
+_NAME_MAP = {"norm": Norm, "uniform": Uniform, "lognorm": LogNorm,
+             "laplace": Laplace}
 
 
 def RV(name: Union[str, RVBase], *args, **kwargs) -> RVBase:

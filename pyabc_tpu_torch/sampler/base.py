@@ -12,15 +12,20 @@ the accepted rows in (round, lane) order and truncating to the first
 rounds × B.
 
 The record stream: with ``record_rejected`` set (an adaptive distance
-asks for it), every valid candidate — accepted or not — is recorded, up
-to ``max_records`` per generation, earliest first.  The records stay on
-the device: their one consumer, the adaptive distance's scale refit, is
-itself a device reduction.
+or a temperature scheme asks for it), every valid candidate — accepted
+or not — is recorded, up to ``max_records`` per generation, earliest
+first.  The records stay on the device: the adaptive distance's scale
+refit and the temperature's acceptance-rate solve are device reductions.
+With ``record_proposal_density`` set, each ingested record batch gets
+its generating proposal's density (the rounds defer it; K1 on the card);
+the orchestrator sets the new proposal's density on the ``Sample``
+(``transition_log_pdf`` on host arrays, ``transition_log_pdf_device`` on
+tensors), and the temperature schemes read the ratio of the two.
 """
 
 from __future__ import annotations
 
-from typing import List, Optional
+from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -77,6 +82,11 @@ class Sample:
         #: them: the orchestrator re-evaluates distances from these stats
         #: without an upload
         self.device_population: Optional[dict] = None
+        #: log density of the newly fitted proposal at ``(m, theta)``:
+        #: host arrays in and out, and the same on device tensors (set by
+        #: the orchestrator for the temperature schemes)
+        self.transition_log_pdf: Optional[Callable] = None
+        self.transition_log_pdf_device: Optional[Callable] = None
 
     def append_round(self, rr: RoundResult):
         """Ingest one round's accepted rows (one host transfer) and, when
@@ -110,14 +120,28 @@ class Sample:
         """Ingest one record harvest (``rec_<key>`` tensors whose first
         ``rec_count`` rows are filled, in (round, lane) order).  Keeps the
         earliest rows up to ``max_records`` across calls; the kept rows
-        are sliced to the exact count (views, no copy)."""
+        are sliced to the exact count (views, no copy).  With a
+        ``record_density_fn(m, theta)`` in ``rec`` (rounds that deferred
+        the proposal density), the kept rows' ``log_proposal`` is that
+        density: one evaluation per batch, bounded by the record budget
+        rather than by rounds × batch."""
         if not self.record_rejected:
             return
         rc = min(int(rec["rec_count"]), self.max_records - self._n_recorded)
         if rc <= 0:
             return
-        self._rec.append({k: rec["rec_" + k][:rc] for k in RECORD_KEYS})
+        batch = {k: rec["rec_" + k][:rc] for k in RECORD_KEYS}
+        density_fn = rec.get("record_density_fn")
+        if density_fn is not None:
+            batch["log_proposal"] = density_fn(batch["m"], batch["theta"])
+        self._rec.append(batch)
         self._n_recorded += rc
+
+    @property
+    def n_record_batches(self) -> int:
+        """Record batches ingested (one per sampler call that kept
+        records)."""
+        return len(self._rec)
 
     @property
     def n_recorded(self) -> int:
@@ -161,12 +185,54 @@ class Sample:
             return np.concatenate([a["stats"] for a in self._acc])
         return np.zeros((0, 0), np.float32)
 
-    def get_records(self) -> Optional[dict]:
-        """The record columns concatenated over calls (device tensors),
-        or None without records."""
+    def get_records(self, keys=RECORD_KEYS) -> Optional[dict]:
+        """The record columns ``keys`` concatenated over calls (device
+        tensors), or None without records."""
         if not self._rec:
             return None
-        return {k: torch.cat([r[k] for r in self._rec]) for k in RECORD_KEYS}
+        return {k: torch.cat([r[k] for r in self._rec]) for k in keys}
+
+    def get_records_columns(self) -> Optional[Dict[str, np.ndarray]]:
+        """Host record columns for the temperature schemes: ``distance``
+        (the kernel value), ``transition_pd_prev`` (density of the
+        generating proposal), ``transition_pd`` (density of the new
+        proposal, through :attr:`transition_log_pdf`) and ``accepted``.
+        Both densities are shifted by one constant before ``exp``: the
+        schemes read only their ratio."""
+        # the schemes never read the [R, S] stats block
+        recs = self.get_records(("m", "theta", "distance", "accepted",
+                                 "log_proposal"))
+        if recs is None:
+            return None
+        log_prev = recs["log_proposal"].cpu().numpy().astype(np.float64)
+        if self.transition_log_pdf is None:
+            log_new = log_prev
+        else:
+            log_new = np.asarray(self.transition_log_pdf(
+                recs["m"].cpu().numpy(), recs["theta"].cpu().numpy()),
+                dtype=np.float64)
+        finite = np.concatenate([log_prev[np.isfinite(log_prev)],
+                                 log_new[np.isfinite(log_new)]])
+        shift = finite.max() if finite.size else 0.0
+        return {
+            "distance": recs["distance"].cpu().numpy().astype(np.float64),
+            "transition_pd_prev": np.exp(log_prev - shift),
+            "transition_pd": np.exp(log_new - shift),
+            "accepted": recs["accepted"].cpu().numpy().astype(bool),
+        }
+
+    def get_records_device(self) -> Optional[dict]:
+        """Device record columns for the temperature schemes: ``log_dens``
+        (the kernel value) and ``log_ratio`` (log new-proposal density −
+        log generating density, through :attr:`transition_log_pdf_device`).
+        Reads nothing back to the host; None without records or without
+        the device density."""
+        if not self._rec or self.transition_log_pdf_device is None:
+            return None
+        recs = self.get_records(("m", "theta", "distance", "log_proposal"))
+        log_new = self.transition_log_pdf_device(recs["m"], recs["theta"])
+        return {"log_dens": recs["distance"],
+                "log_ratio": log_new - recs["log_proposal"]}
 
 
 class Sampler:
@@ -177,8 +243,8 @@ class Sampler:
         #: record every valid candidate (set by configure_sampler of a
         #: distance that adapts to them)
         self.record_rejected = False
-        #: records must carry real proposal densities (temperature
-        #: schemes; not ported yet, so nothing sets it)
+        #: records must carry their generating proposal's density (set
+        #: with record_rejected by a temperature that reads the records)
         self.record_proposal_density = False
         #: cap on recorded candidates per generation (the orchestrator
         #: sets it from ABCSMC.max_nr_recorded_particles)

@@ -16,7 +16,10 @@ is not ported: the host reads the float32 buffers.
 With ``record_rejected`` set, each call's rounds also record their valid
 candidates (``record_cap = min(max_records, B · max_rounds_per_call)``
 rows per call); the records are harvested once per call and handed to
-``Sample.append_record_batch`` on the device.
+``Sample.append_record_batch`` on the device.  With
+``record_proposal_density`` also set and the density deferred, the
+harvest carries the proposal density, which the ``Sample`` evaluates
+once over the kept rows of each call (one K1 launch per model).
 """
 
 from __future__ import annotations
@@ -105,10 +108,15 @@ class VectorizedSampler(Sampler):
                       if self.record_rejected else 0)
         defer = (getattr(round_fn, "supports_deferred_proposal", False)
                  and hasattr(round_fn, "__self__"))
+        record_density_fn = None
         if defer:
             raw = lambda gen, p: round_fn(gen, p, B,  # noqa: E731
                                           with_proposal=False)
             weight_fn = round_fn.__self__.proposal_log_density
+            if record_cap and self.record_proposal_density:
+                # the records get their generating density at ingest
+                record_density_fn = (
+                    lambda m, th: weight_fn(m, th, params))  # noqa: E731
         else:
             raw = lambda gen, p: round_fn(gen, p, B)  # noqa: E731
             weight_fn = None
@@ -125,6 +133,7 @@ class VectorizedSampler(Sampler):
             state = step(generator, params, state)
             if record_cap:
                 rec, state = harvest_rec(state)
+                rec["record_density_fn"] = record_density_fn
                 sample.append_record_batch(rec)
             count, rounds = int(state["count"]), state["rounds"]
             self._tuner.observe(count, max(rounds * B, 1), rounds=rounds)

@@ -15,14 +15,22 @@ included) on the device, and the population's distances are re-evaluated
 under the new weights before the acceptor and epsilon see them — at
 calibration, at every generation and on resume.
 
+The stochastic triple (``StochasticAcceptor``, a ``TemperatureBase``
+epsilon and a ``StochasticKernel``) runs exact Bayesian ABC: a
+``Temperature`` reads the record stream with its proposal densities (the
+calibration sample with density ratio 1, then each generation's records
+under the newly fitted proposal, on the device), the acceptor's pdf norm
+follows the population, and the run stops once the temperature reaches 1.
+
 Not ported yet (ROADMAP): the fused, one-dispatch, pipelined and
 lazy-History engines — the JAX package takes the pipelined and lazy
 branches at pop 1e6 by default, this port always runs the classic loop —
-and the stochastic and multi-fidelity components.
+and the multi-fidelity components.
 """
 
 from __future__ import annotations
 
+import functools
 import logging
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
@@ -30,11 +38,11 @@ from typing import Callable, Dict, List, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from .acceptor import Acceptor, UniformAcceptor
-from .convert import to_torch
+from .acceptor import Acceptor, StochasticAcceptor, UniformAcceptor
+from .convert import to_numpy, to_torch
 from .device import make_generator, resolve_device
-from .distance import Distance, PNormDistance
-from .epsilon import Epsilon, MedianEpsilon
+from .distance import Distance, PNormDistance, StochasticKernel
+from .epsilon import Epsilon, MedianEpsilon, TemperatureBase
 from .model import Model, SimpleModel
 from .ops.kde_cuda import weighted_kde_logpdf_cuda
 from .population import Population
@@ -54,6 +62,7 @@ STOP_EPS = "Stopping: minimum epsilon reached"
 STOP_SINGLE_MODEL = "Stopping: single model alive"
 STOP_ACC_RATE = "Stopping: acceptance rate too low"
 STOP_BUDGET = "Stopping: simulation budget exhausted"
+STOP_TEMPERATURE = "Stopping: temperature reached 1"
 
 
 def _pdf_support_rows(params: dict) -> dict:
@@ -127,6 +136,7 @@ class ABCSMC:
         self.eps = eps if eps is not None else MedianEpsilon()
         self.acceptor = acceptor if acceptor is not None else UniformAcceptor()
         self.stop_if_only_single_model_alive = stop_if_only_single_model_alive
+        self._sanity_check()
         self.stores_sum_stats = bool(stores_sum_stats)
         #: per-generation cap on recorded candidates (the sampler's
         #: max_records when a component requests records)
@@ -137,10 +147,12 @@ class ABCSMC:
         #: eps, n, evaluations, acceptance_rate, ess, batch, kde_launches
         #: (KDE kernel launches in the generation), kde_support (per
         #: model: pdf support rows, grid-compressed or not), records
-        #: (candidates recorded), refit_s (seconds of the distance fit
-        #: whose params the generation used), peak_mem_gb (peak device
-        #: memory allocated in the generation, on the card; None on the
-        #: CPU)
+        #: (candidates recorded), record_batches (sampler calls that kept
+        #: records: each evaluates the proposal density over its records
+        #: when a temperature reads them), refit_s (seconds of the
+        #: distance fit whose params the generation used), peak_mem_gb
+        #: (peak device memory allocated in the generation, on the card;
+        #: None on the CPU)
         self.timeline: List[dict] = []
         self._refit_s = 0.0
         self.stop_reason: Optional[str] = None
@@ -153,6 +165,16 @@ class ABCSMC:
         self._trans_params: Optional[tuple] = None
         self._pad_buckets: Dict[int, int] = {}
         self.max_nr_populations = np.inf
+
+    def _sanity_check(self):
+        """The stochastic triple goes together or not at all."""
+        stoch = [isinstance(self.acceptor, StochasticAcceptor),
+                 isinstance(self.eps, TemperatureBase),
+                 isinstance(self.distance_function, StochasticKernel)]
+        if any(stoch) and not all(stoch):
+            raise ValueError(
+                "StochasticAcceptor, Temperature and a StochasticKernel "
+                "must be used together")
 
     # ---- run registration / resume ------------------------------------
 
@@ -306,7 +328,17 @@ class ABCSMC:
 
         self.acceptor.initialize(
             t0, get_weighted_distances, self.distance_function, self.x_0)
-        self.eps.initialize(t0, get_weighted_distances, lambda: None,
+        # the calibration round records nothing: a temperature scheme reads
+        # the calibration population as records of density ratio 1
+        d0 = np.asarray(pop.distance, dtype=np.float64)
+
+        def get_records():
+            ones = np.ones(d0.shape[0])
+            return {"distance": d0, "transition_pd_prev": ones,
+                    "transition_pd": ones,
+                    "accepted": np.ones(d0.shape[0], dtype=bool)}
+
+        self.eps.initialize(t0, get_weighted_distances, get_records,
                             self.max_nr_populations,
                             self.acceptor.get_epsilon_config(t0))
         self.history.append_population(
@@ -339,7 +371,13 @@ class ABCSMC:
                              self._distances_under(t0, flat), pop.sum_stats)
         self.acceptor.initialize(
             t0, get_weighted_distances, self.distance_function, self.x_0)
-        self.eps.initialize(t0, get_weighted_distances, lambda: None,
+        # a temperature continues from the stored one (the populations'
+        # epsilon column), not from T = inf
+        pops = self.history.get_all_populations()
+        row = pops[pops.t == t0 - 1]
+        if len(row) and hasattr(self.eps, "temperatures"):
+            self.eps.temperatures[t0 - 1] = float(row.epsilon.iloc[0])
+        self.eps.initialize(t0, get_weighted_distances, lambda: [],
                             self.max_nr_populations,
                             self.acceptor.get_epsilon_config(t0))
 
@@ -433,7 +471,9 @@ class ABCSMC:
                 "kde_support": ([_pdf_support_rows(p)
                                  for p in params["transition"]]
                                 if t > 0 else []),
-                "records": sample.n_recorded, "refit_s": self._refit_s,
+                "records": sample.n_recorded,
+                "record_batches": sample.n_record_batches,
+                "refit_s": self._refit_s,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
                                 / 1e9 if on_card else None)})
             gen_mark = now
@@ -444,8 +484,11 @@ class ABCSMC:
                         t, acceptance_rate, ess, sample.nr_evaluations)
 
             # ---- stopping criteria (same strings as the JAX package) ----
-            if current_eps <= minimum_epsilon:
+            temperature = isinstance(self.eps, TemperatureBase)
+            if not temperature and current_eps <= minimum_epsilon:
                 self.stop_reason = STOP_EPS
+            elif temperature and current_eps <= 1.0:
+                self.stop_reason = STOP_TEMPERATURE
             elif (self.stop_if_only_single_model_alive
                   and population.nr_of_models_alive() <= 1 and self.M > 1):
                 self.stop_reason = STOP_SINGLE_MODEL
@@ -501,7 +544,37 @@ class ABCSMC:
             return (np.asarray(population.distance),
                     np.asarray(population.normalized_weights()))
 
-        self.acceptor.update(t, get_weighted_distances, None,
+        prev_temp = (float(self.eps(t - 1))
+                     if isinstance(self.eps, TemperatureBase) else None)
+        self.acceptor.update(t, get_weighted_distances, prev_temp,
                              acceptance_rate)
-        self.eps.update(t, get_weighted_distances, lambda: None,
-                        acceptance_rate, self.acceptor.get_epsilon_config(t))
+        # the records carry their generating proposal's density; the new
+        # proposal's, at the same records, gives the temperature schemes
+        # their importance ratios (evaluated only when a scheme reads them)
+        params = functools.cache(lambda: self._proposal_params(
+            self._model_probabilities(t - 1)))
+        sample.transition_log_pdf = (
+            lambda m, theta: self._proposal_log_pdf(params(), m, theta))
+        sample.transition_log_pdf_device = (
+            lambda m, theta: self._kernel.proposal_log_density(
+                m, theta, params()))
+        self.eps.update(t, get_weighted_distances,
+                        sample.get_records_columns, acceptance_rate,
+                        self.acceptor.get_epsilon_config(t))
+
+    def _proposal_params(self, probs: np.ndarray) -> dict:
+        """The fitted proposal's params on the run's device: model
+        probabilities and transitions."""
+        with np.errstate(divide="ignore"):
+            log_probs = np.log(np.maximum(probs, 1e-300)).astype(np.float32)
+        return to_torch({"model_log_probs": log_probs,
+                         "transition": self._trans_params}, self.device)
+
+    def _proposal_log_pdf(self, params: dict, m, theta) -> np.ndarray:
+        """Host arrays in and out: ``log[Σ_s p_s·jump_pmf(s→m)] + log
+        q_m(θ)`` under ``params``, evaluated on the run's device."""
+        m = torch.as_tensor(np.asarray(m), dtype=torch.int64,
+                            device=self.device)
+        theta = torch.as_tensor(np.asarray(theta, dtype=np.float32),
+                                device=self.device)
+        return to_numpy(self._kernel.proposal_log_density(m, theta, params))

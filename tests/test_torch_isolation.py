@@ -36,6 +36,11 @@ def test_port_files_exist():
     names = {p.relative_to(ROOT).as_posix() for p in _port_files()}
     assert "pyabc_tpu_torch/smc.py" in names
     assert "pyabc_tpu_torch/ops/kde_cuda.py" in names
+    for new in ("distance/kernel.py", "acceptor/pdf_norm.py",
+                "epsilon/temperature.py", "models/ode.py",
+                "petab/__init__.py", "petab/base.py", "petab/ode.py",
+                "petab/sbml.py", "petab/problem.py"):
+        assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 
 

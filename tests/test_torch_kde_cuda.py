@@ -125,6 +125,41 @@ def test_finalize_geometry_of_the_adaptive_workloads(dev, d, n, n_pad):
     assert _close(got, ref)
 
 
+def test_record_density_of_the_stochastic_workload(dev):
+    """Config #5's record shape in small form, d = 1: the records are
+    every candidate of a generation (the proposal's draws, tails past the
+    population included), the support the previous population's
+    grid-compressed cells; the density is taken at record ingest, one
+    launch per record batch."""
+    from pyabc_tpu_torch.sampler.base import RECORD_KEYS, Sample
+
+    rng = np.random.default_rng(5)
+    pop = (0.685 + 0.05 * rng.standard_normal((40000, 1))).astype(np.float32)
+    tr = MultivariateNormalTransition().fit(pop, rng.uniform(0.5, 1.5, 40000))
+    params = tr.pad_params(tr.get_params(), 1 << 16)
+    assert "c_support" in params
+    params = {k: torch.as_tensor(np.asarray(v, np.float32), device=dev)
+              for k, v in params.items()}
+    n = 5 * 40000
+    records = {"rec_" + k: torch.zeros(n, device=dev) for k in RECORD_KEYS}
+    records["rec_theta"] = torch.as_tensor(
+        (0.685 + 0.12 * rng.standard_normal((n, 1))).astype(np.float32),
+        device=dev)
+    records["rec_m"] = torch.zeros(n, dtype=torch.int64, device=dev)
+    records["rec_count"] = n
+    records["record_density_fn"] = (
+        lambda m, th: tr.log_pdf_from_params(th, params))
+    sample = Sample(record_rejected=True)
+    before = kde_cuda.weighted_kde_logpdf_cuda.launches
+    sample.append_record_batch(records)
+    assert kde_cuda.weighted_kde_logpdf_cuda.launches == before + 1
+    got = sample.get_records()["log_proposal"]
+    ref = kde.weighted_kde_logpdf(records["rec_theta"], params["c_support"],
+                                  params["c_log_w"], params["chol"],
+                                  params["log_norm"])
+    assert got.shape == (n,) and _close(got, ref)
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     t, ln = _problem(dev, 100, 200, 2)
     x, support, log_w, chol = t
