@@ -47,10 +47,34 @@ Phases, each printed as one JSON line and each fatal on failure:
    μ_q| ≤ max(1e-3, 4·σ_q/√ESS), |std/σ_q − 1| ≤ 0.05 + 4/√(2·ESS).
    ``petab1e5`` runs all 6 generations; its quadrature must read 0.685 /
    0.0523.
+7. ``fused16384`` / ``fused1e6`` / ``fusedlv1e5`` / ``fusedpetab1e5`` —
+   the same workloads through the fused engine, ``fuse_generations=4``:
+   generation 0 seeds the device carry sequentially, then blocks of 4
+   generations run with no host adaptation between them, and a tail too
+   short for a block runs sequentially.  ``fused16384`` and ``fused1e6``
+   hold ``run_gate``'s tolerances, and their paths must follow the
+   engine's rule (a block from generation 1; a block only where 4
+   generations remain; after a block short of 4 — an undershoot — the
+   sequential engine redoes the next generation); ``fused16384`` runs at
+   least two blocks, ``fused1e6`` hands the engine
+   probe the ``pop1e6`` phase's steady seconds per generation, reports
+   the engine it chose and both engines' seconds per generation, and its
+   first block must run fused.  ``fusedlv1e5`` holds ``lv1e5``'s posterior
+   and ε gates and needs the in-block refit's weights for generation 1 +
+   K on the host; ``fusedpetab1e5`` runs ``petab1e5``'s model with
+   ``Temperature(schemes=[AcceptanceRateScheme()])`` and the pdf norm from
+   the kernel's analytic maximum (the eligible form of the triple) and
+   holds ``petab1e5``'s temperature and quadrature gates.  Every fused
+   phase also requires K1 launched in each fused generation as often as
+   the code gives (one per model, twice that with the temperature solve)
+   and one History row per generation; its rows carry ``path``,
+   ``engine``, ``host_reads`` and ``grids_resolved``, and its blocks their
+   wall, rounds and host reads.
 
 The ``kernels`` phase runs last: its row (g) takes config #5's record
-shape [records × support] from the ``petab1e5`` run's timeline (a stated
-default shape without that run).
+shape [records × support] from the ``petab1e5`` run's timeline, rows (h)
+and (i) the fused engine's capped shapes from ``fused1e6`` and
+``fusedlv1e5`` (stated default shapes without those runs).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -85,7 +109,8 @@ import time
 from pathlib import Path
 
 ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
-              "petab1e5", "sbml1e5", "kernels")
+              "petab1e5", "sbml1e5", "fused16384", "fused1e6", "fusedlv1e5",
+              "fusedpetab1e5", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm")
 TOL_ABS = 1e-4
@@ -202,10 +227,18 @@ def library_logsumexp_ms(torch, kde_plain, c, reps: int = 3) -> dict:
 
 
 def _kde_case(torch, gen, dev, label, m, n, d, pad_frac=0.0,
-              grid=False, pad_last_tile=False):
+              grid=False, pad_last_tile=False, uniform=False):
     """Inputs of one K1 comparison, made on the card from ``gen``."""
     f32 = torch.float32
-    if grid:
+    if uniform:
+        # the fused engine's capped support: n rows resampled from the
+        # population, each at log weight -log n, Silverman bandwidth
+        support = torch.randn(n, d, generator=gen, device=dev)
+        x = torch.randn(m, d, generator=gen, device=dev)
+        log_w = torch.full((n,), -math.log(n), device=dev)
+        h = (4.0 / (n * (d + 2.0))) ** (1.0 / (d + 4.0))
+        chol = torch.eye(d, device=dev, dtype=f32) * h
+    elif grid:
         # grid-compressed 1-D support (transition _compress_support):
         # cell centroids over the posterior's range, Gaussian cell mass,
         # empty cells at -1e30; bandwidth = 64 cells
@@ -267,6 +300,22 @@ def record_case(state) -> tuple:
     return (f"g petab1e5 records ({source})", m, n, 1, {"grid": True})
 
 
+def fused_cases(state) -> list:
+    """Rows (h) and (i): the fused engine's proposal density above the
+    support cap — every query against 2^14 uniform-weight rows — at the
+    fused1e6 (d = 1) and fusedlv1e5 (d = 4) phases' shapes, or at these
+    stated defaults without those runs."""
+    out = []
+    for label, key, default in (
+            ("h fused1e6 capped", "fused_main_shape",
+             (1_000_000, 1 << 14, 1)),
+            ("i fusedlv1e5 capped", "fused_lv_shape", (100_000, 1 << 14, 4))):
+        m, n, d = state.get(key, default)
+        source = "run" if key in state else "default"
+        out.append((f"{label} ({source})", m, n, d, {"uniform": True}))
+    return out
+
+
 def phase_kernels(torch, state):
     from pyabc_tpu_torch.ops import kde as kde_plain
     from pyabc_tpu_torch.ops import kde_cuda
@@ -276,7 +325,8 @@ def phase_kernels(torch, state):
     gen.manual_seed(20261016)
     rows = []
     ok_all = True
-    for label, m, n, d, kw in KDE_CASES + [record_case(state)]:
+    for label, m, n, d, kw in (KDE_CASES + [record_case(state)]
+                               + fused_cases(state)):
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
@@ -358,9 +408,12 @@ def phase_k1perm(torch, state):
           "sorted_over_permuted": sorted_ms / permuted_ms})
 
 
-def run_main_path(torch, pop: int, gens: int, seed: int = 0) -> dict:
+def run_main_path(torch, pop: int, gens: int, seed: int = 0, fuse: int = 1,
+                  seq_probe_s=None) -> dict:
     """Config #2 through the port's entry points on the card, held to the
-    analytic posterior as the JAX package's ``run_gate`` holds it."""
+    analytic posterior as the JAX package's ``run_gate`` holds it;
+    ``fuse`` K > 1 runs fused blocks, ``seq_probe_s`` hands the engine
+    probe a sequential baseline (seconds per generation)."""
     import numpy as np
 
     import pyabc_tpu_torch as pt
@@ -374,8 +427,11 @@ def run_main_path(torch, pop: int, gens: int, seed: int = 0) -> dict:
         eps=pt.MedianEpsilon(),
         sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
                                      max_rounds_per_call=16, device="cuda"),
-        stores_sum_stats=False, seed=seed, device="cuda")
+        stores_sum_stats=False, fuse_generations=fuse, seed=seed,
+        device="cuda")
     abc.new("sqlite://", observed)
+    if seq_probe_s is not None:
+        abc._note_sequential_gen_s(seq_probe_s)
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
     abc.run(max_nr_populations=gens)
@@ -404,14 +460,93 @@ def run_main_path(torch, pop: int, gens: int, seed: int = 0) -> dict:
         "final_eps": float(abc.history.get_all_populations().epsilon.iloc[-1]),
         "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
         "generations": [
-            {"t": r["t"], "wall_s": r["wall_s"], "sample_s": r["sample_s"],
-             "eps": r["eps"], "evaluations": r["evaluations"],
-             "acceptance_rate": r["acceptance_rate"], "batch": r["batch"],
-             "accepted_per_s": r["n"] / r["wall_s"],
-             "kde_launches": r["kde_launches"],
-             "kde_support": r["kde_support"],
-             "peak_mem_gb": r["peak_mem_gb"]} for r in rows],
+            {**generation_row(r), "accepted_per_s": r["n"] / r["wall_s"]}
+            for r in rows],
+        **(fused_report(abc, rows) if fuse > 1 else {}),
     }
+
+
+def generation_row(r: dict) -> dict:
+    """One timeline row for the smoke's output: a fused generation's wall
+    is its block's wall over the block's generations, its sample_s the
+    block's device loop (before the host copies); a sequential
+    generation's host_s is its wall less its sampling."""
+    keys = ("t", "path", "engine", "wall_s", "sample_s", "eps",
+            "evaluations", "acceptance_rate", "ess", "batch",
+            "kde_launches", "kde_support", "peak_mem_gb")
+    out = {k: r[k] for k in keys}
+    if r["path"] == "fused":
+        out.update({k: r[k] for k in ("rounds", "host_reads",
+                                       "grids_resolved")})
+    else:
+        out["host_s"] = r["wall_s"] - r["sample_s"]
+    return out
+
+
+def fused_report(abc, rows) -> dict:
+    """The fused blocks of a run (``ABCSMC.blocks``: every block run,
+    those that wrote nothing included) and the gates every fused phase
+    shares: K1 launched in each fused generation the number of times the
+    code gives (one per model for the proposal density, one more per
+    model for the temperature solve) — K times that per block, whose
+    generations all run — one History row per generation, and paths that
+    follow the engine's rule."""
+    from pyabc_tpu_torch.sampler.fused import kde_launches_per_gen
+
+    per_gen = kde_launches_per_gen(abc.M, abc._block_mode()["stoch"])
+    K = abc.fuse_generations
+    fused = [r for r in rows if r["path"] == "fused"]
+    pops = abc.history.get_all_populations()
+    ts = [r["t"] for r in rows]
+    n = abc.population_strategy(0)
+    paths = [r["path"] for r in rows]
+    checks = {
+        "fused_ran": bool(fused),
+        "fused_launches": (all(r["kde_launches"] == per_gen for r in fused)
+                           and all(b["kde_launches"] == K * per_gen
+                                   for b in abc.blocks)),
+        "history_rows": (ts == list(range(len(rows)))
+                         and list(pops.t) == [-1] + ts
+                         and all(len(abc.history.get_population(t)) == n
+                                 for t in ts)),
+        "paths": paths_follow_the_rule(paths, abc.blocks, K,
+                                       abc._engine_choice,
+                                       abc.max_nr_populations),
+    }
+    seq = [r["wall_s"] - r["sample_s"] for r in rows
+           if r["path"] == "sequential" and r["t"] >= 1]
+    return {"fuse_generations": K, "paths": paths,
+            "kde_launches_per_fused_gen": per_gen, "fused_checks": checks,
+            "blocks": [{**b, "s_per_gen": (b["wall_s"] / b["written"]
+                                           if b["written"] else None)}
+                       for b in abc.blocks],
+            "engine": abc._engine_choice, "seq_probe_s": abc._seq_probe_s,
+            "seq_host_s_per_gen": (statistics.median(seq) if seq else None)}
+
+
+def paths_follow_the_rule(paths, blocks, K, engine, t_max) -> bool:
+    """The engine's rule, read off the paths and the blocks: generation
+    0 seeds the carry sequentially and a block starts at 1; a block
+    starts only where K generations remain and keeps at most K; after a
+    block short of K (an undershoot: it may keep none) the sequential
+    engine redoes the next generation; any other sequential generation
+    t >= 1 is one where no block fits before ``t_max`` (or the probe
+    retired the fused engine)."""
+    gens = len(paths)
+    redo = {b["t"] + b["written"] for b in blocks
+            if b["written"] < K and b["stop"] is None}
+    ok = (paths[:2] == ["sequential", "fused"]
+          and bool(blocks) and blocks[0]["t"] == 1)
+    kept = set()
+    for b in blocks:
+        ok = ok and b["t"] + K <= t_max and b["written"] <= K
+        kept.update(range(b["t"], b["t"] + b["written"]))
+    ok = ok and kept == {t for t in range(gens) if paths[t] == "fused"}
+    for t in range(1, gens):
+        if paths[t] == "sequential" and t not in redo \
+                and engine != "sequential":
+            ok = ok and t + K > t_max
+    return bool(ok)
 
 
 def _phase_pop(torch, state, name: str, pop: int, gens: int):
@@ -424,6 +559,10 @@ def _phase_pop(torch, state, name: str, pop: int, gens: int):
             for s in g["kde_support"])
         row["ok"] = row["ok"] and row["compressed_ok"]
     state.setdefault("launches", {})[name] = row["kde_launches"]
+    # the engine probe's baseline for fused1e6: the steady seconds per
+    # generation (median from t = 3, bench.py's warmup-3 protocol)
+    state[f"{name}_seq_s"] = statistics.median(
+        g["wall_s"] for g in row["generations"] if g["t"] >= 3)
     emit({"phase": name, **row})
     if not row["ok"]:
         raise RuntimeError(f"main path at pop {pop} failed its gate")
@@ -437,6 +576,74 @@ def phase_pop1e6(torch, state):
     _phase_pop(torch, state, "pop1e6", 1_000_000, 11)
 
 
+#: generations per fused block in the fused phases (bench.py's
+#: fused_northstar row)
+FUSE_K = 4
+
+
+def _record_fused_shape(state, key, row, pop, d):
+    """K1's [queries × support] in the phase's first fused generation:
+    the shape of the ``kernels`` row (h) or (i)."""
+    g = next((g for g in row["generations"] if g["path"] == "fused"), None)
+    if g is not None:
+        state[key] = (pop, g["kde_support"][0]["rows"], d)
+
+
+def _phase_fused_main(torch, state, name: str, pop: int):
+    """Config #2 as the sequential phase runs it, with fused blocks of
+    FUSE_K generations; at pop 1e6 the engine probe gets the pop1e6
+    phase's steady seconds per generation as its baseline."""
+    seq_s = state.get("pop1e6_seq_s") if pop > 1 << 17 else None
+    row = run_main_path(torch, pop, 11, fuse=FUSE_K, seq_probe_s=seq_s)
+    checks = dict(row["fused_checks"])
+    if pop > 1 << 17:
+        # the probe may retire fusion after the first block
+        checks["first_block_fused"] = bool(
+            row["blocks"] and row["blocks"][0]["t"] == 1
+            and row["blocks"][0]["written"] >= 1)
+        first = row["blocks"][0] if row["blocks"] else {}
+        row["engine_probe"] = {
+            "engine": row["engine"],
+            "fused_s_per_gen": first.get("s_per_gen"),
+            "sequential_s_per_gen": seq_s}
+    else:
+        checks["two_blocks"] = sum(b["written"] > 0
+                                   for b in row["blocks"]) >= 2
+    row["checks"] = checks
+    row["ok"] = bool(row["ok"] and all(checks.values()))
+    state.setdefault("launches", {})[name] = row["kde_launches"]
+    _record_fused_shape(state, "fused_main_shape", row, pop, 1)
+    emit({"phase": name, **row})
+    if not row["ok"]:
+        raise RuntimeError(f"{name} failed its checks: {checks}")
+
+
+def phase_fused16384(torch, state):
+    _phase_fused_main(torch, state, "fused16384", 16384)
+
+
+def phase_fused1e6(torch, state):
+    _phase_fused_main(torch, state, "fused1e6", 1_000_000)
+
+
+def phase_fusedlv1e5(torch, state):
+    row = run_adaptive(torch, "lv1e5", fuse=FUSE_K)
+    state.setdefault("launches", {})["fusedlv1e5"] = row["kde_launches"]
+    _record_fused_shape(state, "fused_lv_shape", row, ADAPTIVE_POP, 4)
+    emit({"phase": "fusedlv1e5", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"fusedlv1e5 failed its checks: {row['checks']}")
+
+
+def phase_fusedpetab1e5(torch, state):
+    row = run_stochastic(torch, "petab1e5", fuse=FUSE_K)
+    state.setdefault("launches", {})["fusedpetab1e5"] = row["kde_launches"]
+    emit({"phase": "fusedpetab1e5", **row})
+    if not row["ok"]:
+        raise RuntimeError(
+            f"fusedpetab1e5 failed its checks: {row['checks']}")
+
+
 #: BASELINE configs #3 and #4 as the JAX package's pop-1e5 bench rows run
 #: them: (problem factory, generating parameters, generations)
 ADAPTIVE = {"lv1e5": ("make_lotka_volterra_problem", "LV_TRUTH", 8),
@@ -444,10 +651,11 @@ ADAPTIVE = {"lv1e5": ("make_lotka_volterra_problem", "LV_TRUTH", 8),
 ADAPTIVE_POP = 100_000
 
 
-def adaptive_abc(name: str):
+def adaptive_abc(name: str, fuse: int = 1):
     """``(abc, distance, priors, truth)`` of one adaptive workload on the
     card: full-width model, ``AdaptivePNormDistance(p=2)`` with the
-    median-absolute-deviation scale, ``MedianEpsilon``, batch 2^19."""
+    median-absolute-deviation scale, ``MedianEpsilon``, batch 2^19;
+    ``fuse`` K > 1 runs fused blocks."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch import models as pt_models
 
@@ -458,12 +666,13 @@ def adaptive_abc(name: str):
         eps=pt.MedianEpsilon(),
         sampler=pt.VectorizedSampler(min_batch_size=1 << 19,
                                      max_batch_size=1 << 19, device="cuda"),
-        stores_sum_stats=False, seed=0, device="cuda")
+        stores_sum_stats=False, fuse_generations=fuse, seed=0,
+        device="cuda")
     abc.new("sqlite://", observed)
     return abc, distance, priors, getattr(pt_models, truth)
 
 
-def run_adaptive(torch, name: str) -> dict:
+def run_adaptive(torch, name: str, fuse: int = 1) -> dict:
     """One adaptive workload through ``ABCSMC.run`` on the card, with its
     per-generation timeline and the gates of the module docstring."""
     import numpy as np
@@ -471,7 +680,7 @@ def run_adaptive(torch, name: str) -> dict:
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
 
     gens = ADAPTIVE[name][2]
-    abc, distance, priors, truth = adaptive_abc(name)
+    abc, distance, priors, truth = adaptive_abc(name, fuse)
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
     abc.run(max_nr_populations=gens)
@@ -493,12 +702,22 @@ def run_adaptive(torch, name: str) -> dict:
         "gens": len(rows) == gens,
         "eps": all(math.isfinite(r["eps"]) and r["eps"] > 0 for r in rows),
         "launches": all(r["kde_launches"] >= 1 for r in rows if r["t"] >= 1),
-        "weights": (sorted(distance.weights) == list(range(gens))
-                    and all(r["records"] >= ADAPTIVE_POP
-                            for r in rows[:-1])),
         "mean": bool(np.all(np.abs(mean - log_truth) <= 4 * std)),
         "std": bool(np.all(std <= 0.75 * prior_std)),
     }
+    if fuse > 1:
+        # a block's interior weights live on the card; its exit hands the
+        # in-block refit for generation 1 + K to the host schedule
+        w_exit = distance.weights.get(1 + fuse)
+        checks["weights"] = bool(w_exit is not None
+                                 and np.all(np.isfinite(w_exit)))
+    else:
+        checks["weights"] = (sorted(distance.weights) == list(range(gens))
+                             and all(r["records"] >= ADAPTIVE_POP
+                                     for r in rows[:-1]))
+    fused = fused_report(abc, rows) if fuse > 1 else {}
+    if fused:
+        checks.update(fused["fused_checks"])
     return {
         "pop": ADAPTIVE_POP, "gens_asked": gens, "gens_run": len(rows),
         "ok": all(checks.values()), "checks": checks,
@@ -508,17 +727,14 @@ def run_adaptive(torch, name: str) -> dict:
         "posterior_std": std.tolist(), "truth": log_truth.tolist(),
         "prior_std": prior_std.tolist(),
         "generations": [
-            {"t": r["t"], "wall_s": r["wall_s"], "sample_s": r["sample_s"],
-             "host_s": r["wall_s"] - r["sample_s"], "eps": r["eps"],
-             "evaluations": r["evaluations"],
-             "acceptance_rate": r["acceptance_rate"], "ess": r["ess"],
-             "batch": r["batch"], "kde_launches": r["kde_launches"],
-             "kde_support": r["kde_support"], "records": r["records"],
-             "refit_s": r["refit_s"], "peak_mem_gb": r["peak_mem_gb"],
-             "weight_min": float(distance.weights[r["t"]].min()),
-             "weight_max": float(distance.weights[r["t"]].max()),
-             "zero_weights": int((distance.weights[r["t"]] == 0).sum())}
-            for r in rows if r["t"] in distance.weights],
+            {**generation_row(r), "records": r["records"],
+             "refit_s": r["refit_s"],
+             **({"weight_min": float(distance.weights[r["t"]].min()),
+                 "weight_max": float(distance.weights[r["t"]].max()),
+                 "zero_weights": int((distance.weights[r["t"]] == 0).sum())}
+                if r["t"] in distance.weights else {})}
+            for r in rows],
+        **fused,
     }
 
 
@@ -666,29 +882,46 @@ def scheme_solved(proposals: dict) -> bool:
                 & set(proposals))
 
 
-def run_stochastic(torch, name: str) -> dict:
+def llh_max(importer) -> float:
+    """The largest value the ODE importer's Gaussian llh can take (every
+    residual 0): the kernel's analytic pdf maximum."""
+    n_obs = sum(len(v) for v in importer.measurements.values())
+    return -0.5 * n_obs * math.log(2 * math.pi * importer.sigma ** 2)
+
+
+def run_stochastic(torch, name: str, fuse: int = 1) -> dict:
     """One config-#5 workload through ``ABCSMC.run`` on the card, with its
-    per-generation timeline and the gates of the module docstring."""
+    per-generation timeline and the gates of the module docstring.  With
+    ``fuse`` K > 1 the run takes the fused engine's eligible form of the
+    triple: ``Temperature`` with the acceptance-rate scheme alone, and
+    the acceptor's pdf norm from the kernel's analytic maximum."""
     import numpy as np
 
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.sampler.fused import kde_launches_per_gen
 
     make, gens, aggregate, points = STOCHASTIC[name]
     importer = make()
     t_q = time.perf_counter()
     mu_q, sd_q = quadrature(torch, importer.create_model(), points)
     quadrature_s = time.perf_counter() - t_q
-    temperature = pt.Temperature(aggregate_fun=aggregate)
-    acceptor = pt.StochasticAcceptor()
+    kernel = importer.create_kernel()
+    if fuse > 1:
+        temperature = pt.Temperature(schemes=[pt.AcceptanceRateScheme()])
+        acceptor = pt.StochasticAcceptor(
+            pdf_norm_method=pt.pdf_norm_from_kernel)
+        kernel.pdf_max = llh_max(importer)
+    else:
+        temperature = pt.Temperature(aggregate_fun=aggregate)
+        acceptor = pt.StochasticAcceptor()
     abc = pt.ABCSMC(
-        importer.create_model(), importer.create_prior(),
-        importer.create_kernel(), population_size=STOCHASTIC_POP,
-        eps=temperature, acceptor=acceptor,
+        importer.create_model(), importer.create_prior(), kernel,
+        population_size=STOCHASTIC_POP, eps=temperature, acceptor=acceptor,
         sampler=pt.VectorizedSampler(min_batch_size=STOCHASTIC_BATCH,
                                      max_batch_size=STOCHASTIC_BATCH,
                                      device="cuda"),
-        seed=0, device="cuda")
+        fuse_generations=fuse, seed=0, device="cuda")
     abc.new("sqlite://", importer.get_observed())
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
@@ -713,6 +946,8 @@ def run_stochastic(torch, name: str) -> dict:
     def expected(r):
         if r["t"] == 0:
             return 0
+        if r["path"] == "fused":
+            return kde_launches_per_gen(1, True)
         return (1 + r["record_batches"]
                 + scheme_solved(temperature.temperature_proposals[r["t"]]))
 
@@ -727,9 +962,13 @@ def run_stochastic(torch, name: str) -> dict:
         "std": abs(std / sd_q - 1) <= 0.05 + 4 / (2 * ess) ** 0.5,
     }
     if name == "petab1e5":
-        checks["gens"] = len(rows) == gens
+        if fuse == 1:
+            checks["gens"] = len(rows) == gens
         checks["quadrature"] = (f"{mu_q:.3g}", f"{sd_q:.3g}") == \
             ("0.685", "0.0523")
+    fused = fused_report(abc, rows) if fuse > 1 else {}
+    if fused:
+        checks.update(fused["fused_checks"])
     return {
         "pop": STOCHASTIC_POP, "gens_asked": gens, "gens_run": len(rows),
         "ok": all(checks.values()), "checks": checks,
@@ -740,19 +979,14 @@ def run_stochastic(torch, name: str) -> dict:
         "quadrature_points": points, "quadrature_s": quadrature_s,
         "tol_mean": max(1e-3, 4 * sd_q / ess ** 0.5),
         "tol_std_ratio": 0.05 + 4 / (2 * ess) ** 0.5,
+        "pdf_norm_method": acceptor.get_config()["pdf_norm_method"],
         "generations": [
-            {"t": r["t"], "wall_s": r["wall_s"], "sample_s": r["sample_s"],
-             "host_s": r["wall_s"] - r["sample_s"],
-             "temperature": r["eps"],
-             "pdf_norm": acceptor.pdf_norms[r["t"]],
-             "proposals": temperature.temperature_proposals[r["t"]],
-             "evaluations": r["evaluations"],
-             "acceptance_rate": r["acceptance_rate"], "ess": r["ess"],
-             "batch": r["batch"], "kde_launches": r["kde_launches"],
-             "kde_launches_expected": expected(r),
-             "kde_support": r["kde_support"], "records": r["records"],
-             "record_batches": r["record_batches"],
-             "peak_mem_gb": r["peak_mem_gb"]} for r in rows],
+            {**generation_row(r), "temperature": r["eps"],
+             "pdf_norm": acceptor.pdf_norms.get(r["t"]),
+             "proposals": temperature.temperature_proposals.get(r["t"]),
+             "kde_launches_expected": expected(r), "records": r["records"],
+             "record_batches": r["record_batches"]} for r in rows],
+        **fused,
     }
 
 
@@ -948,7 +1182,9 @@ PHASES = {"card": phase_card, "build": phase_build,
           "kernels": phase_kernels, "pop16384": phase_pop16384,
           "pop1e6": phase_pop1e6, "lv1e5": phase_lv1e5,
           "sir1e5": phase_sir1e5, "petab1e5": phase_petab1e5,
-          "sbml1e5": phase_sbml1e5, "profile": phase_profile,
+          "sbml1e5": phase_sbml1e5, "fused16384": phase_fused16384,
+          "fused1e6": phase_fused1e6, "fusedlv1e5": phase_fusedlv1e5,
+          "fusedpetab1e5": phase_fusedpetab1e5, "profile": phase_profile,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 
 

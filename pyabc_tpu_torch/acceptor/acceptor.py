@@ -17,7 +17,7 @@ import numpy as np
 import torch
 
 from ..distance.kernel import SCALE_LIN, SCALE_LOG, StochasticKernel
-from .pdf_norm import pdf_norm_max_found
+from .pdf_norm import pdf_norm_from_kernel, pdf_norm_max_found
 
 
 class Acceptor:
@@ -54,6 +54,13 @@ class UniformAcceptor(Acceptor):
     def __init__(self, use_complete_history: bool = False):
         self.use_complete_history = use_complete_history
         self._eps_history: dict = {}
+
+    @property
+    def device_accept_ok(self) -> bool:
+        """d ≤ ε against the fused engine's in-block epsilon; the
+        complete-history minimum needs the host's ε history every
+        generation, and a subclass may override :meth:`get_params`."""
+        return type(self) is UniformAcceptor and not self.use_complete_history
 
     def get_params(self, t: int, epsilon) -> dict:
         eps = float(epsilon(t))
@@ -105,6 +112,16 @@ class StochasticAcceptor(Acceptor):
         self.installed_norms: dict = {}
         self.kernel_scale: str = SCALE_LOG
         self.kernel_pdf_max: Optional[float] = None
+
+    @property
+    def device_accept_ok(self) -> bool:
+        """(pdf norm, T) acceptance with T from the fused engine's
+        in-block temperature solve: the norm must stay one constant for a
+        whole block, which only the kernel-derived method guarantees
+        (``pdf_norm_max_found`` follows the realized densities on the
+        host)."""
+        return (type(self) is StochasticAcceptor
+                and self.pdf_norm_method is pdf_norm_from_kernel)
 
     def initialize(self, t, get_weighted_distances=None,
                    distance_function=None, x_0=None):

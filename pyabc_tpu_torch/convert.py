@@ -17,8 +17,12 @@ numpy in both packages, e.g. the JAX package's fitted
 ``AdaptivePNormDistance.weights`` — into a port distance.
 ``install_annealing`` puts an annealing schedule — e.g. a JAX run's
 ``Temperature.temperatures`` and ``StochasticAcceptor.pdf_norms`` — into
-a port ``Temperature`` and ``StochasticAcceptor``.  Loading a database
-written by ``pyabc_tpu`` needs its PTW1 blob codec and comes later.
+a port ``Temperature`` and ``StochasticAcceptor``.  ``carry_to_torch``,
+``carry_to_numpy`` and ``install_block_state`` move a fused block's carry
+between the packages and put in the block state (ε/T, rate, safety,
+distance weights, record ring), so that one generation of both can start
+from an identical carry.  Loading a database written by ``pyabc_tpu``
+needs its PTW1 blob codec and comes later.
 """
 
 from __future__ import annotations
@@ -67,6 +71,46 @@ def install_weights(distance, weights: dict):
     distance.weights = {int(t): np.array(to_numpy(w), dtype=np.float32)
                         for t, w in weights.items()}
     return distance
+
+
+def carry_to_torch(carry_np: dict, device) -> dict:
+    """A fused block's carry from host arrays — e.g. a JAX block's carry
+    read back with ``np.asarray`` — as tensors on ``device``: floats
+    float32, integers int64 (``count`` and the model index), 0-d arrays
+    0-d tensors."""
+    return {k: to_torch(v, device) for k, v in carry_np.items()}
+
+
+def carry_to_numpy(carry: dict) -> dict:
+    """The converse of :func:`carry_to_torch`: every lane as a host
+    array (the JAX package's ``fused`` takes these as its carry)."""
+    return {k: to_numpy(v) for k, v in carry.items()}
+
+
+def install_block_state(carry: dict, eps=None, rate=None, safety=None,
+                        dist_w=None, ring=None) -> dict:
+    """A copy of ``carry`` (host arrays or tensors) with the block state
+    that a sequential generation does not hold put in: ε or T, the EWMA
+    rate and safety, the adaptive distance's raw weights ``dist_w``, and
+    the record ring ``{"rec_m", "rec_theta", "rec_dist",
+    "rec_loggen"}``.  Scalars become float32 of the carry's kind, so both
+    packages can start a generation from one identical state."""
+    out = dict(carry)
+    device = next((v.device for v in carry.values() if torch.is_tensor(v)),
+                  None)
+
+    def lane(v, dtype=np.float32):
+        arr = np.asarray(to_numpy(v), dtype=dtype)
+        return to_torch(arr, device) if device is not None else arr
+
+    for key, val in (("eps", eps), ("rate", rate), ("safety", safety),
+                     ("dist_w", dist_w)):
+        if val is not None:
+            out[key] = lane(val)
+    if ring is not None:
+        for key, val in ring.items():
+            out[key] = lane(val, np.int64 if key == "rec_m" else np.float32)
+    return out
 
 
 def install_annealing(temperature, acceptor, temperatures: dict,

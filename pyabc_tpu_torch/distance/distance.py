@@ -133,6 +133,19 @@ class AdaptivePNormDistance(PNormDistance):
         self._fit(t, data)
         return True
 
+    @property
+    def device_refit_ok(self) -> bool:
+        """The per-generation refit can run inside a fused block:
+        adaptation on, a library scale function (a NaN-aware tensor
+        reducer of :data:`~.scale.SCALE_FUNCTIONS`; a custom callable may
+        use host numpy), no log file, and this exact class (a subclass
+        may override ``_fit``)."""
+        return (type(self) is AdaptivePNormDistance
+                and self.adaptive
+                and self.log_file is None
+                and any(self.scale_function is f
+                        for f in SCALE_FUNCTIONS.values()))
+
     def params_time_invariant(self) -> bool:
         return (not self.adaptive) and super().params_time_invariant()
 

@@ -13,6 +13,19 @@ class Epsilon:
     """Acceptance-threshold schedule: ``initialize`` with calibration
     distances, ``update`` each generation, ``__call__(t) -> float``."""
 
+    #: the schedule can advance inside a fused block (a constant, a
+    #: weighted quantile of the carried distances, or the device
+    #: temperature solve); concrete classes opt in, and
+    #: ``ABCSMC._device_chain_eligible`` reads it
+    device_schedule_ok = False
+    #: the stop test (ε ≤ minimum_epsilon, or T = 1) is exact on the
+    #: in-block value (read by the one-dispatch engine, not ported yet)
+    device_stop_ok = False
+    #: the schedule consents to the sort-free quantile sketch in-block
+    #: (``ops.quantile_sketch``); a bounded approximation, so a
+    #: per-instance opt-in, vacuously true where nothing is sorted
+    device_sketch_ok = False
+
     def initialize(self, t: int,
                    get_weighted_distances: Optional[Callable] = None,
                    get_all_records: Optional[Callable] = None,

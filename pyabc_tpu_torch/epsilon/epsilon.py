@@ -12,6 +12,11 @@ from .base import Epsilon
 class ConstantEpsilon(Epsilon):
     """Fixed ε for all generations."""
 
+    device_schedule_ok = True
+    device_stop_ok = True
+    #: vacuous: a constant sorts nothing
+    device_sketch_ok = True
+
     def __init__(self, constant_epsilon_value: float):
         self.constant_epsilon_value = float(constant_epsilon_value)
 
@@ -39,16 +44,23 @@ class ListEpsilon(Epsilon):
 
 class QuantileEpsilon(Epsilon):
     """ε_t = weighted α-quantile of the previous generation's accepted
-    distances (times ``quantile_multiplier``), computed on the host."""
+    distances (times ``quantile_multiplier``), computed on the host — or
+    inside a fused block on the device, exactly by default and by the
+    sort-free sketch with ``device_sketch=True``."""
+
+    device_schedule_ok = True
+    device_stop_ok = True
 
     def __init__(self, initial_epsilon="from_sample", alpha: float = 0.5,
-                 quantile_multiplier: float = 1.0, weighted: bool = True):
+                 quantile_multiplier: float = 1.0, weighted: bool = True,
+                 device_sketch: bool = False):
         if not 0 < alpha <= 1:
             raise ValueError("alpha must be in (0, 1]")
         self.alpha = float(alpha)
         self.initial_epsilon = initial_epsilon
         self.quantile_multiplier = float(quantile_multiplier)
         self.weighted = weighted
+        self.device_sketch_ok = bool(device_sketch)
         self._look_up: dict = {}
 
     def initialize(self, t, get_weighted_distances=None, get_all_records=None,
@@ -88,7 +100,8 @@ class MedianEpsilon(QuantileEpsilon):
     """α = 0.5 quantile — the reference default."""
 
     def __init__(self, initial_epsilon="from_sample",
-                 median_multiplier: float = 1.0, weighted: bool = True):
+                 median_multiplier: float = 1.0, weighted: bool = True,
+                 device_sketch: bool = False):
         super().__init__(initial_epsilon=initial_epsilon, alpha=0.5,
                          quantile_multiplier=median_multiplier,
-                         weighted=weighted)
+                         weighted=weighted, device_sketch=device_sketch)

@@ -161,6 +161,36 @@ class Temperature(TemperatureBase):
     def __call__(self, t: int) -> float:
         return self.temperatures[t]
 
+    # ---- fused-engine capability flags ------------------------------------
+
+    @property
+    def device_solve_ok(self) -> bool:
+        """The whole update is the fused engine's in-block acceptance-rate
+        solve: exactly one :class:`AcceptanceRateScheme` without
+        ``min_rate`` (that guard reads the realized acceptance rate,
+        which the block does not thread), min aggregation, no log file,
+        and this exact class (a subclass may override ``_update``)."""
+        return (type(self) is Temperature
+                and len(self.schemes) == 1
+                and type(self.schemes[0]) is AcceptanceRateScheme
+                and self.schemes[0].min_rate is None
+                and self.aggregate_fun is min
+                and self.log_file is None)
+
+    @property
+    def device_schedule_ok(self) -> bool:
+        return self.device_solve_ok
+
+    @property
+    def device_stop_ok(self) -> bool:
+        # the stop test (T == 1) reads the in-block solve's own output
+        return self.device_solve_ok
+
+    @property
+    def device_sketch_ok(self) -> bool:
+        # vacuous: the bisection solve sorts nothing
+        return self.device_solve_ok
+
     def get_config(self):
         return {"name": type(self).__name__,
                 "schemes": [type(s).__name__ for s in self.schemes]}

@@ -1,14 +1,16 @@
 """Weighted index sampling by inverse CDF.
 
-Port of ``pyabc_tpu/ops/choice.py:fast_weighted_choice``.  The JAX
-package inverts the CDF with a two-level blocked count (a TPU-shaped way
-around ``searchsorted``'s serial gathers); here the inversion is
-``torch.searchsorted(cdf, u, right=True)`` — the same index (the first i
-with ``cdf[i] > u``) — and stays plain PyTorch until a card profile shows
-it hot.
+Port of ``fast_weighted_choice`` and ``systematic_weighted_choice`` from
+``pyabc_tpu/ops/choice.py``.  The JAX package inverts the CDF with a
+two-level blocked count (a TPU-shaped way around ``searchsorted``'s
+serial gathers); here the inversion is ``torch.searchsorted(cdf, u,
+right=True)`` — the same index (the first i with ``cdf[i] > u``) — and
+stays plain PyTorch until a card profile shows it hot.
 """
 
 from __future__ import annotations
+
+from typing import Optional
 
 import torch
 
@@ -40,4 +42,28 @@ def fast_weighted_choice(generator: torch.Generator, log_w: torch.Tensor,
     cdf = torch.cumsum(torch.softmax(log_w, dim=0), dim=0)
     u = torch.rand(n, generator=generator, device=log_w.device,
                    dtype=cdf.dtype) * cdf[-1]
+    return invert_cdf(cdf, cap_draws(cdf, u))
+
+
+def systematic_weighted_choice(generator: Optional[torch.Generator],
+                               log_w: torch.Tensor, n: int,
+                               u0: Optional[torch.Tensor] = None
+                               ) -> torch.Tensor:
+    """Systematic (stratified) resampling: ``n`` indices ∝ ``exp(log_w)``
+    from ONE uniform ``u0``, ``u_i = (u0 + i)/n · cdf[-1]``.
+
+    Every index with weight ≥ 1/n appears ⌊n·w⌋ or ⌈n·w⌉ times, so the
+    resampled rows keep the weighted moments to O(1/n) — what the fused
+    engine's capped-support refit wants.  ``u0`` (a scalar in [0, 1))
+    replaces the draw from ``generator`` when given, so tests can feed
+    both packages the same uniform.  Capped draws never land on a
+    zero-weight row (:func:`cap_draws`)."""
+    cdf = torch.cumsum(torch.softmax(log_w, dim=0), dim=0)
+    if u0 is None:
+        u0 = torch.rand((), generator=generator, device=log_w.device,
+                        dtype=cdf.dtype)
+    else:
+        u0 = torch.as_tensor(u0, dtype=cdf.dtype, device=log_w.device)
+    u = (u0 + torch.arange(n, dtype=cdf.dtype, device=log_w.device)) \
+        / n * cdf[-1]
     return invert_cdf(cdf, cap_draws(cdf, u))

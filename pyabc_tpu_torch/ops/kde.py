@@ -86,15 +86,15 @@ def weighted_kde_logpdf(x: torch.Tensor, support: torch.Tensor,
         sm = torch.zeros(q, dtype=torch.float32, device=x.device)
         for s0 in range(0, n, support_block):
             zb = z_s[s0:s0 + support_block]
-            sq = torch.zeros(q, zb.shape[0], dtype=torch.float32,
-                             device=x.device)
-            for k in range(d):
+            # one [q, block] buffer, updated in place
+            sq = torch.sub(zq[:, 0, None], zb[None, :, 0]).square_()
+            for k in range(1, d):
                 diff = zq[:, k, None] - zb[None, :, k]
                 sq.addcmul_(diff, diff)
-            logits = log_w[s0:s0 + support_block][None, :] - 0.5 * sq
+            logits = sq.mul_(-0.5).add_(log_w[s0:s0 + support_block][None, :])
             new_mx = torch.maximum(mx, logits.max(dim=1).values)
             sm = (sm * torch.exp(mx - new_mx)
-                  + torch.exp(logits - new_mx[:, None]).sum(dim=1))
+                  + logits.sub_(new_mx[:, None]).exp_().sum(dim=1))
             mx = new_mx
         out[q0:q0 + q] = mx + torch.log(sm)
     return out + log_norm

@@ -1,0 +1,581 @@
+"""Fused multi-generation blocks: K generations with no host adaptation.
+
+Port of ``build_fused_generations`` and its per-generation body
+``_build_one_gen`` from ``pyabc_tpu/sampler/fused.py``.  For a
+configuration whose whole adaptation chain has a device form — the KDE
+refit, a constant or weighted-quantile epsilon, the model probabilities,
+an adaptive p-norm's scale refit, the acceptance-rate temperature solve
+— K generations run back to back from a population carried on the
+device; the orchestrator (``ABCSMC._run_fused_block``) copies each
+generation to the host and writes History after the block.
+
+The JAX package runs a block as one ``lax.scan`` program.  Eager PyTorch
+has no scan, so here a block is a Python loop over generations whose
+state never leaves the device: the population, ε or T, the EWMA
+acceptance-rate estimate and its safety margin, the distance weights and
+the candidate-record ring are tensors from one generation to the next,
+and nothing is adapted on the host in between.  The host reads only
+
+- the rejection loop's condition ``count < n_target & rounds <
+  dyn_rounds`` (``fused.py:520-522``), once after every round — the first
+  round always runs, so it is not read before it;
+- ``grids_resolved`` (``fused.py:593``), once per generation when a
+  model's support is grid-compressed, to choose the compressed or the
+  exact support for the proposal density (the JAX package's
+  ``lax.cond``).
+
+Each generation reports these reads as ``host_reads``.  The semantics of
+the JAX loop are kept: a round runs only while the condition holds; the
+"extras" (the last round's candidate stats for the adaptive refit, its
+first R candidates for the record ring) come from the last round that
+ran; the EWMA update follows ``fused.py:562-568`` and the round cap
+``dyn_rounds`` follows ``:469-486``.  A block always runs its K
+generations; the orchestrator discards those after an undershoot.
+
+The proposal density is deferred to once per generation over the
+accepted buffer (one KDE launch per model — K1 on the card); for the
+stochastic triple the same launch also covers the record ring, and the
+temperature solve at the start of the generation adds one launch per
+model over the ring (:func:`kde_launches_per_gen`).
+
+Not ported (ROADMAP): the one-dispatch engine, the multi-fidelity
+cascade, telemetry and summary lanes, carry precision (its codec is the
+identity in float32), the pod constraint, lane surgery and the
+``narrow_wire`` codec: a generation's output is float32 tensors (the
+model index int64) stacked over the block on the device.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, List, Optional, Sequence
+
+import torch
+
+from ..autotune.tuner import EWMA_ALPHA
+from ..epsilon.temperature import acceptance_rate_solve
+from ..ops.choice import systematic_weighted_choice
+from ..ops.kde_cuda import weighted_kde_logpdf_cuda
+from ..ops.quantile_sketch import sketch_weighted_quantile
+from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
+                                             regularized_kde_cov)
+
+# Stop codes of the JAX package's device stop chain, in the order the
+# host loop checks them; ``smc.STOP_REASONS`` maps each to its string.
+# ``STOP_UNDERSHOOT`` is no run stop: a generation short of n_target,
+# which the sequential engine redoes.
+STOP_NONE = 0
+STOP_EPS = 1
+STOP_TEMPERATURE = 2
+STOP_SINGLE_MODEL = 3
+STOP_ACC_RATE = 4
+STOP_BUDGET = 5
+STOP_UNDERSHOOT = 6
+
+#: cells of the device pdf grid of a large 1-D support: ~100+ cells per
+#: bandwidth at any annealing stage (range and bandwidth contract
+#: together)
+_DEVICE_GRID = 1 << 14
+
+#: the carry's population lanes (leading axis n_target)
+POP_LANES = ("m", "theta", "log_weight", "distance", "stats")
+#: the carry's record-ring lanes (stochastic triple)
+RING_LANES = ("rec_m", "rec_theta", "rec_dist", "rec_loggen")
+
+
+def kde_launches_per_gen(n_models: int, temperature: bool) -> int:
+    """KDE launches of one fused generation: the deferred proposal
+    density, one per model (covering the record ring too), plus the
+    temperature solve's density at the ring, one per model."""
+    return n_models * (2 if temperature else 1)
+
+
+def _first_rows(sel: torch.Tensor, size: int) -> torch.Tensor:
+    """``jnp.nonzero(sel, size=size, fill_value=len(sel))[0]`` without a
+    host read: the indices of the first ``size`` True rows in order,
+    padded with ``len(sel)``."""
+    n = sel.shape[0]
+    pos = torch.cumsum(sel.to(torch.int64), 0) - 1
+    dst = torch.where(sel & (pos < size), pos, torch.full_like(pos, size))
+    out = torch.full((size + 1,), n, dtype=torch.int64, device=sel.device)
+    out.scatter_(0, dst, torch.arange(n, device=sel.device))
+    return out[:size]
+
+
+def _compress_support_device(sup: torch.Tensor, w: torch.Tensor,
+                             ok: torch.Tensor, chol: torch.Tensor):
+    """Per-cell (mass, weighted centroid) of a 1-D support over a
+    ``_DEVICE_GRID``-cell grid spanning the masked rows' range — the
+    device form of ``MultivariateNormalTransition._compress_support``.
+
+    Returns ``(c_support [G, 1], c_log_w [G], resolved)``.  ``resolved``
+    is False when the grid has fewer than 32 cells per bandwidth (an
+    outlier-stretched range): the caller must then evaluate the exact
+    support.  A dead model (no ok rows) gives finite centres with -1e30
+    masses, never NaN."""
+    x = sup[:, 0]
+    inf = torch.full_like(x, math.inf)
+    lo = torch.where(ok, x, inf).min()
+    hi = torch.where(ok, x, -inf).max()
+    dead = ~torch.isfinite(lo) | ~torch.isfinite(hi)
+    lo = torch.where(dead, torch.zeros_like(lo), lo)
+    hi = torch.where(dead, torch.ones_like(hi), hi)
+    rng = torch.clamp(hi - lo, min=1e-30)
+    g = _DEVICE_GRID
+    dx = rng / g
+    idx = torch.clamp(((x - lo) / dx).to(torch.int64), 0, g - 1)
+    # the cell sums in float64: a card adds them atomically in no fixed
+    # order, which moves a float64 sum far below float32's precision, so
+    # the float32 cell masses (and with them the run) repeat exactly
+    wm = torch.where(ok, w, torch.zeros_like(w)).to(torch.float64)
+    mass = torch.zeros(g, dtype=torch.float64, device=w.device).index_add_(
+        0, idx, wm)
+    first = torch.zeros(g, dtype=torch.float64, device=w.device).index_add_(
+        0, idx, wm * x.to(torch.float64))
+    centers = lo + (torch.arange(g, dtype=x.dtype, device=x.device)
+                    + 0.5) * dx
+    live = mass > 0
+    safe = torch.clamp(mass, min=1e-38)
+    centroid = torch.where(live, (first / safe).to(x.dtype), centers)
+    log_mass = torch.where(live, torch.log(safe).to(w.dtype),
+                           torch.full((g,), -1e30, dtype=w.dtype,
+                                      device=w.device))
+    resolved = dead | (rng <= (g / 32.0) * chol[0, 0])
+    return centroid[:, None], log_mass, resolved
+
+
+def _kde_params(sup: torch.Tensor, w: torch.Tensor, log_w: torch.Tensor,
+                bandwidth_selector, scaling: float) -> dict:
+    """support / log_w / chol / log_norm of a KDE over ``sup`` with
+    normalized weights ``w`` (the host fit's recipe)."""
+    dim = sup.shape[-1]
+    cov = regularized_kde_cov(sup, w, bandwidth_selector, scaling)
+    # cholesky_ex: no host read of the status (a degenerate covariance
+    # gives NaN rows, as jnp.linalg.cholesky does)
+    chol = torch.linalg.cholesky_ex(cov).L
+    log_norm = (-0.5 * dim * math.log(2 * math.pi)
+                - torch.log(torch.diagonal(chol)).sum())
+    return {"support": sup, "log_w": log_w, "chol": chol,
+            "log_norm": log_norm}
+
+
+def _refit_model(theta: torch.Tensor, log_w: torch.Tensor,
+                 valid: torch.Tensor, m_col: torch.Tensor, j: int,
+                 dim_j: int, n_target: int, bandwidth_selector,
+                 scaling: float, support_cap: Optional[int] = None,
+                 generator: Optional[torch.Generator] = None,
+                 u0: Optional[torch.Tensor] = None):
+    """Model j's KDE refit from the carried population: ``(params,
+    resolved)`` with the params ``MultivariateNormalTransition`` would
+    give (support padded to ``n_target`` rows at log weight -1e30, plus
+    the grid-compressed ``c_support``/``c_log_w`` of a large 1-D model).
+
+    Above ``support_cap`` rows the model's weighted rows are first
+    resampled to ``support_cap`` uniform-weight rows by systematic
+    inverse CDF (one uniform from ``generator``, or ``u0``), and the same
+    recipe runs on them: O(cap) refit and cap-row densities at any
+    population size, no grid."""
+    n_rows = theta.shape[0]
+    sel = valid & (m_col == j)
+    neg_inf = torch.full_like(log_w, -math.inf)
+    if support_cap is not None and n_target > support_cap:
+        any_sel = sel.any()
+        lw_sel = torch.where(sel & torch.isfinite(log_w), log_w, neg_inf)
+        # dead model: a point mass on row 0 keeps the inverse CDF finite;
+        # its log weights are forced to -1e30 below
+        row0 = torch.arange(n_rows, device=theta.device) == 0
+        lw_safe = torch.where(any_sel, lw_sel,
+                              torch.where(row0, torch.zeros_like(log_w),
+                                          neg_inf))
+        idx = systematic_weighted_choice(generator, lw_safe, support_cap,
+                                         u0=u0)
+        sup = theta[idx, :dim_j]
+        w = torch.full((support_cap,), 1.0 / support_cap,
+                       dtype=torch.float32, device=theta.device)
+        lw = torch.full((support_cap,), -math.log(support_cap),
+                        dtype=torch.float32, device=theta.device)
+        params = _kde_params(
+            sup, w, torch.where(any_sel, lw, torch.full_like(lw, -1e30)),
+            bandwidth_selector, scaling)
+        return params, torch.ones((), dtype=torch.bool, device=theta.device)
+
+    idx = _first_rows(sel, n_target)
+    ok = idx < n_rows
+    idxc = torch.clamp(idx, max=n_rows - 1)
+    sup = theta[idxc, :dim_j]
+    lw = torch.where(ok, log_w[idxc], torch.full_like(ok, -math.inf,
+                                                      dtype=log_w.dtype))
+    lw = lw - torch.logsumexp(lw, 0)
+    w = torch.where(ok, torch.exp(lw), torch.zeros_like(lw))
+    params = _kde_params(sup, w,
+                         torch.where(ok, lw, torch.full_like(lw, -1e30)),
+                         bandwidth_selector, scaling)
+    resolved = torch.ones((), dtype=torch.bool, device=theta.device)
+    if dim_j == 1 and n_target >= _COMPRESS_MIN_N:
+        # the proposal density runs against ~2^14 cells instead of
+        # n_target rows (rvs stays on the full support, as the host fit)
+        params["c_support"], params["c_log_w"], resolved = \
+            _compress_support_device(sup, w, ok, params["chol"])
+    return params, resolved
+
+
+def _interp(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor
+            ) -> torch.Tensor:
+    """``jnp.interp(x, xp, fp)`` for a scalar ``x``: constant beyond
+    both ends, ``fp[i-1]`` where the interval is (numerically) empty."""
+    n = xp.shape[0]
+    i = torch.clamp(torch.searchsorted(xp, x.reshape(1), right=True)[0],
+                    1, n - 1)
+    df = fp[i] - fp[i - 1]
+    dx = xp[i] - xp[i - 1]
+    delta = x - xp[i - 1]
+    # np.spacing(np.finfo(float32).eps), as jnp.interp
+    dx0 = torch.abs(dx) <= 1.4210855e-14
+    f = torch.where(dx0, fp[i - 1],
+                    fp[i - 1] + (delta / torch.where(dx0, torch.ones_like(
+                        dx), dx)) * df)
+    f = torch.where(x < xp[0], fp[0], f)
+    return torch.where(x > xp[-1], fp[-1], f)
+
+
+def _weighted_quantile_device(x: torch.Tensor, w: torch.Tensor,
+                              valid: torch.Tensor, alpha: float,
+                              sketch: bool = False) -> torch.Tensor:
+    """``weighted_statistics.weighted_quantile`` on masked device rows:
+    invalid rows sort to +inf with zero weight.  ``sketch=True`` (the
+    schedule's ``device_sketch_ok``) takes the sort-free histogram
+    sketch, within ``sketch_error_bound`` of the inverse CDF."""
+    if sketch:
+        return sketch_weighted_quantile(x, w, alpha, valid=valid)
+    xs = torch.where(valid, x, torch.full_like(x, math.inf))
+    ws = torch.where(valid, w, torch.zeros_like(w))
+    order = torch.argsort(xs, stable=True)
+    pts = xs[order]
+    w_s = ws[order] / torch.clamp(ws.sum(), min=1e-38)
+    cum = torch.cumsum(w_s, 0)
+    return _interp(torch.full((), alpha, dtype=x.dtype, device=x.device),
+                   cum - 0.5 * w_s, pts)
+
+
+def ewma_update(rate0: torch.Tensor, safety0: torch.Tensor,
+                count1: torch.Tensor, rounds1: int, B: int, n_target: int):
+    """The next generation's ``(rate, safety)`` (``fused.py:562-568``):
+    the EWMA acceptance-rate estimate (the host autotuner's gain) and the
+    undershoot-escalated safety margin (×1.25 up to 4)."""
+    obs = count1.to(torch.float32) / float(max(rounds1 * B, 1))
+    rate1 = torch.clamp(rate0 + EWMA_ALPHA * (obs - rate0), min=1e-6)
+    safety1 = torch.where(count1 < n_target,
+                          torch.clamp(safety0 * 1.25, max=4.0), safety0)
+    return rate1, safety1
+
+
+def round_cap(rate0: torch.Tensor, safety0: torch.Tensor, n_target: int,
+              B: int, max_rounds: int, rate_pred_factor: float
+              ) -> torch.Tensor:
+    """This generation's round cap ``dyn_rounds`` (``fused.py:469-486``):
+    rounds the carried rate estimate predicts, with the safety margin,
+    +1, in [min(2, max_rounds), max_rounds]."""
+    pred = torch.clamp(rate0, min=1e-6) * rate_pred_factor
+    # a tensor numerator: `float / tensor` would multiply by a reciprocal
+    n = torch.full_like(pred, float(n_target))
+    need = torch.ceil(n / (pred * B) * safety0) + 1.0
+    lo = min(2.0, float(max_rounds))
+    return torch.clamp(need, lo, float(max_rounds)).to(torch.int64)
+
+
+def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
+                  scalings: Sequence[float], dims: Sequence[int],
+                  n_target: int, B: int, max_rounds: int, d: int, s: int,
+                  eps_mode: str, eps_alpha: float, eps_multiplier: float,
+                  eps_weighted: bool, distance_params,
+                  raw_round: Callable, support_cap: Optional[int] = None,
+                  rate_pred_factor: float = 1.0,
+                  adaptive_cfg: Optional[dict] = None,
+                  stoch_cfg: Optional[dict] = None,
+                  eps_sketch: bool = False):
+    """The per-generation body behind :func:`build_fused_generations`.
+
+    ``eps_mode`` is ``"constant"``, ``"quantile"`` or ``"temperature"``
+    (the last requires ``stoch_cfg``: ``pdf_norm``, ``target_rate``,
+    ``lin_scale``, ``record_rows``); ``adaptive_cfg`` (``scale_fn``,
+    ``distance_fn``, ``obs_flat``, ``max_weight_ratio``,
+    ``normalize_weights``, ``factors``) switches on the in-block scale
+    refit.  ``raw_round(generator, params)`` is the sampler's deferred
+    round at batch ``B``.
+
+    Returns ``one_gen(carry, generator, final=False) -> (carry, wire,
+    info)``: the next carry, the generation's population (``m``,
+    ``theta``, ``distance`` at acceptance, corrected ``log_weight``,
+    ``stats``) with ``count`` and ``eps``, and host facts (``rounds``,
+    ``host_reads``, ``grids_resolved`` — None without a grid —
+    ``kde_support``).  ``final`` pins the temperature to 1
+    (``Temperature``'s last-generation rule)."""
+    M = kernel.M
+    cap = n_target + B
+    stoch = stoch_cfg is not None
+    adaptive = adaptive_cfg is not None
+    if eps_mode == "temperature" and not stoch:
+        raise ValueError("temperature eps_mode requires stoch_cfg")
+    if stoch:
+        pdf_norm = float(stoch_cfg["pdf_norm"])
+        target = float(stoch_cfg["target_rate"])
+        lin_scale = bool(stoch_cfg["lin_scale"])
+        R = int(stoch_cfg["record_rows"])
+        if not 0 < R <= B:
+            raise ValueError("record_rows must be in (0, B]")
+    if adaptive:
+        scale_fn = adaptive_cfg["scale_fn"]
+        dist_fn = adaptive_cfg["distance_fn"]
+        obs_flat = adaptive_cfg["obs_flat"]
+        max_weight_ratio = adaptive_cfg.get("max_weight_ratio")
+        normalize_weights = bool(adaptive_cfg.get("normalize_weights",
+                                                  True))
+        factors = adaptive_cfg.get("factors")
+        if factors is not None:
+            factors = torch.as_tensor(factors, dtype=torch.float32,
+                                      device=obs_flat.device)
+    capped = support_cap is not None and n_target > support_cap
+
+    def one_gen(carry: dict, generator: torch.Generator,
+                final: bool = False):
+        m0, theta0, lw0 = carry["m"], carry["theta"], carry["log_weight"]
+        dist0, count0, eps0 = (carry["distance"], carry["count"],
+                               carry["eps"])
+        rate0, safety0 = carry["rate"], carry["safety"]
+        dev = theta0.device
+        n_rows = m0.shape[0]
+        valid0 = torch.arange(n_rows, device=dev) < count0
+        neg_inf = torch.full_like(lw0, -math.inf)
+
+        # normalized weights of the carried population (log-space shift)
+        lw_max = torch.where(valid0 & torch.isfinite(lw0), lw0,
+                             neg_inf).max()
+        w_un = torch.where(valid0, torch.exp(lw0 - lw_max),
+                           torch.zeros_like(lw0))
+        w = w_un / torch.clamp(w_un.sum(), min=1e-38)
+
+        # model probabilities -> the proposal's model mix
+        one_hot = m0[:, None] == torch.arange(M, device=dev)[None, :]
+        probs = torch.where(one_hot, w[:, None],
+                            torch.zeros_like(w)[:, None]).sum(0)
+        model_log_probs = torch.log(torch.clamp(probs, min=1e-300))
+
+        # per-model KDE refit
+        refits = [_refit_model(theta0, lw0, valid0, m0, j, dims[j],
+                               n_target, bandwidth_selectors[j],
+                               scalings[j], support_cap=support_cap,
+                               generator=generator if capped else None)
+                  for j in range(M)]
+        trans = tuple(p for p, _ in refits)
+        grids_resolved = refits[0][1]
+        for _, r in refits[1:]:
+            grids_resolved = grids_resolved & r
+
+        # this generation's epsilon
+        if eps_mode == "constant":
+            eps_t = eps0
+        elif eps_mode == "quantile":
+            qw = w if eps_weighted else valid0.to(w.dtype)
+            eps_t = _weighted_quantile_device(
+                dist0, qw, valid0, eps_alpha, sketch=eps_sketch) \
+                * eps_multiplier
+        else:
+            # the acceptance-rate solve over the record ring, under this
+            # generation's proposal
+            log_new = kernel.proposal_log_density(
+                carry["rec_m"], carry["rec_theta"],
+                {"model_log_probs": model_log_probs, "transition": trans})
+            b_opt, rate_at_1, rate_min = acceptance_rate_solve(
+                carry["rec_dist"], log_new - carry["rec_loggen"], pdf_norm,
+                target, lin_scale)
+            # already hot -> T = 1; target out of reach -> +inf (the
+            # clamp then keeps the previous T: the NaN-seeded first ring)
+            one = torch.ones_like(eps0)
+            t_prop = torch.where(
+                rate_at_1 > target, one,
+                torch.where(rate_min < target, torch.full_like(eps0,
+                                                               math.inf),
+                            torch.exp(-b_opt)))
+            # Temperature._update: monotone, at least 1; a previous T <= 1
+            # or the run's last generation pins T = 1
+            t_new = torch.clamp(torch.minimum(t_prop, eps0), min=1.0)
+            eps_t = one if final else torch.where(eps0 <= 1.0, one, t_new)
+
+        if stoch:
+            acc_params = {"pdf_norm": pdf_norm, "temp": eps_t}
+        else:
+            acc_params = {"eps": eps_t}
+        if adaptive:
+            w_eff0 = (carry["dist_w"] * factors if factors is not None
+                      else carry["dist_w"])
+            dparams = {"w": w_eff0}
+        else:
+            dparams = distance_params
+        params = {"distance": dparams, "acceptor": acc_params,
+                  "model_log_probs": model_log_probs, "transition": trans}
+
+        dyn_rounds = round_cap(rate0, safety0, n_target, B, max_rounds,
+                               rate_pred_factor)
+
+        # rejection rounds, compacted in (round, lane) order; row `cap`
+        # takes every dropped write
+        bufs = {
+            "m": torch.zeros(cap + 1, dtype=m0.dtype, device=dev),
+            "theta": torch.zeros(cap + 1, d, device=dev),
+            "distance": torch.full((cap + 1,), math.nan, device=dev),
+            "log_weight": torch.full((cap + 1,), -math.inf, device=dev),
+            "stats": torch.zeros(cap + 1, s, device=dev),
+        }
+        count = torch.zeros((), dtype=torch.int64, device=dev)
+        rounds = 0
+        reads = 0
+        while True:
+            rr = raw_round(generator, params)
+            acc = rr.accepted
+            pos = count + torch.cumsum(acc.to(torch.int64), 0) - 1
+            idx = torch.where(acc & (pos < cap), pos,
+                              torch.full_like(pos, cap))
+            for key in POP_LANES:
+                bufs[key][idx] = getattr(rr, key)
+            count = torch.clamp(count + acc.sum(), max=cap)
+            rounds += 1
+            # the last round's candidates feed the refit / the ring
+            last = rr
+            reads += 1
+            if not bool((count < n_target) & (rounds < dyn_rounds)):
+                break
+
+        rate1, safety1 = ewma_update(rate0, safety0, count, rounds, B,
+                                     n_target)
+
+        # deferred proposal density over the accepted buffer (and the
+        # record ring's generating density: one evaluation serves both)
+        m1 = bufs["m"][:n_target]
+        theta1 = bufs["theta"][:n_target]
+        dist1 = bufs["distance"][:n_target]
+        stats1 = bufs["stats"][:n_target]
+        lw1 = bufs["log_weight"][:n_target]
+        if stoch:
+            ring = {"rec_m": last.m[:R], "rec_theta": last.theta[:R],
+                    "rec_dist": last.distance[:R]}
+            m_q = torch.cat([m1, ring["rec_m"]])
+            th_q = torch.cat([theta1, ring["rec_theta"]])
+        else:
+            m_q, th_q = m1, theta1
+        resolved = None
+        if any("c_support" in p for p in trans):
+            reads += 1
+            resolved = bool(grids_resolved)
+        if resolved is False:
+            trans_used = tuple({k: v for k, v in p.items()
+                                if k not in ("c_support", "c_log_w")}
+                               for p in trans)
+        else:
+            trans_used = trans
+        log_den_q = kernel.proposal_log_density(
+            m_q, th_q, {**params, "transition": trans_used})
+        log_denom = log_den_q[:n_target]
+        lw1 = torch.where(torch.isfinite(lw1), lw1 - log_denom, lw1)
+
+        if adaptive:
+            # the last round's candidate stats stand in for the host
+            # fit's records: scale -> invert -> ratio clamp -> normalize
+            scale = scale_fn(last.stats, obs_flat)
+            w_new = torch.where(scale > 0,
+                                1.0 / torch.clamp(scale, min=1e-30),
+                                torch.zeros_like(scale))
+            if max_weight_ratio is not None:
+                pos_min = torch.where(w_new > 0, w_new,
+                                      torch.full_like(w_new, math.inf)).min()
+                w_new = torch.where(torch.isfinite(pos_min),
+                                    torch.minimum(w_new,
+                                                  pos_min * max_weight_ratio),
+                                    w_new)
+            if normalize_weights:
+                wsum = w_new.sum()
+                w_new = torch.where(wsum > 0, w_new * s / wsum, w_new)
+            w_new = w_new.to(torch.float32)
+            w_eff1 = w_new * factors if factors is not None else w_new
+            # the next quantile sees the carried distances under the new
+            # weights; the generation's output keeps the accepted ones
+            dist_carry = dist_fn(stats1, obs_flat, {"w": w_eff1})
+        else:
+            dist_carry = dist1
+
+        new_carry = {"m": m1, "theta": theta1, "log_weight": lw1,
+                     "distance": dist_carry, "stats": stats1,
+                     "count": count, "eps": eps_t, "rate": rate1,
+                     "safety": safety1}
+        if adaptive:
+            new_carry["dist_w"] = w_new
+        if stoch:
+            new_carry.update(ring)
+            new_carry["rec_loggen"] = log_den_q[n_target:]
+        wire = {"m": m1, "theta": theta1, "distance": dist1,
+                "log_weight": lw1, "stats": stats1, "count": count,
+                "eps": eps_t}
+        info = {"rounds": rounds, "host_reads": reads,
+                "grids_resolved": resolved,
+                "kde_support": [
+                    {"rows": int((p["c_support"] if "c_support" in p
+                                  else p["support"]).shape[0]),
+                     "compressed": "c_support" in p}
+                    for p in trans_used]}
+        return new_carry, wire, info
+
+    return one_gen
+
+
+def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
+                            n_target: int, B: int, max_rounds: int, K: int,
+                            d: int, s: int, eps_mode: str, eps_alpha: float,
+                            eps_multiplier: float, eps_weighted: bool,
+                            distance_params, raw_round: Callable,
+                            support_cap: Optional[int] = None,
+                            rate_pred_factor: float = 1.0,
+                            adaptive_cfg: Optional[dict] = None,
+                            stoch_cfg: Optional[dict] = None,
+                            eps_sketch: bool = False):
+    """``fused(carry, generator, final_mask=None) -> (carry, wires,
+    infos)`` for K generations.
+
+    ``carry`` is the previous generation's accepted population on the
+    device: ``m`` [n] int64, ``theta`` [n, d], ``log_weight``,
+    ``distance`` [n], ``stats`` [n, s] (write-only in the block; it
+    leaves as the last generation's stats), ``count`` int64, and the
+    float32 scalars ``eps`` (ε or T), ``rate`` and ``safety`` (the
+    autotuner's state: an EWMA acceptance-rate estimate and a margin that
+    size each generation's round cap below ``max_rounds``); an adaptive
+    distance adds ``dist_w`` [s] (the raw inverse-scale weights), the
+    stochastic triple the record ring ``rec_m``, ``rec_theta``,
+    ``rec_dist``, ``rec_loggen`` (R rows) for the temperature solve.
+
+    ``wires`` stacks the K generations' outputs on the device (leading
+    axis K); ``infos`` holds each generation's host facts, with its KDE
+    launches (``kde_launches``).  ``final_mask`` [K] (stochastic triple)
+    marks the run's last generation, whose temperature is 1."""
+    one_gen = build_one_gen(
+        kernel, bandwidth_selectors, scalings, dims, n_target, B,
+        max_rounds, d, s, eps_mode, eps_alpha, eps_multiplier,
+        eps_weighted, distance_params, raw_round, support_cap=support_cap,
+        rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
+        stoch_cfg=stoch_cfg, eps_sketch=eps_sketch)
+
+    def fused(carry: dict, generator: torch.Generator,
+              final_mask: Optional[List[bool]] = None):
+        wires, infos = [], []
+        for k in range(K):
+            launches0 = weighted_kde_logpdf_cuda.launches
+            carry, wire, info = one_gen(
+                carry, generator,
+                final=bool(final_mask[k]) if final_mask is not None
+                else False)
+            info["kde_launches"] = (weighted_kde_logpdf_cuda.launches
+                                    - launches0)
+            wires.append(wire)
+            infos.append(info)
+        stacked = {key: torch.stack([wr[key] for wr in wires])
+                   for key in wires[0]}
+        return carry, stacked, infos
+
+    return fused

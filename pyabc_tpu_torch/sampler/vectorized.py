@@ -68,6 +68,28 @@ class VectorizedSampler(Sampler):
         return self._tuner.choose_batch(n, self.safety_factor,
                                         self._round_to_valid_batch)
 
+    @property
+    def rate_est(self) -> float:
+        """The autotuner's acceptance-rate estimate (EWMA)."""
+        return self._tuner.rate
+
+    def safety(self) -> float:
+        """The autotuner's oversampling margin for the next generation."""
+        return self._tuner.safety(self.safety_factor)
+
+    def observe_generation(self, accepted: int, total: int,
+                           rounds: Optional[int] = None):
+        """Fold a generation that ran outside :meth:`sample_until_n_accepted`
+        (a fused block's) into the autotuner."""
+        self._tuner.observe(accepted, total, rounds=rounds)
+
+    @staticmethod
+    def raw_round(round_fn, B: int):
+        """The deferred round of ``round_fn`` at batch ``B``: ``(generator,
+        params) -> RoundResult`` with partial weights (the proposal
+        density is left to the caller, once per generation)."""
+        return lambda gen, p: round_fn(gen, p, B, with_proposal=False)
+
     def _round_to_valid_batch(self, b: float) -> int:
         return int(np.clip(_pow2_at_least(b), self.min_batch_size,
                            self.max_batch_size))
@@ -110,8 +132,7 @@ class VectorizedSampler(Sampler):
                  and hasattr(round_fn, "__self__"))
         record_density_fn = None
         if defer:
-            raw = lambda gen, p: round_fn(gen, p, B,  # noqa: E731
-                                          with_proposal=False)
+            raw = self.raw_round(round_fn, B)
             weight_fn = round_fn.__self__.proposal_log_density
             if record_cap and self.record_proposal_density:
                 # the records get their generating density at ingest

@@ -22,16 +22,28 @@ calibration sample with density ratio 1, then each generation's records
 under the newly fitted proposal, on the device), the acceptor's pdf norm
 follows the population, and the run stops once the temperature reaches 1.
 
-Not ported yet (ROADMAP): the fused, one-dispatch, pipelined and
-lazy-History engines — the JAX package takes the pipelined and lazy
-branches at pop 1e6 by default, this port always runs the classic loop —
-and the multi-fidelity components.
+With ``fuse_generations=K`` (K >= 2) and a configuration whose whole
+adaptation chain has a device form (``_fused_eligible``), the loop runs
+K generations at a time as a fused block (:mod:`.sampler.fused`) from
+the previous generation's population, which stays on the device: no
+host adaptation and no population copy between the block's generations.
+Each generation is copied to the host and appended to History after the
+block.  The first generation, the tail that no longer holds a whole
+block, and any generation a block fell short of run sequentially.  Above
+``PROBE_MIN_POP`` the first block's seconds per generation are weighed
+against the sequential ones and the slower engine is retired for the run.
+
+Not ported yet (ROADMAP): the one-dispatch, pipelined and lazy-History
+engines — the JAX package takes the pipelined and lazy branches at pop
+1e6 by default, this port runs the classic loop and fused blocks — and
+the multi-fidelity components.
 """
 
 from __future__ import annotations
 
 import functools
 import logging
+import math
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -42,18 +54,22 @@ from .acceptor import Acceptor, StochasticAcceptor, UniformAcceptor
 from .convert import to_numpy, to_torch
 from .device import make_generator, resolve_device
 from .distance import Distance, PNormDistance, StochasticKernel
-from .epsilon import Epsilon, MedianEpsilon, TemperatureBase
+from .distance.kernel import SCALE_LIN
+from .epsilon import (ConstantEpsilon, Epsilon, MedianEpsilon,
+                      TemperatureBase)
 from .model import Model, SimpleModel
 from .ops.kde_cuda import weighted_kde_logpdf_cuda
 from .population import Population
 from .populationstrategy import ConstantPopulationSize, PopulationStrategy
 from .random_variables import Distribution, ModelPerturbationKernel
-from .sampler.base import Sampler
+from .sampler import fused as _fused
+from .sampler.base import Sample, Sampler
 from .sampler.rounds import RoundKernel
 from .sampler.vectorized import VectorizedSampler, _pow2_at_least
 from .storage.history import PRE_TIME, History
 from .sumstat import SumStatSpec
 from .transition import MultivariateNormalTransition, Transition
+from .transition.multivariatenormal import _COMPRESS_MIN_N
 from .weighted_statistics import effective_sample_size
 
 logger = logging.getLogger("ABC")
@@ -63,6 +79,12 @@ STOP_SINGLE_MODEL = "Stopping: single model alive"
 STOP_ACC_RATE = "Stopping: acceptance rate too low"
 STOP_BUDGET = "Stopping: simulation budget exhausted"
 STOP_TEMPERATURE = "Stopping: temperature reached 1"
+#: the fused engine's stop codes -> the sequential loop's strings
+STOP_REASONS = {_fused.STOP_EPS: STOP_EPS,
+                _fused.STOP_TEMPERATURE: STOP_TEMPERATURE,
+                _fused.STOP_SINGLE_MODEL: STOP_SINGLE_MODEL,
+                _fused.STOP_ACC_RATE: STOP_ACC_RATE,
+                _fused.STOP_BUDGET: STOP_BUDGET}
 
 
 def _pdf_support_rows(params: dict) -> dict:
@@ -94,6 +116,8 @@ class ABCSMC:
                  stop_if_only_single_model_alive: bool = False,
                  stores_sum_stats: bool = True,
                  max_nr_recorded_particles: int = 1 << 21,
+                 fuse_generations: int = 1,
+                 fused_support_cap: Optional[int] = 1 << 14,
                  seed: int = 0,
                  device=None):
         if not isinstance(models, (list, tuple)):
@@ -143,17 +167,48 @@ class ABCSMC:
         self.max_nr_recorded_particles = int(max_nr_recorded_particles)
         #: the run's one random stream, on the run's device
         self.generator = make_generator(self.device, seed)
-        #: per-generation rows: t, wall_s (append to append), sample_s,
-        #: eps, n, evaluations, acceptance_rate, ess, batch, kde_launches
-        #: (KDE kernel launches in the generation), kde_support (per
-        #: model: pdf support rows, grid-compressed or not), records
-        #: (candidates recorded), record_batches (sampler calls that kept
-        #: records: each evaluates the proposal density over its records
-        #: when a temperature reads them), refit_s (seconds of the
-        #: distance fit whose params the generation used), peak_mem_gb
-        #: (peak device memory allocated in the generation, on the card;
-        #: None on the CPU)
+        #: run up to this many generations as one fused block when the
+        #: configuration's adaptation chain has a device form
+        #: (``_fused_eligible``); 1 = always sequential
+        self.fuse_generations = int(fuse_generations)
+        #: above this many particles a fused block resamples each model's
+        #: population to this many uniform-weight support rows before the
+        #: KDE refit (systematic inverse CDF); None refits on every row
+        self.fused_support_cap = fused_support_cap
+        self._fused_cache: Dict[tuple, Callable] = {}
+        #: the last generation's population on the device: the next
+        #: block's starting carry (None: the next generation is
+        #: sequential)
+        self._fused_carry: Optional[dict] = None
+        #: above PROBE_MIN_POP: "fused" or "sequential" once the first
+        #: block was timed against ``_seq_probe_s`` (seconds per
+        #: sequential generation)
+        self._engine_choice: Optional[str] = None
+        self._seq_probe_s: Optional[float] = None
+        self.minimum_epsilon = 0.0
+        self.min_acceptance_rate = 0.0
+        #: per-generation rows: t, path ("sequential" or "fused"), engine
+        #: (the probe's choice above PROBE_MIN_POP, else None), wall_s
+        #: (append to append; a fused block's wall over its written
+        #: generations), sample_s (a fused block: its generations' device
+        #: loop, before the host copies), eps, n, evaluations,
+        #: acceptance_rate, ess, batch, kde_launches (KDE kernel launches
+        #: in the generation), kde_support (per model: pdf support rows,
+        #: grid-compressed or not), records (candidates recorded),
+        #: record_batches (sampler calls that kept records: each
+        #: evaluates the proposal density over its records when a
+        #: temperature reads them), refit_s (seconds of the distance fit
+        #: whose params the generation used), peak_mem_gb (peak device
+        #: memory allocated in the generation — in a fused block, in the
+        #: block — on the card; None on the CPU); fused rows also carry
+        #: rounds, host_reads (values the host read in the generation) and
+        #: grids_resolved (None without a grid-compressed support)
         self.timeline: List[dict] = []
+        #: one entry per fused block run: t (its first generation), K,
+        #: written (generations kept; fewer than K after an undershoot or
+        #: a stop), batch, rounds (of every generation it ran, discarded
+        #: ones included), host_reads, kde_launches, wall_s, stop
+        self.blocks: List[dict] = []
         self._refit_s = 0.0
         self.stop_reason: Optional[str] = None
 
@@ -213,6 +268,8 @@ class ABCSMC:
         return self.history
 
     def _bind(self):
+        # a new or loaded run never starts from another run's population
+        self._fused_carry = None
         self.spec = SumStatSpec.from_example(self.x_0)
         self._obs_flat = self.spec.flatten_single(self.x_0,
                                                   device=self.device)
@@ -301,6 +358,451 @@ class ABCSMC:
         params = to_torch(self.distance_function.get_params(t), self.device)
         return self.distance_function.compute(
             stats, self._obs_flat, params).cpu().numpy().astype(np.float32)
+
+    # ---- fused multi-generation blocks (sampler/fused.py) ---------------
+
+    #: above this population the fused-vs-sequential choice is probed:
+    #: the first block's seconds per generation against the sequential
+    #: baseline, the slower engine retired for the run
+    PROBE_MIN_POP = 1 << 17
+    #: record-ring rows carried through a block for the temperature solve
+    _RECORD_ROWS_MAX = 1 << 12
+
+    def _device_chain_eligible(self) -> bool:
+        """The whole propose → accept → refit → new-ε chain has a device
+        form, decided from the components' own capability flags
+        (``device_accept_ok``, ``device_schedule_ok``,
+        ``device_refit_ok``, ``device_support_ok``); anything else runs
+        sequentially."""
+        s = self.sampler
+        if not isinstance(s, VectorizedSampler):
+            return False
+        if not getattr(self.acceptor, "device_accept_ok", False):
+            return False
+        if not getattr(self.eps, "device_schedule_ok", False):
+            return False
+        temp = isinstance(self.eps, TemperatureBase)
+        stoch = isinstance(self.distance_function, StochasticKernel)
+        adaptive = self._distance_is_adaptive()
+        if temp != stoch:
+            return False  # the stochastic triple is all or none
+        if adaptive:
+            if stoch:
+                return False  # no in-block refit of a stochastic kernel
+            if not getattr(self.distance_function, "device_refit_ok",
+                           False):
+                return False
+        elif not self.distance_function.params_time_invariant():
+            return False
+        # the block stands in for the record stream (the last round's
+        # stats for an adaptive refit, the R-row ring for the temperature
+        # solve); any other reader of records needs the host loop
+        if s.record_rejected and not (adaptive or temp):
+            return False
+        if s.record_proposal_density and not temp:
+            return False
+        if type(self.population_strategy) is not ConstantPopulationSize:
+            return False
+        if getattr(self.population_strategy,
+                   "nr_samples_per_parameter", 1) != 1:
+            return False
+        if not all(type(tr) is MultivariateNormalTransition
+                   and getattr(tr, "device_support_ok", False)
+                   for tr in self.transitions):
+            return False
+        # bound the per-generation proposal density: n queries x every
+        # model's support rows (the cap above fused_support_cap, the
+        # device grid for a large 1-D model, else n)
+        n = self.population_strategy(0)
+        cap = self.fused_support_cap
+
+        def support_rows(dim: int) -> int:
+            if cap is not None and n > cap:
+                return cap
+            if dim == 1 and n >= _COMPRESS_MIN_N:
+                return _fused._DEVICE_GRID
+            return n
+
+        rows = sum(support_rows(p.dim) for p in self.parameter_priors)
+        return float(n) * rows <= float(1 << 35)
+
+    def _fused_eligible(self) -> bool:
+        """Run ``fuse_generations`` generations per block?  Needs K >= 2,
+        the device chain, and — above PROBE_MIN_POP — no measured loss of
+        the fused engine."""
+        if self.fuse_generations < 2:
+            return False
+        if (self.population_strategy(0) > self.PROBE_MIN_POP
+                and self._engine_choice == "sequential"):
+            return False
+        return self._device_chain_eligible()
+
+    def _note_sequential_gen_s(self, wall_s: float):
+        """A sequential generation's seconds: the engine probe's
+        baseline."""
+        if wall_s > 1e-9:
+            self._seq_probe_s = wall_s
+
+    def _decide_engine(self, fused_s_per_gen: float) -> str:
+        """One-shot fused-vs-sequential choice at scale from the first
+        block's seconds per generation, with a 5 % band; with no
+        sequential baseline the fused engine stays."""
+        if self._engine_choice is None:
+            seq = self._seq_probe_s
+            if seq is None or fused_s_per_gen <= seq * 1.05:
+                self._engine_choice = "fused"
+            else:
+                self._engine_choice = "sequential"
+            logger.info(
+                "engine probe: fused %.4g s/gen vs sequential %s s/gen "
+                "-> %s", fused_s_per_gen,
+                "n/a" if seq is None else f"{seq:.4g}", self._engine_choice)
+        return self._engine_choice
+
+    def _eps_device_config(self):
+        """``(mode, alpha, multiplier, weighted, sketch)`` of the block's
+        epsilon schedule; ``sketch`` only where a quantile is sorted."""
+        if isinstance(self.eps, ConstantEpsilon):
+            return "constant", 0.5, 1.0, True, False
+        if isinstance(self.eps, TemperatureBase):
+            return "temperature", 0.5, 1.0, True, False
+        return ("quantile", self.eps.alpha, self.eps.quantile_multiplier,
+                self.eps.weighted,
+                bool(getattr(self.eps, "device_sketch_ok", False)))
+
+    def _block_mode(self) -> dict:
+        """Which in-block adaptation chains a block carries."""
+        return {"adaptive": self._distance_is_adaptive(),
+                "stoch": isinstance(self.acceptor, StochasticAcceptor)}
+
+    def _block_record_rows(self, B: int) -> int:
+        """Record-ring rows of a stochastic-triple block (at most one
+        round's candidates)."""
+        return min(self._RECORD_ROWS_MAX, B)
+
+    def _final_mask(self, t: int, K: int) -> List[bool]:
+        """Which generations of a block starting at ``t`` are the run's
+        last (``Temperature`` pins their temperature to 1)."""
+        nr_pop = self.max_nr_populations
+        if not np.isfinite(nr_pop):
+            return [False] * K
+        return [(t + k) >= nr_pop - 1 for k in range(K)]
+
+    def _block_max_rounds(self, n: int, B: int,
+                          rate_est: Optional[float] = None) -> int:
+        """A block generation's round ceiling: 16, doubled up to 64 while
+        the rate estimate (with a 4x margin for the in-block decay)
+        predicts more; clamped below by ``min_acceptance_rate``'s budget,
+        past which the sequential loop would have stopped anyway."""
+        hi = 16
+        if rate_est is not None and rate_est > 0:
+            need = int(np.ceil(
+                n / (max(float(rate_est), 1e-6) * B) * 4.0)) + 1
+            while hi < need and hi < 64:
+                hi *= 2
+        if self.min_acceptance_rate > 0:
+            return int(np.clip(
+                np.ceil(n / (self.min_acceptance_rate * B)), 1, hi))
+        return hi
+
+    def _seed_block_carry(self, t: int, carry: dict, B: int,
+                          rate_est: float, safety: float):
+        """A block's full carry from the previous block's (all lanes:
+        passed through) or from a sequential generation's
+        ``Sample.device_population`` (the population lanes: the rest are
+        seeded here).  None when the seed cannot reproduce the sequential
+        chain's state for ``t``."""
+        mode = self._block_mode()
+        eps_mode = self._eps_device_config()[0]
+        dev = self.device
+        n = carry["theta"].shape[0]
+
+        def scalar(v):
+            return torch.full((), float(v), dtype=torch.float32, device=dev)
+
+        out = {k: carry[k] for k in ("m", "theta", "log_weight",
+                                     "distance")}
+        out["count"] = (carry["count"] if "count" in carry else
+                        torch.full((), n, dtype=torch.int64, device=dev))
+        out["stats"] = (carry["stats"] if "stats" in carry else
+                        torch.zeros(n, self.spec.total_size, device=dev))
+        if eps_mode == "constant":
+            out["eps"] = scalar(self.eps(t))
+        elif "eps" in carry:
+            out["eps"] = carry["eps"]
+        elif eps_mode == "temperature":
+            # the newest host temperature <= t caps the block's first
+            # solve: at a sequential boundary the solved T_t itself
+            known = [tt for tt in self.eps.temperatures if tt <= t]
+            if not known:
+                return None
+            out["eps"] = scalar(self.eps.temperatures[max(known)])
+        else:
+            out["eps"] = scalar(self.eps(t))  # recomputed in the block
+        out["rate"] = (carry["rate"] if "rate" in carry
+                       else scalar(max(rate_est, 1e-6)))
+        out["safety"] = (carry["safety"] if "safety" in carry
+                         else scalar(safety))
+        if mode["adaptive"]:
+            if "dist_w" in carry:
+                out["dist_w"] = carry["dist_w"]
+            else:
+                # from a sequential generation: the host refit for t ran
+                # already — carry its raw weights and the distances under
+                # them (the first in-block quantile must see w_t)
+                if "stats" not in carry:
+                    return None
+                w_host = self.distance_function._weights_for(t)
+                out["dist_w"] = torch.as_tensor(
+                    np.asarray(w_host, np.float32), device=dev)
+                out["distance"] = self.distance_function.compute(
+                    carry["stats"], self._obs_flat,
+                    to_torch(self.distance_function.get_params(t), dev))[:n]
+        if mode["stoch"]:
+            R = self._block_record_rows(B)
+            if "rec_m" in carry and carry["rec_m"].shape[0] == R:
+                out.update({k: carry[k] for k in _fused.RING_LANES})
+            else:
+                # NaN ring: the first in-block solve degrades to +inf and
+                # the clamp keeps the host's T_t; real records follow
+                out["rec_m"] = torch.zeros(R, dtype=torch.int64, device=dev)
+                out["rec_theta"] = torch.full((R, self.dim), math.nan,
+                                              device=dev)
+                out["rec_dist"] = torch.full((R,), math.nan, device=dev)
+                out["rec_loggen"] = torch.zeros(R, device=dev)
+        return out
+
+    def _get_block_fn(self, t: int, n: int, B: int, K: int):
+        """The K-generation block of this configuration (built once per
+        shape and schedule; a small dict cache)."""
+        samp = self.sampler
+        d, s_width = self.dim, self.spec.total_size
+        eps_mode, alpha, mult, weighted, eps_sketch = \
+            self._eps_device_config()
+        max_rounds = self._block_max_rounds(n, B, rate_est=samp.rate_est)
+        mode = self._block_mode()
+        sup_cap = self.fused_support_cap
+        record_rows = self._block_record_rows(B) if mode["stoch"] else 0
+        pdf_norm = 0.0
+        if mode["stoch"]:
+            # constant for the run under pdf_norm_from_kernel (the
+            # device_accept_ok condition); keyed all the same
+            norms = self.acceptor.pdf_norms
+            pdf_norm = float(norms.get(t, norms[max(norms)]
+                                       if norms else 0.0))
+        key = (self._kernel._uid, B, n, K, d, s_width, eps_mode, alpha,
+               mult, weighted, eps_sketch, max_rounds, sup_cap,
+               mode["adaptive"], mode["stoch"], record_rows, pdf_norm)
+        fn = self._fused_cache.get(key)
+        if fn is not None:
+            return fn
+        adaptive_cfg = None
+        if mode["adaptive"]:
+            dist = self.distance_function
+            adaptive_cfg = {"scale_fn": dist.scale_function,
+                            "distance_fn": dist.compute,
+                            "obs_flat": self._obs_flat,
+                            "max_weight_ratio": dist.max_weight_ratio,
+                            "normalize_weights": dist.normalize_weights,
+                            "factors": dist.factors}
+        stoch_cfg = None
+        if mode["stoch"]:
+            stoch_cfg = {"pdf_norm": pdf_norm,
+                         "target_rate": float(
+                             self.eps.schemes[0].target_rate),
+                         "lin_scale": self.acceptor.kernel_scale == SCALE_LIN,
+                         "record_rows": record_rows}
+        fn = _fused.build_fused_generations(
+            kernel=self._kernel,
+            bandwidth_selectors=[tr.bandwidth_selector
+                                 for tr in self.transitions],
+            scalings=[tr.scaling for tr in self.transitions],
+            dims=[p.dim for p in self.parameter_priors],
+            n_target=n, B=B, max_rounds=max_rounds, K=K, d=d, s=s_width,
+            eps_mode=eps_mode, eps_alpha=alpha, eps_multiplier=mult,
+            eps_weighted=weighted,
+            # an adaptive distance's weights ride the carry
+            distance_params=(None if mode["adaptive"] else to_torch(
+                self.distance_function.get_params(t), self.device)),
+            raw_round=samp.raw_round(self._kernel.generation_round, B),
+            support_cap=sup_cap,
+            # a quantile schedule tightens ε every generation: the carried
+            # rate over-predicts by about alpha
+            rate_pred_factor=alpha if eps_mode == "quantile" else 1.0,
+            adaptive_cfg=adaptive_cfg, stoch_cfg=stoch_cfg,
+            eps_sketch=eps_sketch)
+        self._fused_cache[key] = fn
+        while len(self._fused_cache) > 4:
+            self._fused_cache.pop(next(iter(self._fused_cache)))
+        return fn
+
+    def _population_from_wire(self, wires: dict, k: int
+                              ) -> Optional[Population]:
+        """Generation ``k`` of a block as a host population, weights
+        normalized as ``Sample.get_accepted_population`` does; None when
+        every weight is zero."""
+        keys = ["m", "theta", "distance", "log_weight"]
+        if self.sampler.fetch_stats:
+            keys.append("stats")
+        host = to_numpy({key: wires[key][k] for key in keys})
+        logw = host["log_weight"]
+        logw = logw - logw.max()
+        w = np.exp(np.asarray(logw, dtype=np.float64))
+        total = w.sum()
+        if not np.isfinite(total) or total <= 0:
+            return None
+        return Population(
+            m=host["m"].astype(np.int32), theta=host["theta"],
+            weight=(w / total).astype(np.float32),
+            distance=host["distance"],
+            sum_stats=({"__flat__": host["stats"]} if "stats" in host
+                       else {}))
+
+    def _run_fused_block(self, t: int, t_max, total_sims: int,
+                         max_total_nr_simulations):
+        """One fused block from ``t``: ``(written, sims_added,
+        stop_reason)``, ``written`` generations appended to History (0:
+        the sequential engine takes ``t``).  A failed block raises."""
+        carry = self._fused_carry
+        self._fused_carry = None
+        if carry is None:
+            return 0, 0, None
+        K = self.fuse_generations
+        n = self.population_strategy(t)
+        samp = self.sampler
+        if carry["theta"].shape[0] != n:
+            return 0, 0, None
+        B = samp.choose_batch(n)
+        mode = self._block_mode()
+        eps_mode = self._eps_device_config()[0]
+        carry_in = self._seed_block_carry(t, carry, B, samp.rate_est,
+                                          samp.safety())
+        if carry_in is None:
+            return 0, 0, None
+        fn = self._get_block_fn(t, n, B, K)
+        on_card = self.device.type == "cuda"
+
+        t0 = time.perf_counter()
+        carry_out, wires, infos = fn(
+            carry_in, self.generator,
+            self._final_mask(t, K) if mode["stoch"] else None)
+        dispatch_s = time.perf_counter() - t0
+        model_names = [m.name for m in self.models]
+        written = 0
+        stop_reason = None
+        rounds_seen = 0
+        rows = []
+        pop_k = None
+        for k in range(K):
+            t_k = t + k
+            if t_k >= t_max:
+                break
+            count_k = int(wires["count"][k])
+            rounds_k = infos[k]["rounds"]
+            rounds_seen += rounds_k
+            if count_k < n:
+                logger.info("fused block undershot at t=%d (%d/%d "
+                            "accepted): falling back to the sequential "
+                            "path", t_k, count_k, n)
+                break
+            evals_k = rounds_k * B
+            pop_k = self._population_from_wire(wires, k)
+            if pop_k is None:
+                logger.warning("fused block produced degenerate weights at "
+                               "t=%d: sequential fallback", t_k)
+                break
+            # a constant ε is the host's value: the float32 round trip
+            # would defeat `eps <= minimum_epsilon`
+            eps_k = (float(self.eps(t_k)) if eps_mode == "constant"
+                     else float(wires["eps"][k]))
+            acc_rate = count_k / max(evals_k, 1)
+            self.history.append_population(
+                t_k, eps_k, pop_k, evals_k, model_names,
+                self._param_names(), stat_spec=self.spec.shapes)
+            # the block's ε/T is the durable schedule entry
+            if eps_mode == "quantile":
+                self.eps._look_up[t_k] = eps_k
+            elif eps_mode == "temperature":
+                self.eps.temperatures[t_k] = eps_k
+            ess = float(effective_sample_size(pop_k.weight))
+            logger.info("t: %d, eps: %.8g (fused), acceptance rate: %.4g, "
+                        "ESS: %.4g, evals: %d", t_k, eps_k, acc_rate, ess,
+                        evals_k)
+            rows.append({"t": t_k, "path": "fused", "eps": eps_k, "n": n,
+                         "accepted": count_k,
+                         "evaluations": evals_k,
+                         "acceptance_rate": acc_rate, "ess": ess,
+                         "batch": B, "rounds": rounds_k,
+                         "host_reads": infos[k]["host_reads"],
+                         "grids_resolved": infos[k]["grids_resolved"],
+                         "kde_launches": infos[k]["kde_launches"],
+                         "kde_support": infos[k]["kde_support"],
+                         "records": 0, "record_batches": 0,
+                         "refit_s": 0.0})
+            written += 1
+            # stop criteria in the sequential loop's order
+            code = _fused.STOP_NONE
+            if eps_mode == "temperature":
+                if eps_k <= 1.0:
+                    code = _fused.STOP_TEMPERATURE
+            elif eps_k <= self.minimum_epsilon:
+                code = _fused.STOP_EPS
+            if code == _fused.STOP_NONE:
+                if (self.stop_if_only_single_model_alive
+                        and pop_k.nr_of_models_alive() <= 1
+                        and self.M > 1):
+                    code = _fused.STOP_SINGLE_MODEL
+                elif acc_rate < self.min_acceptance_rate:
+                    code = _fused.STOP_ACC_RATE
+                elif (total_sims + rounds_seen * B
+                      >= max_total_nr_simulations):
+                    code = _fused.STOP_BUDGET
+            if code != _fused.STOP_NONE:
+                stop_reason = STOP_REASONS[code]
+                break
+        # every generation the block ran counts against the budget,
+        # discarded ones included
+        sims_added = sum(info["rounds"] for info in infos) * B
+        samp.nr_evaluations_ += sims_added
+        block_s = time.perf_counter() - t0
+        self.blocks.append({
+            "t": t, "K": K, "written": written, "batch": B,
+            "rounds": [info["rounds"] for info in infos],
+            "host_reads": sum(info["host_reads"] for info in infos),
+            "kde_launches": sum(info["kde_launches"] for info in infos),
+            "wall_s": block_s, "stop": stop_reason})
+        if not written:
+            return 0, sims_added, None
+        at_scale = n > self.PROBE_MIN_POP
+        if at_scale and self._engine_choice is None:
+            self._decide_engine(block_s / written)
+        peak = (torch.cuda.max_memory_allocated(self.device) / 1e9
+                if on_card else None)
+        for row in rows:
+            row.update({"engine": self._engine_choice if at_scale else None,
+                        "wall_s": block_s / written,
+                        "sample_s": dispatch_s / written,
+                        "peak_mem_gb": peak})
+            self.timeline.append(row)
+            samp.observe_generation(row.pop("accepted"),
+                                    row["evaluations"], rounds=row["rounds"])
+        if stop_reason is None and t + written < t_max:
+            # keep the chain hot: the device carry for the next block
+            # (only after a whole block) and the host components for a
+            # sequential continuation
+            prep = Sample()
+            if written == K:
+                self._fused_carry = carry_out
+                prep.device_population = carry_out
+                if mode["adaptive"]:
+                    # the in-block refit's weights for t + K: update()
+                    # then keeps them and the ε update sees distances
+                    # under them
+                    self.distance_function.weights[t + written] = \
+                        carry_out["dist_w"].cpu().numpy().astype(np.float32)
+            self._prepare_next_iteration(t + written, prep, pop_k,
+                                         samp.rate_est)
+        return written, sims_added, stop_reason
 
     # ---- calibration and resume ----------------------------------------
 
@@ -391,6 +893,8 @@ class ABCSMC:
         if self.history is None:
             raise RuntimeError("call new(db, observed) or load(db) first")
         self.max_nr_populations = max_nr_populations
+        self.minimum_epsilon = minimum_epsilon
+        self.min_acceptance_rate = min_acceptance_rate
         self.stop_reason = None
 
         t0 = self.history.max_t + 1
@@ -425,6 +929,28 @@ class ABCSMC:
             torch.cuda.reset_peak_memory_stats(self.device)
         model_names = [m.name for m in self.models]
         while t < t_max:
+            # a fused block only when all K generations fit before t_max:
+            # a block always runs K, the tail would be discarded work
+            if (self._fused_eligible() and self._fused_carry is not None
+                    and t + self.fuse_generations <= t_max):
+                written, sims, stop_reason = self._run_fused_block(
+                    t, t_max, total_sims, max_total_nr_simulations)
+                total_sims += sims
+                # the block's launches are on its `blocks` entry (a block
+                # that wrote nothing leaves its wall in the next
+                # generation's: the time was spent)
+                launches_mark = weighted_kde_logpdf_cuda.launches
+                if written:
+                    t += written
+                    gen_mark = time.perf_counter()
+                    if on_card:
+                        torch.cuda.reset_peak_memory_stats(self.device)
+                    if stop_reason is not None:
+                        self.stop_reason = stop_reason
+                        logger.info(stop_reason)
+                        break
+                    continue
+                # nothing written: the sequential engine takes t
             current_eps = float(self.eps(t))
             n = self.population_strategy(t)
             max_eval = (n / min_acceptance_rate
@@ -461,7 +987,10 @@ class ABCSMC:
             ess = float(effective_sample_size(population.weight))
             now = time.perf_counter()
             self.timeline.append({
-                "t": t, "wall_s": now - gen_mark, "sample_s": sample_s,
+                "t": t, "path": "sequential",
+                "engine": (self._engine_choice
+                           if n > self.PROBE_MIN_POP else None),
+                "wall_s": now - gen_mark, "sample_s": sample_s,
                 "eps": current_eps, "n": n,
                 "evaluations": sample.nr_evaluations,
                 "acceptance_rate": acceptance_rate, "ess": ess,
@@ -476,10 +1005,18 @@ class ABCSMC:
                 "refit_s": self._refit_s,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
                                 / 1e9 if on_card else None)})
+            # the engine probe's baseline (t = 0's prior round has no
+            # refit or proposal work and would bias it low)
+            if t > 0:
+                self._note_sequential_gen_s(now - gen_mark)
             gen_mark = now
             launches_mark = weighted_kde_logpdf_cuda.launches
             if on_card:
                 torch.cuda.reset_peak_memory_stats(self.device)
+            if self._fused_eligible():
+                # this generation's accepted rows stay on the device as
+                # the next fused block's carry
+                self._fused_carry = sample.device_population
             logger.info("t: %d, acceptance rate: %.4g, ESS: %.4g, evals: %d",
                         t, acceptance_rate, ess, sample.nr_evaluations)
 

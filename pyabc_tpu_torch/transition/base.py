@@ -22,6 +22,9 @@ class Transition:
     NO_PAD_KEYS: tuple = ()
     #: fill value of padded support rows per key; other keys zero-pad
     PAD_FILL: dict = {"log_w": -1e30}  # padded rows carry ~zero weight
+    #: whether the fused engine may refit this transition inside a block
+    #: (``ABCSMC._device_chain_eligible``); concrete classes opt in
+    device_support_ok = False
 
     def __init__(self):
         self.theta: Optional[np.ndarray] = None   # support [N, D]

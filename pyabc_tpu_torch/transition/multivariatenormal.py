@@ -5,7 +5,9 @@ Port of ``pyabc_tpu/transition/multivariatenormal.py``.  The fit
 grid-compressed pdf support) is host numpy, the same arithmetic as the
 JAX package's host path; ``rvs_from_params`` and ``log_pdf_from_params``
 run on the params' device, the latter through the weighted-KDE kernel
-(``ops.kde.weighted_kde_logpdf_auto``).
+(``ops.kde.weighted_kde_logpdf_auto``).  ``regularized_kde_cov`` also
+takes tensors: the fused engine refits on the device with the same
+recipe.
 """
 
 from __future__ import annotations
@@ -26,9 +28,18 @@ _COMPRESS_MAX_G = 1 << 16
 _COMPRESS_CELLS_PER_BW = 64
 
 
-def smart_cov(theta: np.ndarray, w: np.ndarray) -> np.ndarray:
+def smart_cov(theta, w):
     """Weighted covariance, identity when singular or non-finite
-    (e.g. a single particle)."""
+    (e.g. a single particle).  Host numpy in, numpy out; a tensor in, a
+    tensor out on its device (the fused engine's in-block refit)."""
+    if torch.is_tensor(theta):
+        mean = (theta * w[:, None]).sum(0)
+        centered = theta - mean
+        cov = (centered * w[:, None]).T @ centered
+        bad = ~torch.isfinite(cov).all() | (torch.trace(cov) <= 0)
+        eye = torch.eye(theta.shape[-1], dtype=theta.dtype,
+                        device=theta.device)
+        return torch.where(bad, eye, cov)
     mean = np.sum(theta * w[:, None], axis=0)
     centered = theta - mean
     cov = (centered * w[:, None]).T @ centered
@@ -36,11 +47,19 @@ def smart_cov(theta: np.ndarray, w: np.ndarray) -> np.ndarray:
     return np.where(bad, np.eye(theta.shape[-1], dtype=theta.dtype), cov)
 
 
-def regularized_kde_cov(theta: np.ndarray, w: np.ndarray,
-                        bandwidth_selector, scaling: float) -> np.ndarray:
+def regularized_kde_cov(theta, w, bandwidth_selector, scaling: float):
     """``smart_cov × bandwidth² × scaling`` plus a trace-scaled diagonal
-    jitter; ``w`` must be normalized."""
+    jitter; ``w`` must be normalized, and masked rows carry w = 0.  The
+    one recipe of the host fit and of the fused engine's in-block refit
+    (:mod:`~pyabc_tpu_torch.sampler.fused`), numpy or tensors."""
     dim = theta.shape[-1]
+    if torch.is_tensor(theta):
+        n_eff = w.sum() ** 2 / (w * w).sum()
+        bw = bandwidth_selector(n_eff, dim)
+        cov = smart_cov(theta, w) * (bw ** 2) * scaling
+        eye = torch.eye(dim, dtype=cov.dtype, device=cov.device)
+        return cov + 1e-8 * eye * torch.clamp(torch.trace(cov) / dim,
+                                              min=1e-8)
     n_eff = effective_sample_size(w)
     bw = bandwidth_selector(n_eff, dim)
     cov = smart_cov(theta, w) * (bw ** 2) * scaling
@@ -64,6 +83,9 @@ class MultivariateNormalTransition(Transition):
     # shared KDE state and the grid-compressed pdf support (grid-sized,
     # not per particle) pass through pad_params unchanged
     NO_PAD_KEYS = ("chol", "log_norm", "c_support", "c_log_w")
+    #: the fused engine refits this transition in-block: its params are a
+    #: plain support, log weights, Cholesky factor and log norm
+    device_support_ok = True
 
     def __init__(self, scaling: float = 1.0,
                  bandwidth_selector: Callable = silverman_rule_of_thumb):

@@ -39,7 +39,8 @@ def test_port_files_exist():
     for new in ("distance/kernel.py", "acceptor/pdf_norm.py",
                 "epsilon/temperature.py", "models/ode.py",
                 "petab/__init__.py", "petab/base.py", "petab/ode.py",
-                "petab/sbml.py", "petab/problem.py"):
+                "petab/sbml.py", "petab/problem.py", "sampler/fused.py",
+                "ops/quantile_sketch.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 

@@ -160,6 +160,38 @@ def test_record_density_of_the_stochastic_workload(dev):
     assert got.shape == (n,) and _close(got, ref)
 
 
+@pytest.mark.parametrize("d,n_cap", [(1, 2048), (4, 4096)])
+def test_capped_uniform_support_of_the_fused_engine(dev, d, n_cap):
+    """The fused engine's proposal density above the support cap in small
+    form: the queries are the population, the support ``n_cap`` rows
+    resampled from it (systematic inverse CDF) at uniform log weight
+    ``-log n_cap``, the covariance refit on the device; one launch."""
+    from pyabc_tpu_torch.sampler.fused import _refit_model
+    from pyabc_tpu_torch.transition.multivariatenormal import \
+        silverman_rule_of_thumb
+
+    rng = np.random.default_rng(d)
+    n = 5 * n_cap
+    theta = torch.as_tensor(rng.standard_normal((n, d)).astype(np.float32),
+                            device=dev)
+    log_w = torch.as_tensor((0.3 * rng.standard_normal(n)).astype(
+        np.float32), device=dev)
+    m = torch.zeros(n, dtype=torch.int64, device=dev)
+    valid = torch.ones(n, dtype=torch.bool, device=dev)
+    params, _ = _refit_model(theta, log_w, valid, m, 0, d, n,
+                             silverman_rule_of_thumb, 1.0,
+                             support_cap=n_cap,
+                             u0=torch.tensor(0.37, device=dev))
+    assert params["support"].shape == (n_cap, d)
+    assert bool(torch.all(params["log_w"] == params["log_w"][0]))
+    args = (theta, params["support"], params["log_w"], params["chol"],
+            params["log_norm"])
+    before = kde_cuda.weighted_kde_logpdf_cuda.launches
+    got = kde_cuda.weighted_kde_logpdf_cuda(*args)
+    assert kde_cuda.weighted_kde_logpdf_cuda.launches == before + 1
+    assert _close(got, kde.weighted_kde_logpdf(*args))
+
+
 def test_wrapper_refuses_what_the_kernel_does_not_take(dev):
     t, ln = _problem(dev, 100, 200, 2)
     x, support, log_w, chol = t
