@@ -71,6 +71,25 @@ Phases, each printed as one JSON line and each fatal on failure:
    ``engine``, ``host_reads`` and ``grids_resolved``, and its blocks their
    wall, rounds and host reads.
 
+8. ``onedispatch1e6`` / ``onedispatchpetab1e5`` — the one-dispatch engine
+   (``run_mode="onedispatch"``: after generation 0 the rest of the run is
+   one dispatch, the stop chain evaluated on the card after each
+   generation), each run beside its fused twin (``run_mode="auto"``, the
+   same seed) in the same phase.  ``onedispatch1e6`` is the JAX package's
+   ``bench_onedispatch`` row: config #2 at pop 1e6, ``ConstantEpsilon(0.2)``,
+   K = 4, batch 2^19 pinned, 16 rounds per call, 9 generations; it holds
+   the paths to sequential then 8 × onedispatch, one dispatch, n accepted
+   in every generation, every population and weight bit-identical to the
+   fused twin's (generations 1–4 and 5–8 in two blocks), K1 launched
+   ``kde_launches_per_gen(2, False)`` times per generation and ``rounds +
+   1`` host reads per generation (the round-loop reads and one control
+   read), and reports both runs' wall, the host time per generation and
+   ``control_roundtrip_s`` per generation.  ``onedispatchpetab1e5`` is
+   ``fusedpetab1e5`` with ``run_mode="onedispatch"``: the device stop
+   chain must end the run on "temperature reached 1" at the fused twin's
+   generation, with identical temperatures and populations, and hold
+   ``petab1e5``'s quadrature gate.
+
 The ``kernels`` phase runs last: its row (g) takes config #5's record
 shape [records × support] from the ``petab1e5`` run's timeline, rows (h)
 and (i) the fused engine's capped shapes from ``fused1e6`` and
@@ -89,6 +108,10 @@ Timeline rows carry each generation's peak device memory
 (``peak_mem_gb``); a phase reports the largest.  ``k1perm`` times K1 at
 the pop-1e6 finalize shape on the sorted grid support and on the same
 rows permuted: with no branch on the data the two take the same time.
+``repeat`` counts, over 50 calls at four sizes, how often a 1-D float
+``torch.cumsum`` and ``ops.choice.ordered_cumsum`` give another result
+than their first call, then runs ``fused16384``'s configuration over
+seeds 0-19 and reports each run's last ESS, p(B) − analytic and paths.
 
 The ``kernels`` summary line and the ``nvidia-smi`` name/power-limit
 line come just before the last line, which is ``{"ok": true, "device":
@@ -110,9 +133,10 @@ from pathlib import Path
 
 ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "petab1e5", "sbml1e5", "fused16384", "fused1e6", "fusedlv1e5",
-              "fusedpetab1e5", "kernels")
+              "fusedpetab1e5", "onedispatch1e6", "onedispatchpetab1e5",
+              "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
-EXTRA_PHASES = ("profile", "simprof", "k1perm")
+EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat")
 TOL_ABS = 1e-4
 TOL_REL = 1e-5
 #: largest [M, N] float32 block the library yardstick may materialize
@@ -475,7 +499,7 @@ def generation_row(r: dict) -> dict:
             "evaluations", "acceptance_rate", "ess", "batch",
             "kde_launches", "kde_support", "peak_mem_gb")
     out = {k: r[k] for k in keys}
-    if r["path"] == "fused":
+    if r["path"] in ("fused", "onedispatch"):
         out.update({k: r[k] for k in ("rounds", "host_reads",
                                        "grids_resolved")})
     else:
@@ -636,12 +660,171 @@ def phase_fusedlv1e5(torch, state):
 
 
 def phase_fusedpetab1e5(torch, state):
-    row = run_stochastic(torch, "petab1e5", fuse=FUSE_K)
+    row, _ = run_stochastic(torch, "petab1e5", fuse=FUSE_K)
     state.setdefault("launches", {})["fusedpetab1e5"] = row["kde_launches"]
     emit({"phase": "fusedpetab1e5", **row})
     if not row["ok"]:
         raise RuntimeError(
             f"fusedpetab1e5 failed its checks: {row['checks']}")
+
+
+def onedispatch_report(abc, rows, wall: float) -> dict:
+    """The gates every one-dispatch phase shares: one dispatch, the paths
+    sequential then one-dispatch to the end of the run, K1 launched in
+    each one-dispatch generation as often as the code gives, the host
+    reads of each generation (its rounds, one ``grids_resolved`` where a
+    grid is, one control read), one History row of n per generation; and
+    the host time per generation (wall − device loop, the loop ending in
+    the control read) and ``control_roundtrip_s`` per generation."""
+    from pyabc_tpu_torch.sampler.fused import kde_launches_per_gen
+
+    per_gen = kde_launches_per_gen(abc.M, abc._block_mode()["stoch"])
+    od = [r for r in rows if r["path"] == "onedispatch"]
+    ts = [r["t"] for r in rows]
+    n = abc.population_strategy(0)
+    paths = [r["path"] for r in rows]
+    checks = {
+        "dispatches": abc.run_dispatches == 1,
+        "od_paths": paths == ["sequential"] + ["onedispatch"] * (len(rows)
+                                                                  - 1),
+        "od_launches": bool(od) and all(r["kde_launches"] == per_gen
+                                        for r in od),
+        "host_reads": all(r["host_reads"] == r["rounds"] + 1
+                          + (r["grids_resolved"] is not None) for r in od),
+        "history_rows": (ts == list(range(len(rows)))
+                         and list(abc.history.get_all_populations().t)
+                         == [-1] + ts
+                         and all(len(abc.history.get_population(t)) == n
+                                 for t in ts)),
+    }
+    return {"paths": paths, "run_dispatches": abc.run_dispatches,
+            "kde_launches_per_od_gen": per_gen, "onedispatch_checks": checks,
+            "run_wall_s": wall,
+            "host_s_per_gen": (statistics.median(
+                r["wall_s"] - r["sample_s"] for r in od) if od else None),
+            "control_roundtrip_s": abc.control_roundtrip_s,
+            "control_roundtrip_s_per_gen": (abc.control_roundtrip_s / len(od)
+                                            if od else None)}
+
+
+def population_difference(h_a, h_b):
+    """None when every generation's model index, parameters, distances
+    and weights are equal bit for bit in the two histories, else where
+    they first differ."""
+    import numpy as np
+
+    if h_a.max_t != h_b.max_t:
+        return f"generations {h_a.max_t + 1} vs {h_b.max_t + 1}"
+    for t in range(h_a.max_t + 1):
+        a, b = h_a.get_population(t), h_b.get_population(t)
+        for key in ("m", "theta", "distance", "weight"):
+            x, y = np.asarray(getattr(a, key)), np.asarray(getattr(b, key))
+            if not np.array_equal(x, y):
+                return f"t={t} {key}: {int((x != y).sum())} values"
+    return None
+
+
+#: bench.py's bench_onedispatch row: config #2 at pop 1e6,
+#: ConstantEpsilon(0.2), K = 4, batch 2^19 pinned, 9 generations
+ONEDISPATCH_POP = 1_000_000
+ONEDISPATCH_GENS = 9
+
+
+def onedispatch_main_run(torch, run_mode: str) -> tuple:
+    """``(abc, wall_s, K1 launches)`` of the ``bench_onedispatch``
+    configuration through ``ABCSMC.run`` on the card."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    models, priors, distance, observed, _ = make_two_gaussians_problem()
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=ONEDISPATCH_POP,
+        eps=pt.ConstantEpsilon(0.2),
+        sampler=pt.VectorizedSampler(min_batch_size=1 << 19,
+                                     max_batch_size=1 << 19,
+                                     max_rounds_per_call=16, device="cuda"),
+        stores_sum_stats=False, fuse_generations=FUSE_K, run_mode=run_mode,
+        seed=0, device="cuda")
+    abc.new("sqlite://", observed)
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    abc.run(max_nr_populations=ONEDISPATCH_GENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return abc, wall, weighted_kde_logpdf_cuda.launches
+
+
+def phase_onedispatch1e6(torch, state):
+    # fused, one-dispatch, one-dispatch, fused: the process's first run
+    # of this shape pays one-off costs, and each engine runs twice
+    runs = [onedispatch_main_run(torch, mode)
+            for mode in ("auto", "onedispatch", "onedispatch", "auto")]
+    (a_f, wall_f, launches_f), (a_o, wall_o, launches_o) = runs[:2]
+    rows = a_o.timeline
+    report = onedispatch_report(a_o, rows, wall_o)
+    checks = dict(report["onedispatch_checks"])
+    checks["gens"] = len(rows) == ONEDISPATCH_GENS
+    checks["fused_twin_paths"] = all(
+        [r["path"] for r in a.timeline] == ["sequential"] + ["fused"] * 8
+        for a, _, _ in (runs[0], runs[3]))
+    # every run's populations equal the first fused run's, bit for bit
+    differences = [population_difference(a.history, a_f.history)
+                   for a, _, _ in runs[1:]]
+    checks["bit_identical"] = not any(differences)
+    fused_rows = [r for r in a_f.timeline if r["path"] == "fused"]
+    row = {"pop": ONEDISPATCH_POP, "gens": ONEDISPATCH_GENS,
+           "ok": all(checks.values()), "checks": checks,
+           "kde_launches": launches_o, "fused_kde_launches": launches_f,
+           "differences_from_first_fused_run": differences,
+           "od_wall_s_runs": [runs[1][1], runs[2][1]],
+           "fused_wall_s_runs": [runs[0][1], runs[3][1]],
+           "wall_s": wall_o, "fused_wall_s": wall_f,
+           "fused_host_s_per_gen": (statistics.median(
+               r["wall_s"] - r["sample_s"] for r in fused_rows)
+               if fused_rows else None),
+           "fused_blocks": [{k: b[k] for k in ("t", "written", "rounds",
+                                               "host_reads", "wall_s")}
+                            for b in a_f.blocks],
+           "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
+           "generations": [
+               {**generation_row(r), "accepted_per_s": r["n"] / r["wall_s"]}
+               for r in rows],
+           **report}
+    launches = state.setdefault("launches", {})
+    launches["onedispatch1e6"] = launches_o
+    launches["onedispatch1e6_fused"] = launches_f
+    emit({"phase": "onedispatch1e6", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"onedispatch1e6 failed its checks: {checks}")
+
+
+def phase_onedispatchpetab1e5(torch, state):
+    row_o, a_o = run_stochastic(torch, "petab1e5", fuse=FUSE_K,
+                                run_mode="onedispatch")
+    launches = state.setdefault("launches", {})
+    launches["onedispatchpetab1e5"] = row_o["kde_launches"]
+    row_f, a_f = run_stochastic(torch, "petab1e5", fuse=FUSE_K)
+    launches["onedispatchpetab1e5_fused"] = row_f["kde_launches"]
+    checks = dict(row_o["checks"])
+    checks["fused_twin_ok"] = row_f["ok"]
+    checks["stop_at_fused_t"] = (
+        row_o["stop_reason"] == row_f["stop_reason"] == STOP_TEMPERATURE
+        and row_o["gens_run"] == row_f["gens_run"])
+    checks["temperatures"] = ([g["temperature"] for g in row_o["generations"]]
+                              == [g["temperature"]
+                                  for g in row_f["generations"]])
+    difference = population_difference(a_o.history, a_f.history)
+    checks["bit_identical"] = difference is None
+    row = {**row_o, "ok": all(checks.values()), "checks": checks,
+           "difference_from_fused_run": difference,
+           "fused_wall_s": row_f["wall_s"],
+           "fused_kde_launches": row_f["kde_launches"],
+           "fused_paths": row_f["paths"]}
+    emit({"phase": "onedispatchpetab1e5", **row})
+    if not row["ok"]:
+        raise RuntimeError(
+            f"onedispatchpetab1e5 failed its checks: {checks}")
 
 
 #: BASELINE configs #3 and #4 as the JAX package's pop-1e5 bench rows run
@@ -889,12 +1072,15 @@ def llh_max(importer) -> float:
     return -0.5 * n_obs * math.log(2 * math.pi * importer.sigma ** 2)
 
 
-def run_stochastic(torch, name: str, fuse: int = 1) -> dict:
-    """One config-#5 workload through ``ABCSMC.run`` on the card, with its
-    per-generation timeline and the gates of the module docstring.  With
-    ``fuse`` K > 1 the run takes the fused engine's eligible form of the
-    triple: ``Temperature`` with the acceptance-rate scheme alone, and
-    the acceptor's pdf norm from the kernel's analytic maximum."""
+def run_stochastic(torch, name: str, fuse: int = 1,
+                   run_mode: str = "auto") -> tuple:
+    """``(row, abc)``: one config-#5 workload through ``ABCSMC.run`` on
+    the card, with its per-generation timeline and the gates of the
+    module docstring.  With ``fuse`` K > 1 the run takes the fused
+    engine's eligible form of the triple: ``Temperature`` with the
+    acceptance-rate scheme alone, and the acceptor's pdf norm from the
+    kernel's analytic maximum; ``run_mode="onedispatch"`` then runs it as
+    one dispatch."""
     import numpy as np
 
     import pyabc_tpu_torch as pt
@@ -921,7 +1107,7 @@ def run_stochastic(torch, name: str, fuse: int = 1) -> dict:
         sampler=pt.VectorizedSampler(min_batch_size=STOCHASTIC_BATCH,
                                      max_batch_size=STOCHASTIC_BATCH,
                                      device="cuda"),
-        fuse_generations=fuse, seed=0, device="cuda")
+        fuse_generations=fuse, run_mode=run_mode, seed=0, device="cuda")
     abc.new("sqlite://", importer.get_observed())
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
@@ -946,7 +1132,7 @@ def run_stochastic(torch, name: str, fuse: int = 1) -> dict:
     def expected(r):
         if r["t"] == 0:
             return 0
-        if r["path"] == "fused":
+        if r["path"] in ("fused", "onedispatch"):
             return kde_launches_per_gen(1, True)
         return (1 + r["record_batches"]
                 + scheme_solved(temperature.temperature_proposals[r["t"]]))
@@ -966,9 +1152,13 @@ def run_stochastic(torch, name: str, fuse: int = 1) -> dict:
             checks["gens"] = len(rows) == gens
         checks["quadrature"] = (f"{mu_q:.3g}", f"{sd_q:.3g}") == \
             ("0.685", "0.0523")
-    fused = fused_report(abc, rows) if fuse > 1 else {}
-    if fused:
-        checks.update(fused["fused_checks"])
+    if run_mode == "onedispatch":
+        fused = onedispatch_report(abc, rows, wall)
+        checks.update(fused["onedispatch_checks"])
+    else:
+        fused = fused_report(abc, rows) if fuse > 1 else {}
+        if fused:
+            checks.update(fused["fused_checks"])
     return {
         "pop": STOCHASTIC_POP, "gens_asked": gens, "gens_run": len(rows),
         "ok": all(checks.values()), "checks": checks,
@@ -987,11 +1177,11 @@ def run_stochastic(torch, name: str, fuse: int = 1) -> dict:
              "kde_launches_expected": expected(r), "records": r["records"],
              "record_batches": r["record_batches"]} for r in rows],
         **fused,
-    }
+    }, abc
 
 
 def _phase_stochastic(torch, state, name: str):
-    row = run_stochastic(torch, name)
+    row, _ = run_stochastic(torch, name)
     state.setdefault("launches", {})[name] = row["kde_launches"]
     if name == "petab1e5":
         # K1 row (g): the generation with the most records
@@ -1150,6 +1340,37 @@ def phase_simprof(torch, state):
                                                theta)})
 
 
+def phase_repeat(torch, state):
+    """Whether the card repeats: the scans behind resampling, then
+    config #2 fused at pop 16384 over twenty seeds."""
+    from pyabc_tpu_torch.ops.choice import ordered_cumsum
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    scans = {}
+    for n in (16384, 100_000, 1_000_000, 1_500_000):
+        x = torch.softmax(torch.randn(n, generator=gen, device="cuda"), 0)
+        row = {}
+        for name, fn in (("torch_cumsum", lambda v: torch.cumsum(v, 0)),
+                         ("ordered_cumsum", ordered_cumsum)):
+            ref = fn(x)
+            row[name] = sum(not torch.equal(fn(x), ref) for _ in range(50))
+        scans[n] = row
+    emit({"phase": "repeat", "ok": True, "calls": 50,
+          "differing_calls": scans})
+    rows = []
+    for seed in range(20):
+        r = run_main_path(torch, 16384, 11, seed=seed, fuse=FUSE_K)
+        rows.append({"seed": seed, "ok": r["ok"],
+                     "ess": r["generations"][-1]["ess"],
+                     "pb_err": r["p_model_b"] - r["p_analytic"],
+                     "paths": "".join(p[0] for p in r["paths"]),
+                     "wall_s": r["wall_s"]})
+    emit({"phase": "repeat", "ok": True, "fused16384_seeds": rows,
+          "collapsed": sum(r["ess"] < 0.01 * 16384 or not r["ok"]
+                           for r in rows)})
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -1184,7 +1405,10 @@ PHASES = {"card": phase_card, "build": phase_build,
           "sir1e5": phase_sir1e5, "petab1e5": phase_petab1e5,
           "sbml1e5": phase_sbml1e5, "fused16384": phase_fused16384,
           "fused1e6": phase_fused1e6, "fusedlv1e5": phase_fusedlv1e5,
-          "fusedpetab1e5": phase_fusedpetab1e5, "profile": phase_profile,
+          "fusedpetab1e5": phase_fusedpetab1e5,
+          "onedispatch1e6": phase_onedispatch1e6,
+          "onedispatchpetab1e5": phase_onedispatchpetab1e5,
+          "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 
 

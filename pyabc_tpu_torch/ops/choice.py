@@ -15,6 +15,33 @@ from typing import Optional
 import torch
 
 
+#: row width of :func:`ordered_cumsum`'s scans
+SCAN_ROW = 1024
+
+
+def ordered_cumsum(x: torch.Tensor) -> torch.Tensor:
+    """``torch.cumsum(x, 0)`` of a 1-D tensor, added in an order that
+    depends on its length alone.
+
+    On the card a 1-D ``torch.cumsum`` is one single-pass scan whose tiles
+    add the totals of the tiles before them as those finish, so a float
+    CDF can round differently from call to call, and a run that draws
+    from it does not repeat.  Here rows of ``SCAN_ROW`` are scanned one
+    block per row (PyTorch's scan along the last dimension of a tensor of
+    two rows or more), then the rows' totals the same way."""
+    n = x.shape[0]
+    if n <= SCAN_ROW:
+        # a second row keeps the scan off the 1-D path
+        return torch.cumsum(torch.stack([x, torch.zeros_like(x)]), 1)[0]
+    rows = -(-n // SCAN_ROW)
+    padded = torch.zeros(rows * SCAN_ROW, dtype=x.dtype, device=x.device)
+    padded[:n] = x
+    within = torch.cumsum(padded.view(rows, SCAN_ROW), 1)
+    before = torch.cat([torch.zeros(1, dtype=x.dtype, device=x.device),
+                        ordered_cumsum(within[:, -1])[:-1]])
+    return (within + before[:, None]).view(-1)[:n]
+
+
 def cap_draws(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     """Cap draws strictly below ``cdf[-1]``.
 
@@ -39,7 +66,7 @@ def fast_weighted_choice(generator: torch.Generator, log_w: torch.Tensor,
                          n: int) -> torch.Tensor:
     """``n`` indices sampled ∝ ``exp(log_w)`` (unnormalized log weights);
     rows with ``log_w`` ≈ -inf (pads at -1e30) are never drawn."""
-    cdf = torch.cumsum(torch.softmax(log_w, dim=0), dim=0)
+    cdf = ordered_cumsum(torch.softmax(log_w, dim=0))
     u = torch.rand(n, generator=generator, device=log_w.device,
                    dtype=cdf.dtype) * cdf[-1]
     return invert_cdf(cdf, cap_draws(cdf, u))
@@ -58,7 +85,7 @@ def systematic_weighted_choice(generator: Optional[torch.Generator],
     replaces the draw from ``generator`` when given, so tests can feed
     both packages the same uniform.  Capped draws never land on a
     zero-weight row (:func:`cap_draws`)."""
-    cdf = torch.cumsum(torch.softmax(log_w, dim=0), dim=0)
+    cdf = ordered_cumsum(torch.softmax(log_w, dim=0))
     if u0 is None:
         u0 = torch.rand((), generator=generator, device=log_w.device,
                         dtype=cdf.dtype)

@@ -38,8 +38,13 @@ stochastic triple the same launch also covers the record ring, and the
 temperature solve at the start of the generation adds one launch per
 model over the ring (:func:`kde_launches_per_gen`).
 
-Not ported (ROADMAP): the one-dispatch engine, the multi-fidelity
-cascade, telemetry and summary lanes, carry precision (its codec is the
+:func:`build_onedispatch_run` runs the same body up to the end of the
+run with the JAX package's device stop chain (:func:`stop_code`) after
+each generation: the host reads one packed control tensor (the stop code
+and the accepted count) per generation and stops the loop on its code.
+
+Not ported (ROADMAP): the multi-fidelity cascade, telemetry and summary
+lanes, the in-dispatch progress word, carry precision (its codec is the
 identity in float32), the pod constraint, lane surgery and the
 ``narrow_wire`` codec: a generation's output is float32 tensors (the
 model index int64) stacked over the block on the device.
@@ -48,13 +53,14 @@ model index int64) stacked over the block on the device.
 from __future__ import annotations
 
 import math
+import time
 from typing import Callable, List, Optional, Sequence
 
 import torch
 
 from ..autotune.tuner import EWMA_ALPHA
 from ..epsilon.temperature import acceptance_rate_solve
-from ..ops.choice import systematic_weighted_choice
+from ..ops.choice import ordered_cumsum, systematic_weighted_choice
 from ..ops.kde_cuda import weighted_kde_logpdf_cuda
 from ..ops.quantile_sketch import sketch_weighted_quantile
 from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
@@ -252,7 +258,7 @@ def _weighted_quantile_device(x: torch.Tensor, w: torch.Tensor,
     order = torch.argsort(xs, stable=True)
     pts = xs[order]
     w_s = ws[order] / torch.clamp(ws.sum(), min=1e-38)
-    cum = torch.cumsum(w_s, 0)
+    cum = ordered_cumsum(w_s)
     return _interp(torch.full((), alpha, dtype=x.dtype, device=x.device),
                    cum - 0.5 * w_s, pts)
 
@@ -579,3 +585,166 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
         return carry, stacked, infos
 
     return fused
+
+
+def stop_code(count, rounds, rounds_tot, eps, log_weight: torch.Tensor,
+              m: torch.Tensor, n_target: int, B: int, min_eps, min_rate,
+              budget_rounds, n_models: int, temperature: bool,
+              single_model_stop: bool) -> torch.Tensor:
+    """One generation's ``STOP_*`` code as a 0-d int64 tensor, with no
+    host read: the device stop chain of the JAX package's one-dispatch
+    run (``pyabc_tpu/sampler/fused.py:934-970``).
+
+    ``count`` accepted of ``n_target`` after ``rounds`` rounds of ``B``
+    candidates (``rounds_tot`` in the dispatch so far, this generation's
+    included), ε or T ``eps``, the new population's ``log_weight`` and
+    model index ``m``.  In the sequential loop's priority order: the
+    threshold (``eps <= min_eps`` in float32, or T <= 1 with
+    ``temperature``), a single model with weight mass (with
+    ``single_model_stop``), the float32 acceptance rate below
+    ``min_rate``, the budget in whole rounds (``rounds_tot >=
+    budget_rounds``).  A generation short of ``n_target`` is
+    ``STOP_UNDERSHOOT`` before all of them."""
+    dev = log_weight.device
+    count = torch.as_tensor(count, dtype=torch.int64, device=dev)
+    rounds = torch.as_tensor(rounds, dtype=torch.int64, device=dev)
+    rounds_tot = torch.as_tensor(rounds_tot, dtype=torch.int64, device=dev)
+    eps = torch.as_tensor(eps, dtype=torch.float32, device=dev)
+    if temperature:
+        thresh = eps <= 1.0
+        thresh_code = STOP_TEMPERATURE
+    else:
+        thresh = eps <= torch.as_tensor(min_eps, dtype=torch.float32,
+                                        device=dev)
+        thresh_code = STOP_EPS
+    if single_model_stop:
+        # Population.nr_of_models_alive on the device: models whose
+        # normalized weight sum is strictly positive
+        valid = torch.arange(log_weight.shape[0], device=dev) < count
+        lw_max = torch.where(valid & torch.isfinite(log_weight), log_weight,
+                             torch.full_like(log_weight, -math.inf)).max()
+        w = torch.where(valid, torch.exp(log_weight - lw_max),
+                        torch.zeros_like(log_weight))
+        w = w / torch.clamp(w.sum(), min=1e-38)
+        one_hot = m[:, None] == torch.arange(n_models, device=dev)[None, :]
+        mass = torch.where(one_hot, w[:, None],
+                           torch.zeros_like(w)[:, None]).sum(0)
+        single = (mass > 0).sum() <= 1
+    else:
+        single = torch.zeros((), dtype=torch.bool, device=dev)
+    acc_rate = (count.to(torch.float32)
+                / torch.clamp(rounds * B, min=1).to(torch.float32))
+    low_rate = acc_rate < torch.as_tensor(min_rate, dtype=torch.float32,
+                                          device=dev)
+    spent = rounds_tot >= torch.as_tensor(budget_rounds, dtype=torch.int64,
+                                          device=dev)
+
+    def code(c):
+        return torch.full((), c, dtype=torch.int64, device=dev)
+
+    chain = torch.where(
+        thresh, code(thresh_code),
+        torch.where(single, code(STOP_SINGLE_MODEL),
+                    torch.where(low_rate, code(STOP_ACC_RATE),
+                                torch.where(spent, code(STOP_BUDGET),
+                                            code(STOP_NONE)))))
+    return torch.where(count < n_target, code(STOP_UNDERSHOOT), chain)
+
+
+def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
+                          n_target: int, B: int, max_rounds: int, K: int,
+                          d: int, s: int, eps_mode: str, eps_alpha: float,
+                          eps_multiplier: float, eps_weighted: bool,
+                          distance_params, raw_round: Callable, max_T: int,
+                          single_model_stop: bool,
+                          support_cap: Optional[int] = None,
+                          rate_pred_factor: float = 1.0,
+                          adaptive_cfg: Optional[dict] = None,
+                          stoch_cfg: Optional[dict] = None,
+                          eps_sketch: bool = False):
+    """``onedispatch(carry, generator, ctl) -> (carry, ctl_out, wires)``:
+    the rest of a run (at most ``ctl["t_limit"]`` <= ``max_T``
+    generations) from ``carry``, with the stop chain after every
+    generation.
+
+    The JAX package's ``lax.while_loop`` over K-generation scans becomes
+    a Python loop over K-generation blocks of :func:`build_one_gen`'s
+    body, drawing from ``generator`` as consecutive
+    :func:`build_fused_generations` blocks do.  After each generation the
+    host reads one packed tensor (:func:`stop_code` and the accepted
+    count) and the loop ends on a code other than ``STOP_NONE`` or at
+    ``t_limit``; a generation short of ``n_target`` (``STOP_UNDERSHOOT``)
+    is not written and leaves the carry as it was.
+
+    ``ctl``: ``min_eps``, ``min_rate``, ``budget_rounds`` (whole rounds
+    left in the simulation budget), ``t_limit`` and ``final_rel`` (the
+    relative index from which the temperature is pinned to 1, stochastic
+    triple).  ``carry`` is the fused engine's; the returned one is the
+    last written generation's.  ``ctl_out``: ``t`` (generations written),
+    ``stop``, ``stop_t`` (relative index of the generation that set the
+    code, -1 without one), ``stop_count`` (its accepted count),
+    ``rounds`` (every round run, the undershot generation's included),
+    ``control_s`` (seconds of the control reads, after a device sync)
+    and ``gens`` (each generation's host facts as in the fused engine,
+    with ``count``, ``kde_launches`` and ``sample_s``, its seconds up to
+    its control read; the undershot one last).
+    ``wires`` stacks the written generations' outputs (leading axis
+    ``t``), or is None when none was written."""
+    if max_T < 1:
+        raise ValueError("max_T must be >= 1")
+    one_gen = build_one_gen(
+        kernel, bandwidth_selectors, scalings, dims, n_target, B,
+        max_rounds, d, s, eps_mode, eps_alpha, eps_multiplier,
+        eps_weighted, distance_params, raw_round, support_cap=support_cap,
+        rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
+        stoch_cfg=stoch_cfg, eps_sketch=eps_sketch)
+    stoch = stoch_cfg is not None
+    temperature = eps_mode == "temperature"
+
+    def onedispatch(carry: dict, generator: torch.Generator, ctl: dict):
+        t_limit = min(int(ctl["t_limit"]), max_T)
+        final_rel = int(ctl["final_rel"])
+        t, stop, stop_t, stop_count, rounds_tot = 0, STOP_NONE, -1, 0, 0
+        control_s = 0.0
+        wires, gens = [], []
+        while stop == STOP_NONE and t < t_limit:
+            for _ in range(K):
+                gen_mark = time.perf_counter()
+                launches0 = weighted_kde_logpdf_cuda.launches
+                new_carry, wire, info = one_gen(
+                    carry, generator, final=stoch and t >= final_rel)
+                info["kde_launches"] = (weighted_kde_logpdf_cuda.launches
+                                        - launches0)
+                rounds_tot += info["rounds"]
+                code = stop_code(
+                    wire["count"], info["rounds"], rounds_tot, wire["eps"],
+                    new_carry["log_weight"], new_carry["m"], n_target, B,
+                    ctl["min_eps"], ctl["min_rate"], ctl["budget_rounds"],
+                    kernel.M, temperature, single_model_stop)
+                packed = torch.stack([code, wire["count"]])
+                if packed.is_cuda:
+                    torch.cuda.synchronize(packed.device)
+                mark = time.perf_counter()
+                code, count = packed.tolist()
+                control_s += time.perf_counter() - mark
+                info["host_reads"] += 1
+                info["count"] = count
+                info["sample_s"] = time.perf_counter() - gen_mark
+                gens.append(info)
+                if code != STOP_NONE:
+                    stop, stop_t, stop_count = code, t, count
+                if code == STOP_UNDERSHOOT:
+                    break
+                carry = new_carry
+                wires.append(wire)
+                t += 1
+                if stop != STOP_NONE or t >= t_limit:
+                    break
+        ctl_out = {"t": t, "stop": stop, "stop_t": stop_t,
+                   "stop_count": stop_count, "rounds": rounds_tot,
+                   "control_s": control_s, "gens": gens}
+        stacked = ({key: torch.stack([wr[key] for wr in wires])
+                    for key in wires[0]} if wires else None)
+        return carry, ctl_out, stacked
+
+    return onedispatch

@@ -33,10 +33,20 @@ block, and any generation a block fell short of run sequentially.  Above
 ``PROBE_MIN_POP`` the first block's seconds per generation are weighed
 against the sequential ones and the slower engine is retired for the run.
 
-Not ported yet (ROADMAP): the one-dispatch, pipelined and lazy-History
-engines — the JAX package takes the pipelined and lazy branches at pop
-1e6 by default, this port runs the classic loop and fused blocks — and
-the multi-fidelity components.
+With ``run_mode="onedispatch"`` as well (``_onedispatch_eligible``: the
+epsilon's stop test must have a device form, ``device_stop_ok``), the
+rest of the run after the first generation goes down as one dispatch
+(:func:`.sampler.fused.build_onedispatch_run`): the same per-generation
+body with the stop chain evaluated on the device after each generation,
+the host reading one packed control tensor per generation.  A dispatch
+covers at most ``onedispatch_max_t`` generations; a longer run dispatches
+again from the carried population.  A generation that falls short of
+the population is redone sequentially, as after a fused block.
+
+Not ported yet (ROADMAP): the pipelined and lazy-History engines — the
+JAX package takes the pipelined and lazy branches at pop 1e6 by default,
+this port runs the classic loop, fused blocks and one-dispatch runs with
+every population written — and the multi-fidelity components.
 """
 
 from __future__ import annotations
@@ -118,6 +128,8 @@ class ABCSMC:
                  max_nr_recorded_particles: int = 1 << 21,
                  fuse_generations: int = 1,
                  fused_support_cap: Optional[int] = 1 << 14,
+                 run_mode: str = "auto",
+                 onedispatch_max_t: int = 32,
                  seed: int = 0,
                  device=None):
         if not isinstance(models, (list, tuple)):
@@ -176,6 +188,20 @@ class ABCSMC:
         #: KDE refit (systematic inverse CDF); None refits on every row
         self.fused_support_cap = fused_support_cap
         self._fused_cache: Dict[tuple, Callable] = {}
+        if run_mode not in ("auto", "classic", "onedispatch"):
+            raise ValueError("run_mode must be 'auto', 'classic' or "
+                             f"'onedispatch' (got {run_mode!r})")
+        #: "onedispatch" runs the rest of a run as one dispatch with the
+        #: stop chain on the device (``_onedispatch_eligible``); "auto"
+        #: behaves as "classic" (fused blocks with host stop checks)
+        self.run_mode = run_mode
+        #: generations one dispatch may write; a longer run dispatches
+        #: again from the carried population
+        self.onedispatch_max_t = max(1, int(onedispatch_max_t))
+        #: per run(): one-dispatch calls made, and the seconds of their
+        #: per-generation control reads (after a device sync)
+        self.run_dispatches = 0
+        self.control_roundtrip_s = 0.0
         #: the last generation's population on the device: the next
         #: block's starting carry (None: the next generation is
         #: sequential)
@@ -187,8 +213,10 @@ class ABCSMC:
         self._seq_probe_s: Optional[float] = None
         self.minimum_epsilon = 0.0
         self.min_acceptance_rate = 0.0
-        #: per-generation rows: t, path ("sequential" or "fused"), engine
-        #: (the probe's choice above PROBE_MIN_POP, else None), wall_s
+        #: per-generation rows: t, path ("sequential", "fused" or
+        #: "onedispatch"), engine (the probe's choice above
+        #: PROBE_MIN_POP, "onedispatch" on a one-dispatch row, else
+        #: None), wall_s
         #: (append to append; a fused block's wall over its written
         #: generations), sample_s (a fused block: its generations' device
         #: loop, before the host copies), eps, n, evaluations,
@@ -200,9 +228,10 @@ class ABCSMC:
         #: temperature reads them), refit_s (seconds of the distance fit
         #: whose params the generation used), peak_mem_gb (peak device
         #: memory allocated in the generation — in a fused block, in the
-        #: block — on the card; None on the CPU); fused rows also carry
-        #: rounds, host_reads (values the host read in the generation) and
-        #: grids_resolved (None without a grid-compressed support)
+        #: block — on the card; None on the CPU); fused and one-dispatch
+        #: rows also carry rounds, host_reads (values the host read in the
+        #: generation) and grids_resolved (None without a grid-compressed
+        #: support)
         self.timeline: List[dict] = []
         #: one entry per fused block run: t (its first generation), K,
         #: written (generations kept; fewer than K after an undershoot or
@@ -437,6 +466,15 @@ class ABCSMC:
             return False
         return self._device_chain_eligible()
 
+    def _onedispatch_eligible(self) -> bool:
+        """Run the rest of the run as one dispatch with the stop chain on
+        the device?  Opt-in (``run_mode="onedispatch"``) on top of the
+        fused engine's conditions, and the epsilon's stop test must be
+        exact on the device (``device_stop_ok``)."""
+        return (self.run_mode == "onedispatch"
+                and getattr(self.eps, "device_stop_ok", False)
+                and self._fused_eligible())
+
     def _note_sequential_gen_s(self, wall_s: float):
         """A sequential generation's seconds: the engine probe's
         baseline."""
@@ -573,8 +611,23 @@ class ABCSMC:
         return out
 
     def _get_block_fn(self, t: int, n: int, B: int, K: int):
-        """The K-generation block of this configuration (built once per
-        shape and schedule; a small dict cache)."""
+        """The K-generation block of this configuration."""
+        return self._get_engine_fn(_fused.build_fused_generations, t, n, B,
+                                   K=K)
+
+    def _get_run_fn(self, t: int, n: int, B: int, K: int, max_T: int):
+        """The one-dispatch run of this configuration: its K-generation
+        blocks, at most ``max_T`` generations per dispatch."""
+        return self._get_engine_fn(
+            _fused.build_onedispatch_run, t, n, B, K=K, max_T=max_T,
+            single_model_stop=(self.stop_if_only_single_model_alive
+                               and self.M > 1))
+
+    def _get_engine_fn(self, build: Callable, t: int, n: int, B: int,
+                       **static):
+        """``build``'s engine for this configuration with the arguments a
+        fused block and a one-dispatch run share, plus ``static`` (built
+        once per shape and schedule; a small dict cache)."""
         samp = self.sampler
         d, s_width = self.dim, self.spec.total_size
         eps_mode, alpha, mult, weighted, eps_sketch = \
@@ -590,9 +643,10 @@ class ABCSMC:
             norms = self.acceptor.pdf_norms
             pdf_norm = float(norms.get(t, norms[max(norms)]
                                        if norms else 0.0))
-        key = (self._kernel._uid, B, n, K, d, s_width, eps_mode, alpha,
-               mult, weighted, eps_sketch, max_rounds, sup_cap,
-               mode["adaptive"], mode["stoch"], record_rows, pdf_norm)
+        key = (build.__name__, tuple(sorted(static.items())),
+               self._kernel._uid, B, n, d, s_width, eps_mode, alpha, mult,
+               weighted, eps_sketch, max_rounds, sup_cap, mode["adaptive"],
+               mode["stoch"], record_rows, pdf_norm)
         fn = self._fused_cache.get(key)
         if fn is not None:
             return fn
@@ -612,13 +666,13 @@ class ABCSMC:
                              self.eps.schemes[0].target_rate),
                          "lin_scale": self.acceptor.kernel_scale == SCALE_LIN,
                          "record_rows": record_rows}
-        fn = _fused.build_fused_generations(
+        fn = build(
             kernel=self._kernel,
             bandwidth_selectors=[tr.bandwidth_selector
                                  for tr in self.transitions],
             scalings=[tr.scaling for tr in self.transitions],
             dims=[p.dim for p in self.parameter_priors],
-            n_target=n, B=B, max_rounds=max_rounds, K=K, d=d, s=s_width,
+            n_target=n, B=B, max_rounds=max_rounds, d=d, s=s_width,
             eps_mode=eps_mode, eps_alpha=alpha, eps_multiplier=mult,
             eps_weighted=weighted,
             # an adaptive distance's weights ride the carry
@@ -630,7 +684,7 @@ class ABCSMC:
             # rate over-predicts by about alpha
             rate_pred_factor=alpha if eps_mode == "quantile" else 1.0,
             adaptive_cfg=adaptive_cfg, stoch_cfg=stoch_cfg,
-            eps_sketch=eps_sketch)
+            eps_sketch=eps_sketch, **static)
         self._fused_cache[key] = fn
         while len(self._fused_cache) > 4:
             self._fused_cache.pop(next(iter(self._fused_cache)))
@@ -687,7 +741,6 @@ class ABCSMC:
             carry_in, self.generator,
             self._final_mask(t, K) if mode["stoch"] else None)
         dispatch_s = time.perf_counter() - t0
-        model_names = [m.name for m in self.models]
         written = 0
         stop_reason = None
         rounds_seen = 0
@@ -705,41 +758,14 @@ class ABCSMC:
                             "accepted): falling back to the sequential "
                             "path", t_k, count_k, n)
                 break
-            evals_k = rounds_k * B
-            pop_k = self._population_from_wire(wires, k)
-            if pop_k is None:
-                logger.warning("fused block produced degenerate weights at "
-                               "t=%d: sequential fallback", t_k)
+            got = self._write_device_generation(wires, k, t_k, n, B,
+                                                count_k, infos[k], "fused")
+            if got is None:
                 break
-            # a constant ε is the host's value: the float32 round trip
-            # would defeat `eps <= minimum_epsilon`
-            eps_k = (float(self.eps(t_k)) if eps_mode == "constant"
-                     else float(wires["eps"][k]))
-            acc_rate = count_k / max(evals_k, 1)
-            self.history.append_population(
-                t_k, eps_k, pop_k, evals_k, model_names,
-                self._param_names(), stat_spec=self.spec.shapes)
-            # the block's ε/T is the durable schedule entry
-            if eps_mode == "quantile":
-                self.eps._look_up[t_k] = eps_k
-            elif eps_mode == "temperature":
-                self.eps.temperatures[t_k] = eps_k
-            ess = float(effective_sample_size(pop_k.weight))
-            logger.info("t: %d, eps: %.8g (fused), acceptance rate: %.4g, "
-                        "ESS: %.4g, evals: %d", t_k, eps_k, acc_rate, ess,
-                        evals_k)
-            rows.append({"t": t_k, "path": "fused", "eps": eps_k, "n": n,
-                         "accepted": count_k,
-                         "evaluations": evals_k,
-                         "acceptance_rate": acc_rate, "ess": ess,
-                         "batch": B, "rounds": rounds_k,
-                         "host_reads": infos[k]["host_reads"],
-                         "grids_resolved": infos[k]["grids_resolved"],
-                         "kde_launches": infos[k]["kde_launches"],
-                         "kde_support": infos[k]["kde_support"],
-                         "records": 0, "record_batches": 0,
-                         "refit_s": 0.0})
+            pop_k, row = got
+            rows.append(row)
             written += 1
+            eps_k, acc_rate = row["eps"], row["acceptance_rate"]
             # stop criteria in the sequential loop's order
             code = _fused.STOP_NONE
             if eps_mode == "temperature":
@@ -787,21 +813,160 @@ class ABCSMC:
             samp.observe_generation(row.pop("accepted"),
                                     row["evaluations"], rounds=row["rounds"])
         if stop_reason is None and t + written < t_max:
-            # keep the chain hot: the device carry for the next block
-            # (only after a whole block) and the host components for a
-            # sequential continuation
-            prep = Sample()
-            if written == K:
-                self._fused_carry = carry_out
-                prep.device_population = carry_out
-                if mode["adaptive"]:
-                    # the in-block refit's weights for t + K: update()
-                    # then keeps them and the ε update sees distances
-                    # under them
-                    self.distance_function.weights[t + written] = \
-                        carry_out["dist_w"].cpu().numpy().astype(np.float32)
-            self._prepare_next_iteration(t + written, prep, pop_k,
-                                         samp.rate_est)
+            # the device carry only after a whole block
+            self._hand_over(t + written, pop_k,
+                            carry_out if written == K else None)
+        return written, sims_added, stop_reason
+
+    def _write_device_generation(self, wires: dict, k: int, t_k: int,
+                                 n: int, B: int, count: int, info: dict,
+                                 path: str):
+        """Append generation ``k`` of a device engine's ``wires`` to
+        History as generation ``t_k``: ``(population, timeline row)``
+        (the row without its times), or None when its weights are
+        degenerate.  ``info`` holds the generation's host facts."""
+        label = {"fused": "fused block",
+                 "onedispatch": "one-dispatch run"}[path]
+        eps_mode = self._eps_device_config()[0]
+        evals = info["rounds"] * B
+        pop = self._population_from_wire(wires, k)
+        if pop is None:
+            logger.warning("%s produced degenerate weights at t=%d: "
+                           "sequential fallback", label, t_k)
+            return None
+        # a constant ε is the host's value: the float32 round trip would
+        # defeat `eps <= minimum_epsilon`
+        eps = (float(self.eps(t_k)) if eps_mode == "constant"
+               else float(wires["eps"][k]))
+        acc_rate = count / max(evals, 1)
+        self.history.append_population(
+            t_k, eps, pop, evals, [m.name for m in self.models],
+            self._param_names(), stat_spec=self.spec.shapes)
+        # the engine's ε/T is the durable schedule entry
+        if eps_mode == "quantile":
+            self.eps._look_up[t_k] = eps
+        elif eps_mode == "temperature":
+            self.eps.temperatures[t_k] = eps
+        ess = float(effective_sample_size(pop.weight))
+        logger.info("t: %d, eps: %.8g (%s), acceptance rate: %.4g, ESS: "
+                    "%.4g, evals: %d", t_k, eps, path, acc_rate, ess, evals)
+        return pop, {"t": t_k, "path": path, "eps": eps, "n": n,
+                     "accepted": count, "evaluations": evals,
+                     "acceptance_rate": acc_rate, "ess": ess, "batch": B,
+                     "rounds": info["rounds"],
+                     "host_reads": info["host_reads"],
+                     "grids_resolved": info["grids_resolved"],
+                     "kde_launches": info["kde_launches"],
+                     "kde_support": info["kde_support"], "records": 0,
+                     "record_batches": 0, "refit_s": 0.0}
+
+    def _hand_over(self, t: int, population: Population,
+                   carry: Optional[dict]):
+        """Keep the chain hot after a device engine wrote up to ``t - 1``:
+        its ``carry`` (None after an undershoot) seeds the next block or
+        dispatch, and the host components advance for ``t`` as after a
+        sequential generation."""
+        prep = Sample()
+        if carry is not None:
+            self._fused_carry = carry
+            prep.device_population = carry
+            if self._block_mode()["adaptive"]:
+                # the in-engine refit's weights for t: update() then keeps
+                # them and the ε update sees distances under them
+                self.distance_function.weights[t] = \
+                    carry["dist_w"].cpu().numpy().astype(np.float32)
+        self._prepare_next_iteration(t, prep, population,
+                                     self.sampler.rate_est)
+
+    def _run_onedispatch(self, t: int, t_max, total_sims: int,
+                         max_total_nr_simulations):
+        """The rest of the run from ``t`` (at most ``onedispatch_max_t``
+        generations) as one dispatch with the stop chain on the device:
+        ``(written, sims_added, stop_reason)`` like
+        :meth:`_run_fused_block`, ``written`` generations appended to
+        History (0: the sequential engine takes ``t``).  A failed
+        dispatch raises."""
+        carry = self._fused_carry
+        self._fused_carry = None
+        if carry is None:
+            return 0, 0, None
+        K = self.fuse_generations
+        n = self.population_strategy(t)
+        samp = self.sampler
+        if carry["theta"].shape[0] != n:
+            return 0, 0, None
+        B = samp.choose_batch(n)
+        max_T = self.onedispatch_max_t
+        carry_in = self._seed_block_carry(t, carry, B, samp.rate_est,
+                                          samp.safety())
+        if carry_in is None:
+            return 0, 0, None
+        i32max = int(np.iinfo(np.int32).max)
+        t_limit = (int(np.clip(t_max - t, 1, max_T))
+                   if np.isfinite(t_max) else max_T)
+        # integer-exact budget: total_sims + rounds * B >= max_total
+        # <=> rounds >= ceil((max_total - total_sims) / B)
+        budget_rounds = (int(np.clip(np.ceil(
+            (max_total_nr_simulations - total_sims) / B), 0, i32max))
+            if np.isfinite(max_total_nr_simulations) else i32max)
+        ctl = {"min_eps": self.minimum_epsilon,
+               "min_rate": self.min_acceptance_rate,
+               "budget_rounds": budget_rounds, "t_limit": t_limit,
+               "final_rel": (max(int(t_max) - 1 - t, 0)
+                             if np.isfinite(t_max) else i32max)}
+        fn = self._get_run_fn(t, n, B, K, max_T)
+        on_card = self.device.type == "cuda"
+
+        t0 = time.perf_counter()
+        carry_out, ctl_out, wires = fn(carry_in, self.generator, ctl)
+        dispatch_s = time.perf_counter() - t0
+        self.run_dispatches += 1
+        self.control_roundtrip_s += ctl_out["control_s"]
+        gens = ctl_out["gens"]
+        stop_code = ctl_out["stop"]
+        written = 0
+        rows = []
+        pop_k = None
+        for k in range(ctl_out["t"]):
+            got = self._write_device_generation(
+                wires, k, t + k, n, B, gens[k]["count"], gens[k],
+                "onedispatch")
+            if got is None:
+                break
+            pop_k, row = got
+            rows.append({**row, "engine": "onedispatch",
+                         "sample_s": gens[k]["sample_s"]})
+            written += 1
+        # every generation the dispatch ran counts against the budget,
+        # an undershot one included
+        sims_added = ctl_out["rounds"] * B
+        samp.nr_evaluations_ += sims_added
+        stop_reason = None
+        clean = written == ctl_out["t"]
+        if clean and stop_code == _fused.STOP_UNDERSHOOT:
+            logger.info("one-dispatch run undershot at t=%d (%d/%d "
+                        "accepted): falling back to the sequential path",
+                        t + ctl_out["stop_t"], ctl_out["stop_count"], n)
+        elif clean and stop_code in STOP_REASONS:
+            stop_reason = STOP_REASONS[stop_code]
+        if not written:
+            return 0, sims_added, None
+        # the host's work after the dispatch (copies, History), shared out
+        host_s = (time.perf_counter() - t0 - dispatch_s) / written
+        peak = (torch.cuda.max_memory_allocated(self.device) / 1e9
+                if on_card else None)
+        for row in rows:
+            row.update({"wall_s": row["sample_s"] + host_s,
+                        "peak_mem_gb": peak})
+            self.timeline.append(row)
+            samp.observe_generation(row.pop("accepted"),
+                                    row["evaluations"], rounds=row["rounds"])
+        if stop_reason is None and t + written < t_max:
+            # t_limit reached: the carry seeds the next dispatch; after an
+            # undershoot the sequential engine redoes the next generation
+            self._hand_over(t + written, pop_k,
+                            carry_out if clean and stop_code
+                            == _fused.STOP_NONE else None)
         return written, sims_added, stop_reason
 
     # ---- calibration and resume ----------------------------------------
@@ -896,6 +1061,8 @@ class ABCSMC:
         self.minimum_epsilon = minimum_epsilon
         self.min_acceptance_rate = min_acceptance_rate
         self.stop_reason = None
+        self.run_dispatches = 0
+        self.control_roundtrip_s = 0.0
 
         t0 = self.history.max_t + 1
         self._fit_transitions(t0)
@@ -929,6 +1096,26 @@ class ABCSMC:
             torch.cuda.reset_peak_memory_stats(self.device)
         model_names = [m.name for m in self.models]
         while t < t_max:
+            # one dispatch for the rest of the run: the device checks the
+            # stop chain itself and t_limit clips the dispatch
+            if (self._onedispatch_eligible()
+                    and self._fused_carry is not None):
+                written, sims, stop_reason = self._run_onedispatch(
+                    t, t_max, total_sims, max_total_nr_simulations)
+                total_sims += sims
+                launches_mark = weighted_kde_logpdf_cuda.launches
+                if written:
+                    t += written
+                    gen_mark = time.perf_counter()
+                    if on_card:
+                        torch.cuda.reset_peak_memory_stats(self.device)
+                if stop_reason is not None:
+                    self.stop_reason = stop_reason
+                    logger.info(stop_reason)
+                    break
+                if written:
+                    continue
+                # nothing written: the sequential engine takes t
             # a fused block only when all K generations fit before t_max:
             # a block always runs K, the tail would be discarded work
             if (self._fused_eligible() and self._fused_carry is not None

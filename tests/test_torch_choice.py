@@ -12,8 +12,9 @@ import pytest
 import torch
 
 from pyabc_tpu.ops.choice import _cap_draws, _invert_cdf
-from pyabc_tpu_torch.ops.choice import (cap_draws, fast_weighted_choice,
-                                        invert_cdf)
+from pyabc_tpu_torch.ops.choice import (SCAN_ROW, cap_draws,
+                                        fast_weighted_choice, invert_cdf,
+                                        ordered_cumsum)
 
 
 def _cdf(n, n_pad, seed):
@@ -57,3 +58,17 @@ def test_draw_frequencies_follow_weights():
     idx = fast_weighted_choice(gen, log_w, 400000).numpy()
     freq = np.bincount(idx, minlength=4) / idx.size
     np.testing.assert_allclose(freq, w, atol=3e-3)
+
+
+@pytest.mark.parametrize("n", [1, 7, SCAN_ROW, SCAN_ROW + 1, 5 * SCAN_ROW,
+                               SCAN_ROW * SCAN_ROW + 3])
+def test_ordered_cumsum_is_a_cumsum(n):
+    """Rows, the rows' totals, and a second level of totals past
+    SCAN_ROW^2 elements: float32 rounding of the float64 scan."""
+    rng = np.random.default_rng(n)
+    x = rng.uniform(size=n).astype(np.float32)
+    got = ordered_cumsum(torch.as_tensor(x))
+    assert got.dtype == torch.float32 and got.shape == (n,)
+    exact = np.cumsum(x.astype(np.float64))
+    np.testing.assert_allclose(got.numpy(), exact, rtol=2e-6,
+                               atol=1e-6 * exact[-1])
