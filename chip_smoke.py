@@ -90,10 +90,39 @@ Phases, each printed as one JSON line and each fatal on failure:
    generation, with identical temperatures and populations, and hold
    ``petab1e5``'s quadrature gate.
 
+9. ``pipelined1e6`` / ``pipelinedsir1e6`` — the pipelined engine with
+   lazy History rows, as ``ABCSMC``'s defaults run a device-eligible
+   configuration at pop >= 2^17 (``ingest_mode="auto"``,
+   ``history_mode="lazy"``).  ``pipelined1e6`` is ``run_gate``'s
+   configuration exactly (config #2, pop 1e6, ``MedianEpsilon``, batch up
+   to 2^19, 16 rounds per call, ``stores_sum_stats=False``, seed 0, 11
+   generations): ``run_gate``'s tolerances read through hydration, one
+   History row per generation, the block rows still lazy when the run
+   ends and none after ``done``, paths ``pipelined`` or ``sequential``
+   (the first generation and each redo after an undershoot), K1 launched
+   in every generation t >= 1, and the ledger's ``rewinds``, ``overlap_s``
+   and egress reported.  In the same phase the JAX package's north-star
+   bench row (``ConstantEpsilon(0.2)``, 9 generations) runs four times:
+   at ``ingest_depth=2`` lazy, at depth 0 lazy, at depth 2 eager, and as
+   bench.py's sequential-eager control; the first three must be
+   bit-identical generation by generation, ``overlap_s`` > 0 at depth 2
+   and = 0 at depth 0, and the summary egress per generation is reported
+   against the eager run's population egress.  ``pipelinedsir1e6`` is
+   BASELINE config #4 at its own size: ``sir1e5``'s configuration at pop
+   1e6 with the defaults; ``sir1e5``'s posterior, ε and launch gates, an
+   in-block weight pre-seed for each block that follows a block, and the
+   peak memory of every generation.
+
+Every phase before these pins ``history_mode="eager"``, and every run at
+pop 1e6 among them ``ingest_mode="sequential"``, so that each measures
+the engine it did before the pipeline and the lazy rows became the
+defaults; ``onedispatch1e6`` adds a third one-dispatch run with lazy rows
+whose hydrated populations must equal the eager runs' bit for bit.
+
 The ``kernels`` phase runs last: its row (g) takes config #5's record
-shape [records × support] from the ``petab1e5`` run's timeline, rows (h)
-and (i) the fused engine's capped shapes from ``fused1e6`` and
-``fusedlv1e5`` (stated default shapes without those runs).
+shape [records × support] from the ``petab1e5`` run's timeline, rows (h),
+(i) and (j) the capped shapes of ``fused1e6``, ``fusedlv1e5`` and
+``pipelinedsir1e6`` (stated default shapes without those runs).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -134,7 +163,7 @@ from pathlib import Path
 ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "petab1e5", "sbml1e5", "fused16384", "fused1e6", "fusedlv1e5",
               "fusedpetab1e5", "onedispatch1e6", "onedispatchpetab1e5",
-              "kernels")
+              "pipelined1e6", "pipelinedsir1e6", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat")
 TOL_ABS = 1e-4
@@ -325,15 +354,17 @@ def record_case(state) -> tuple:
 
 
 def fused_cases(state) -> list:
-    """Rows (h) and (i): the fused engine's proposal density above the
+    """Rows (h), (i) and (j): a device block's proposal density above the
     support cap — every query against 2^14 uniform-weight rows — at the
-    fused1e6 (d = 1) and fusedlv1e5 (d = 4) phases' shapes, or at these
-    stated defaults without those runs."""
+    fused1e6 (d = 1), fusedlv1e5 (d = 4) and pipelinedsir1e6 (d = 2)
+    phases' shapes, or at these stated defaults without those runs."""
     out = []
     for label, key, default in (
             ("h fused1e6 capped", "fused_main_shape",
              (1_000_000, 1 << 14, 1)),
-            ("i fusedlv1e5 capped", "fused_lv_shape", (100_000, 1 << 14, 4))):
+            ("i fusedlv1e5 capped", "fused_lv_shape", (100_000, 1 << 14, 4)),
+            ("j pipelinedsir1e6 capped", "pipelined_sir_shape",
+             (1_000_000, 1 << 14, 2))):
         m, n, d = state.get(key, default)
         source = "run" if key in state else "default"
         out.append((f"{label} ({source})", m, n, d, {"uniform": True}))
@@ -437,7 +468,9 @@ def run_main_path(torch, pop: int, gens: int, seed: int = 0, fuse: int = 1,
     """Config #2 through the port's entry points on the card, held to the
     analytic posterior as the JAX package's ``run_gate`` holds it;
     ``fuse`` K > 1 runs fused blocks, ``seq_probe_s`` hands the engine
-    probe a sequential baseline (seconds per generation)."""
+    probe a sequential baseline (seconds per generation).  The classic
+    loop and eager rows are pinned (the pipelined1e6 phase runs the
+    defaults)."""
     import numpy as np
 
     import pyabc_tpu_torch as pt
@@ -452,7 +485,7 @@ def run_main_path(torch, pop: int, gens: int, seed: int = 0, fuse: int = 1,
         sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
                                      max_rounds_per_call=16, device="cuda"),
         stores_sum_stats=False, fuse_generations=fuse, seed=seed,
-        device="cuda")
+        ingest_mode="sequential", history_mode="eager", device="cuda")
     abc.new("sqlite://", observed)
     if seq_probe_s is not None:
         abc._note_sequential_gen_s(seq_probe_s)
@@ -497,9 +530,10 @@ def generation_row(r: dict) -> dict:
     generation's host_s is its wall less its sampling."""
     keys = ("t", "path", "engine", "wall_s", "sample_s", "eps",
             "evaluations", "acceptance_rate", "ess", "batch",
-            "kde_launches", "kde_support", "peak_mem_gb")
+            "kde_launches", "kde_support", "peak_mem_gb", "compute_s",
+            "d2h_s", "overlap_s", "history_mode")
     out = {k: r[k] for k in keys}
-    if r["path"] in ("fused", "onedispatch"):
+    if r["path"] in ("fused", "onedispatch", "pipelined"):
         out.update({k: r[k] for k in ("rounds", "host_reads",
                                        "grids_resolved")})
     else:
@@ -730,9 +764,11 @@ ONEDISPATCH_POP = 1_000_000
 ONEDISPATCH_GENS = 9
 
 
-def onedispatch_main_run(torch, run_mode: str) -> tuple:
+def onedispatch_main_run(torch, run_mode: str,
+                         history_mode: str = "eager") -> tuple:
     """``(abc, wall_s, K1 launches)`` of the ``bench_onedispatch``
-    configuration through ``ABCSMC.run`` on the card."""
+    configuration through ``ABCSMC.run`` on the card (the fused twin on
+    the classic loop: pop 1e6 would pipeline it)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import make_two_gaussians_problem
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
@@ -745,7 +781,8 @@ def onedispatch_main_run(torch, run_mode: str) -> tuple:
                                      max_batch_size=1 << 19,
                                      max_rounds_per_call=16, device="cuda"),
         stores_sum_stats=False, fuse_generations=FUSE_K, run_mode=run_mode,
-        seed=0, device="cuda")
+        ingest_mode="sequential", history_mode=history_mode, seed=0,
+        device="cuda")
     abc.new("sqlite://", observed)
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
@@ -757,9 +794,11 @@ def onedispatch_main_run(torch, run_mode: str) -> tuple:
 
 def phase_onedispatch1e6(torch, state):
     # fused, one-dispatch, one-dispatch, fused: the process's first run
-    # of this shape pays one-off costs, and each engine runs twice
+    # of this shape pays one-off costs, and each engine runs twice; then
+    # one-dispatch with lazy rows
     runs = [onedispatch_main_run(torch, mode)
             for mode in ("auto", "onedispatch", "onedispatch", "auto")]
+    lazy_run = onedispatch_main_run(torch, "onedispatch", "lazy")
     (a_f, wall_f, launches_f), (a_o, wall_o, launches_o) = runs[:2]
     rows = a_o.timeline
     report = onedispatch_report(a_o, rows, wall_o)
@@ -772,12 +811,23 @@ def phase_onedispatch1e6(torch, state):
     differences = [population_difference(a.history, a_f.history)
                    for a, _, _ in runs[1:]]
     checks["bit_identical"] = not any(differences)
+    # the lazy run's rows hydrate to the eager runs' bits
+    lazy_difference = population_difference(lazy_run[0].history,
+                                            a_o.history)
+    checks["lazy_bit_identical"] = lazy_difference is None
+    checks["lazy_rows"] = (
+        {r["history_mode"] for r in lazy_run[0].timeline} == {"lazy"}
+        and all(lazy_run[0].history.get_population_summary(r["t"])
+                for r in lazy_run[0].timeline if r["path"] == "onedispatch"))
     fused_rows = [r for r in a_f.timeline if r["path"] == "fused"]
     row = {"pop": ONEDISPATCH_POP, "gens": ONEDISPATCH_GENS,
            "ok": all(checks.values()), "checks": checks,
            "kde_launches": launches_o, "fused_kde_launches": launches_f,
            "differences_from_first_fused_run": differences,
+           "lazy_difference_from_od_run": lazy_difference,
            "od_wall_s_runs": [runs[1][1], runs[2][1]],
+           "od_lazy_wall_s": lazy_run[1],
+           "od_lazy_kde_launches": lazy_run[2],
            "fused_wall_s_runs": [runs[0][1], runs[3][1]],
            "wall_s": wall_o, "fused_wall_s": wall_f,
            "fused_host_s_per_gen": (statistics.median(
@@ -794,6 +844,7 @@ def phase_onedispatch1e6(torch, state):
     launches = state.setdefault("launches", {})
     launches["onedispatch1e6"] = launches_o
     launches["onedispatch1e6_fused"] = launches_f
+    launches["onedispatch1e6_lazy"] = lazy_run[2]
     emit({"phase": "onedispatch1e6", **row})
     if not row["ok"]:
         raise RuntimeError(f"onedispatch1e6 failed its checks: {checks}")
@@ -827,6 +878,186 @@ def phase_onedispatchpetab1e5(torch, state):
             f"onedispatchpetab1e5 failed its checks: {checks}")
 
 
+#: the run_gate configuration and the north-star bench row of the JAX
+#: package (``tools/verify_northstar_posterior.py:run_gate``,
+#: ``bench.py:272-315``), both at pop 1e6 with ABCSMC's defaults
+PIPELINED_POP = 1_000_000
+NORTHSTAR_GENS = 9
+
+
+def _config2_abc(eps, **kw):
+    """Config #2 at pop 1e6 on the card as the JAX package's run_gate and
+    north-star row build it; ``kw`` overrides constructor defaults."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+
+    models, priors, distance, observed, posterior_fn = \
+        make_two_gaussians_problem()
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=PIPELINED_POP, eps=eps,
+        sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
+                                     max_rounds_per_call=16, device="cuda"),
+        stores_sum_stats=False, seed=0, device="cuda", **kw)
+    abc.new("sqlite://", observed)
+    return abc, posterior_fn
+
+
+def _timed_run(torch, abc, gens: int) -> dict:
+    """``abc.run`` between K1 launch counts set to 0 and read after, with
+    the wire ledger's and the egress buckets' deltas, and the rows each
+    generation had (lazy or durable) when ``done`` began."""
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.wire import transfer
+
+    h = abc.history
+    at_done = {}
+    flush = h.flush_lazy
+
+    def flush_recording():
+        at_done.update(h._conn.execute(
+            "SELECT t, lazy FROM populations WHERE abc_smc_id=? AND t>=0",
+            (h.id,)).fetchall())
+        flush()
+
+    h.flush_lazy = flush_recording
+    tr0, eg0 = transfer.snapshot(), transfer.egress_breakdown()
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    abc.run(max_nr_populations=gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weighted_kde_logpdf_cuda.launches
+    del h.flush_lazy
+    eg1 = transfer.egress_breakdown()
+    return {"wall_s": wall, "kde_launches": launches,
+            "ledger": transfer.delta(tr0),
+            "egress_bytes": {k: eg1[k] - eg0[k] for k in eg1},
+            "lazy_at_done": at_done}
+
+
+def phase_pipelined1e6(torch, state):
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+
+    # run_gate exactly: MedianEpsilon, 11 generations, the defaults
+    abc, posterior_fn = _config2_abc(pt.MedianEpsilon())
+    gate = _timed_run(torch, abc, 11)
+    rows = abc.timeline
+    n = PIPELINED_POP
+    h = abc.history
+    t = h.max_t
+    p_b = float(h.get_model_probabilities(t).get(1, 0.0))
+    df, w = h.get_distribution(m=1, t=t)
+    mu = float(np.sum(df["mu"].to_numpy() * w)) if len(df) else math.nan
+    tol_p = max(2.5e-3, 2.5 / n ** 0.5)
+    tol_mu = max(3e-3, 3.0 / n ** 0.5)
+    paths = [r["path"] for r in rows]
+    ts = [r["t"] for r in rows]
+    lazy_at_done = gate["lazy_at_done"]
+    checks = {
+        "p_model_b": abs(p_b - posterior_fn(1.0)) < tol_p,
+        "mu_b": abs(mu - 1.0) < tol_mu,
+        "gens": ts == list(range(11)),
+        "history_rows": (list(h.get_all_populations().t) == [-1] + ts
+                         and all(len(h.get_population(tt)) == n
+                                 for tt in ts)),
+        # block rows were summaries until done() hydrated them; nothing
+        # stays lazy after it
+        "lazy_until_hydrated": (
+            any(lazy_at_done.values())
+            and all(paths[tt] == "pipelined"
+                    for tt, lazy in lazy_at_done.items() if lazy)
+            and all(h.get_population_summary(r["t"]) is not None
+                    for r in rows if r["path"] == "pipelined")
+            and not any(lazy for (lazy,) in h._conn.execute(
+                "SELECT lazy FROM populations WHERE abc_smc_id=?",
+                (h.id,)).fetchall())),
+        "paths": (paths[0] == "sequential" and "pipelined" in paths
+                  and set(paths) <= {"sequential", "pipelined"}),
+        "launches": all(r["kde_launches"] >= 2 for r in rows if r["t"] >= 1),
+        "defaults": abc.ingest_mode == "auto" and abc.history_mode == "lazy",
+    }
+    state.setdefault("launches", {})["pipelined1e6"] = gate["kde_launches"]
+
+    # the north-star row, four ways: depth 2 lazy, depth 0 lazy, depth 2
+    # eager, and bench.py's sequential-eager control
+    twins = {}
+    for label, kw in (("depth2_lazy", {}), ("depth0_lazy",
+                                            {"ingest_depth": 0}),
+                      ("depth2_eager", {"history_mode": "eager"}),
+                      ("sequential_eager", {"ingest_mode": "sequential",
+                                            "history_mode": "eager"})):
+        a, _ = _config2_abc(pt.ConstantEpsilon(0.2), **kw)
+        twins[label] = (a, _timed_run(torch, a, NORTHSTAR_GENS))
+        state["launches"][f"northstar_{label}"] = \
+            twins[label][1]["kde_launches"]
+    base = twins["depth2_lazy"][0].history
+    differences = {label: population_difference(twins[label][0].history,
+                                                 base)
+                   for label in ("depth0_lazy", "depth2_eager")}
+    checks["twins_bit_identical"] = not any(differences.values())
+    overlap = {label: r["ledger"]["overlap_s"]
+               for label, (_, r) in twins.items()}
+    checks["overlap_depth2"] = overlap["depth2_lazy"] > 0
+    checks["overlap_depth0"] = overlap["depth0_lazy"] == 0
+    twin_paths = {label: [r["path"] for r in a.timeline]
+                  for label, (a, _) in twins.items()}
+    checks["twin_paths"] = all(
+        p[0] == "sequential" and "pipelined" in p
+        for label, p in twin_paths.items() if label != "sequential_eager")
+
+    def per_gen_kb(label, bucket):
+        return twins[label][1]["egress_bytes"][bucket] / NORTHSTAR_GENS / 1e3
+
+    checks = {k: bool(v) for k, v in checks.items()}
+    row = {
+        "pop": n, "gens": 11, "ok": all(checks.values()), "checks": checks,
+        "p_model_b": p_b, "p_analytic": float(posterior_fn(1.0)),
+        "tol_p": tol_p, "mu_b": mu, "tol_mu": tol_mu, "paths": paths,
+        "wall_s": gate["wall_s"], "kde_launches": gate["kde_launches"],
+        "ledger": gate["ledger"], "egress_bytes": gate["egress_bytes"],
+        "lazy_at_done": sorted(tt for tt, lazy in lazy_at_done.items()
+                               if lazy),
+        "store": abc._store.manifest(),
+        "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
+        "generations": [generation_row(r) for r in rows],
+        "northstar": {
+            label: {"wall_s": r["wall_s"], "kde_launches": r["kde_launches"],
+                    "paths": twin_paths[label], "ledger": r["ledger"],
+                    "egress_bytes": r["egress_bytes"],
+                    "s_per_gen_t_ge_1": statistics.mean(
+                        g["wall_s"] for g in a.timeline if g["t"] >= 1)}
+            for label, (a, r) in twins.items()},
+        "northstar_differences": differences,
+        "summary_kb_per_gen_lazy": per_gen_kb("depth2_lazy", "summary"),
+        "history_kb_per_gen_lazy": per_gen_kb("depth2_lazy", "history"),
+        "population_kb_per_gen_eager": per_gen_kb("depth2_eager",
+                                                  "population"),
+    }
+    emit({"phase": "pipelined1e6", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"pipelined1e6 failed its checks: {checks}")
+
+
+def phase_pipelinedsir1e6(torch, state):
+    """BASELINE config #4 at its own size: sir1e5's configuration at pop
+    1e6 through the constructor's defaults (the pipeline, lazy rows)."""
+    row = run_adaptive(torch, "sir1e5", pop=PIPELINED_POP, defaults=True)
+    state.setdefault("launches", {})["pipelinedsir1e6"] = row["kde_launches"]
+    g = next((g for g in row["generations"] if g["path"] == "pipelined"),
+             None)
+    if g is not None:
+        state["pipelined_sir_shape"] = (PIPELINED_POP,
+                                        g["kde_support"][0]["rows"], 2)
+    row["peak_mem_gb_by_gen"] = [g["peak_mem_gb"]
+                                 for g in row["generations"]]
+    emit({"phase": "pipelinedsir1e6", **row})
+    if not row["ok"]:
+        raise RuntimeError(
+            f"pipelinedsir1e6 failed its checks: {row['checks']}")
+
+
 #: BASELINE configs #3 and #4 as the JAX package's pop-1e5 bench rows run
 #: them: (problem factory, generating parameters, generations)
 ADAPTIVE = {"lv1e5": ("make_lotka_volterra_problem", "LV_TRUTH", 8),
@@ -834,36 +1065,40 @@ ADAPTIVE = {"lv1e5": ("make_lotka_volterra_problem", "LV_TRUTH", 8),
 ADAPTIVE_POP = 100_000
 
 
-def adaptive_abc(name: str, fuse: int = 1):
+def adaptive_abc(name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
+                 defaults: bool = False):
     """``(abc, distance, priors, truth)`` of one adaptive workload on the
     card: full-width model, ``AdaptivePNormDistance(p=2)`` with the
     median-absolute-deviation scale, ``MedianEpsilon``, batch 2^19;
-    ``fuse`` K > 1 runs fused blocks."""
+    ``fuse`` K > 1 runs fused blocks.  Eager rows are pinned unless
+    ``defaults`` (the pipelinedsir1e6 phase)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch import models as pt_models
 
     make, truth, _ = ADAPTIVE[name]
     models, priors, distance, observed = getattr(pt_models, make)()
     abc = pt.ABCSMC(
-        models, priors, distance, population_size=ADAPTIVE_POP,
+        models, priors, distance, population_size=pop,
         eps=pt.MedianEpsilon(),
         sampler=pt.VectorizedSampler(min_batch_size=1 << 19,
                                      max_batch_size=1 << 19, device="cuda"),
         stores_sum_stats=False, fuse_generations=fuse, seed=0,
-        device="cuda")
+        device="cuda", **({} if defaults else {"history_mode": "eager"}))
     abc.new("sqlite://", observed)
     return abc, distance, priors, getattr(pt_models, truth)
 
 
-def run_adaptive(torch, name: str, fuse: int = 1) -> dict:
+def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
+                 defaults: bool = False) -> dict:
     """One adaptive workload through ``ABCSMC.run`` on the card, with its
-    per-generation timeline and the gates of the module docstring."""
+    per-generation timeline and the gates of the module docstring;
+    ``defaults`` runs the constructor's defaults (pipelined at pop 1e6)."""
     import numpy as np
 
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
 
     gens = ADAPTIVE[name][2]
-    abc, distance, priors, truth = adaptive_abc(name, fuse)
+    abc, distance, priors, truth = adaptive_abc(name, fuse, pop, defaults)
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
     abc.run(max_nr_populations=gens)
@@ -885,10 +1120,23 @@ def run_adaptive(torch, name: str, fuse: int = 1) -> dict:
         "gens": len(rows) == gens,
         "eps": all(math.isfinite(r["eps"]) and r["eps"] > 0 for r in rows),
         "launches": all(r["kde_launches"] >= 1 for r in rows if r["t"] >= 1),
+        "history_rows": (list(abc.history.get_all_populations().t)
+                         == [-1] + [r["t"] for r in rows]),
         "mean": bool(np.all(np.abs(mean - log_truth) <= 4 * std)),
         "std": bool(np.all(std <= 0.75 * prior_std)),
     }
-    if fuse > 1:
+    paths = [r["path"] for r in rows]
+    if defaults:
+        # each block that follows a block runs from the weights the one
+        # before refit on the card, pre-seeded on the host at its exit
+        follows = [r["t"] for r, prev in zip(rows[1:], rows)
+                   if r["path"] == prev["path"] == "pipelined"]
+        checks["paths"] = (paths[0] == "sequential" and "pipelined" in paths
+                           and set(paths) <= {"sequential", "pipelined"})
+        checks["weights"] = bool(follows) and all(
+            t in distance.weights and np.all(np.isfinite(distance.weights[t]))
+            for t in follows)
+    elif fuse > 1:
         # a block's interior weights live on the card; its exit hands the
         # in-block refit for generation 1 + K to the host schedule
         w_exit = distance.weights.get(1 + fuse)
@@ -902,8 +1150,8 @@ def run_adaptive(torch, name: str, fuse: int = 1) -> dict:
     if fused:
         checks.update(fused["fused_checks"])
     return {
-        "pop": ADAPTIVE_POP, "gens_asked": gens, "gens_run": len(rows),
-        "ok": all(checks.values()), "checks": checks,
+        "pop": pop, "gens_asked": gens, "gens_run": len(rows),
+        "ok": all(checks.values()), "checks": checks, "paths": paths,
         "kde_launches": launches, "wall_s": wall,
         "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
         "params": names, "posterior_mean": mean.tolist(),
@@ -1107,7 +1355,8 @@ def run_stochastic(torch, name: str, fuse: int = 1,
         sampler=pt.VectorizedSampler(min_batch_size=STOCHASTIC_BATCH,
                                      max_batch_size=STOCHASTIC_BATCH,
                                      device="cuda"),
-        fuse_generations=fuse, run_mode=run_mode, seed=0, device="cuda")
+        fuse_generations=fuse, run_mode=run_mode, history_mode="eager",
+        seed=0, device="cuda")
     abc.new("sqlite://", importer.get_observed())
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
@@ -1255,7 +1504,8 @@ def phase_profile(torch, state):
         eps=pt.MedianEpsilon(),
         sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
                                      max_rounds_per_call=16, device="cuda"),
-        stores_sum_stats=False, seed=0, device="cuda")
+        stores_sum_stats=False, ingest_mode="sequential",
+        history_mode="eager", seed=0, device="cuda")
     abc.new("sqlite://", observed)
     emit({"phase": "profile", "ok": True,
           **profile_last_generation(torch, abc, 11)})
@@ -1408,6 +1658,8 @@ PHASES = {"card": phase_card, "build": phase_build,
           "fusedpetab1e5": phase_fusedpetab1e5,
           "onedispatch1e6": phase_onedispatch1e6,
           "onedispatchpetab1e5": phase_onedispatchpetab1e5,
+          "pipelined1e6": phase_pipelined1e6,
+          "pipelinedsir1e6": phase_pipelinedsir1e6,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 

@@ -21,16 +21,113 @@ its generating proposal's density (the rounds defer it; K1 on the card);
 the orchestrator sets the new proposal's density on the ``Sample``
 (``transition_log_pdf`` on host arrays, ``transition_log_pdf_device`` on
 tensors), and the temperature schemes read the ratio of the two.
+
+:func:`fetch_to_host` is the single device-to-host chokepoint of the
+population wire (``pyabc_tpu/sampler/base.py:87``): it waits on the
+producer's CUDA event (booked to the ledger's ``compute_s``), copies on a
+stream of its own into pinned host memory (``d2h_s``), and books the
+bytes.  With ``defer_wire_fetch`` the sampler leaves a generation's
+accepted rows on the device as the ``Sample``'s pending wire, for the
+orchestrator to hand to a streaming-ingest worker or the device store.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 import torch
 
 from ..population import Population
+from ..wire import transfer
+
+_copy_streams = threading.local()
+
+
+def _tensors(tree, out: list) -> list:
+    if isinstance(tree, dict):
+        for v in tree.values():
+            _tensors(v, out)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            _tensors(v, out)
+    elif torch.is_tensor(tree):
+        out.append(tree)
+    return out
+
+
+def _map(tree, fn):
+    if isinstance(tree, dict):
+        return {k: _map(v, fn) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map(v, fn) for v in tree)
+    return fn(tree) if torch.is_tensor(tree) else tree
+
+
+def mark_ready(tree) -> Optional["torch.cuda.Event"]:
+    """A CUDA event recorded now on the current stream of the device the
+    tree's tensors live on: it completes when every kernel queued so far
+    (the wire's producer) has run.  None without a CUDA tensor."""
+    cuda = [t for t in _tensors(tree, []) if t.is_cuda]
+    if not cuda:
+        return None
+    event = torch.cuda.Event()
+    event.record(torch.cuda.current_stream(cuda[0].device))
+    return event
+
+
+def _copy_stream(device: torch.device) -> "torch.cuda.Stream":
+    """This thread's copy stream on ``device``."""
+    streams = getattr(_copy_streams, "by_device", None)
+    if streams is None:
+        streams = _copy_streams.by_device = {}
+    if device.index not in streams:
+        streams[device.index] = torch.cuda.Stream(device=device)
+    return streams[device.index]
+
+
+def fetch_to_host(tree, ready: Optional["torch.cuda.Event"] = None):
+    """A nested dict / list / tuple of tensors as host numpy arrays
+    (other leaves pass through), booked to the wire ledger.
+
+    On the card: wait for ``ready`` (the producer's event, recorded now
+    on the current stream when not given) — ``compute_s`` — then copy
+    every tensor ``non_blocking`` into pinned host memory on this
+    thread's own stream after ``wait_event(ready)``, with
+    ``record_stream`` so the caching allocator keeps the source until the
+    copy ran, and synchronize that stream — ``d2h_s``.  A worker thread
+    copying this way overlaps the caller's next kernels on the default
+    stream instead of queueing behind them.  On the CPU the arrays are
+    copied (the caller may reuse the tensors)."""
+    cuda = [t for t in _tensors(tree, []) if t.is_cuda]
+    t0 = time.perf_counter()
+    if cuda:
+        if ready is None:
+            ready = mark_ready(tree)
+        ready.synchronize()
+    transfer.record_compute(time.perf_counter() - t0)
+    with transfer.timed_d2h() as timer:
+        if cuda:
+            stream = _copy_stream(cuda[0].device)
+
+            def copy(t):
+                if not t.is_cuda:
+                    return t.detach().clone()
+                t.record_stream(stream)
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t, non_blocking=True)
+                return host
+
+            with torch.cuda.stream(stream):
+                stream.wait_event(ready)
+                pinned = _map(tree, copy)
+            stream.synchronize()
+            out = _map(pinned, lambda t: t.numpy())
+        else:
+            out = _map(tree, lambda t: t.detach().numpy().copy())
+    return timer.commit(out)
 
 
 class RoundResult:
@@ -87,17 +184,23 @@ class Sample:
         #: the orchestrator for the temperature schemes)
         self.transition_log_pdf: Optional[Callable] = None
         self.transition_log_pdf_device: Optional[Callable] = None
+        #: the accepted rows left on the device (``defer_wire_fetch``),
+        #: the event their producer completes, and their row count
+        self.pending_wire: Optional[dict] = None
+        self.pending_ready = None
+        self._pending_rows = 0
 
     def append_round(self, rr: RoundResult):
         """Ingest one round's accepted rows (one host transfer) and, when
         recording, its valid rows."""
-        acc = rr.accepted.cpu().numpy()
+        host = fetch_to_host({k: getattr(rr, k)
+                              for k in _ROW_KEYS + ("accepted",)})
+        acc = host["accepted"]
         self.nr_evaluations += int(acc.shape[0])
         self.raw_accepted += int(acc.sum())
         idx = np.nonzero(acc)[0]
         if idx.size:
-            self._acc.append({k: getattr(rr, k).cpu().numpy()[idx]
-                              for k in _ROW_KEYS})
+            self._acc.append({k: host[k][idx] for k in _ROW_KEYS})
         if self.record_rejected:
             valid = torch.nonzero(rr.valid).flatten()
             self.append_record_batch(
@@ -115,6 +218,35 @@ class Sample:
             self._acc.append(out)
         if device_view is not None:
             self.device_population = device_view
+
+    def append_pending_wire(self, wire: dict, n_evals: int, count: int,
+                            device_view: dict, ready=None):
+        """Defer the accepted rows' fetch: ``wire`` (the first
+        ``min(count, n)`` rows on the device) stays there for an ingest
+        worker or the device store; the accounting is
+        :meth:`append_device_batch`'s, and :attr:`n_accepted` counts the
+        rows."""
+        self.nr_evaluations += int(n_evals)
+        self.raw_accepted += int(count)
+        self.device_population = device_view
+        self.pending_wire = wire
+        self.pending_ready = ready
+        self._pending_rows = int(wire["m"].shape[0])
+
+    def take_pending_wire(self) -> Optional[dict]:
+        """Hand the deferred wire to its new owner; the rows still count
+        in :attr:`n_accepted`."""
+        wire, self.pending_wire = self.pending_wire, None
+        return wire
+
+    def resolve_pending(self):
+        """Fetch a deferred wire no one took and ingest it."""
+        if self.pending_wire is None:
+            return
+        out = fetch_to_host(self.take_pending_wire(), self.pending_ready)
+        self._pending_rows = 0
+        if out["m"].shape[0]:
+            self._acc.append(out)
 
     def append_record_batch(self, rec: dict):
         """Ingest one record harvest (``rec_<key>`` tensors whose first
@@ -149,7 +281,7 @@ class Sample:
 
     @property
     def n_accepted(self) -> int:
-        return sum(a["m"].shape[0] for a in self._acc)
+        return sum(a["m"].shape[0] for a in self._acc) + self._pending_rows
 
     @property
     def acceptance_rate(self) -> float:
@@ -159,6 +291,7 @@ class Sample:
     def get_accepted_population(self, n: int) -> Population:
         """First n accepted particles in round order, weights normalized
         in log space (float64) and stored as float32."""
+        self.resolve_pending()
         if self.n_accepted < n:
             raise SamplingError(
                 f"expected {n} accepted particles, have {self.n_accepted}")
@@ -256,5 +389,6 @@ class Sampler:
 
     def sample_until_n_accepted(self, n: int, round_fn, generator, params,
                                 max_eval: float = np.inf,
-                                all_accepted: bool = False) -> Sample:
+                                all_accepted: bool = False,
+                                defer_wire_fetch: bool = False) -> Sample:
         raise NotImplementedError

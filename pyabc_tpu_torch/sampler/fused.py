@@ -43,11 +43,16 @@ run with the JAX package's device stop chain (:func:`stop_code`) after
 each generation: the host reads one packed control tensor (the stop code
 and the accepted count) per generation and stops the loop on its code.
 
-Not ported (ROADMAP): the multi-fidelity cascade, telemetry and summary
-lanes, the in-dispatch progress word, carry precision (its codec is the
-identity in float32), the pod constraint, lane surgery and the
-``narrow_wire`` codec: a generation's output is float32 tensors (the
-model index int64) stacked over the block on the device.
+With ``summary_lanes=True`` (the lazy History) each generation's wire
+also carries the ``sm_*`` lanes of its posterior summary packet
+(``wire.store.summary_wire_lanes``), computed on the card, so the host
+can fetch those O(KB) and leave the population on the device.
+
+Not ported (ROADMAP): the multi-fidelity cascade, telemetry lanes, the
+in-dispatch progress word, carry precision (its codec is the identity in
+float32), the pod constraint, lane surgery and the ``narrow_wire`` codec:
+a generation's output is float32 tensors (the model index int64) stacked
+over the block on the device.
 """
 
 from __future__ import annotations
@@ -65,6 +70,7 @@ from ..ops.kde_cuda import weighted_kde_logpdf_cuda
 from ..ops.quantile_sketch import sketch_weighted_quantile
 from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
+from ..wire.store import summary_wire_lanes
 
 # Stop codes of the JAX package's device stop chain, in the order the
 # host loop checks them; ``smc.STOP_REASONS`` maps each to its string.
@@ -298,7 +304,7 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                   rate_pred_factor: float = 1.0,
                   adaptive_cfg: Optional[dict] = None,
                   stoch_cfg: Optional[dict] = None,
-                  eps_sketch: bool = False):
+                  eps_sketch: bool = False, summary_lanes: bool = False):
     """The per-generation body behind :func:`build_fused_generations`.
 
     ``eps_mode`` is ``"constant"``, ``"quantile"`` or ``"temperature"``
@@ -312,7 +318,8 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
     Returns ``one_gen(carry, generator, final=False) -> (carry, wire,
     info)``: the next carry, the generation's population (``m``,
     ``theta``, ``distance`` at acceptance, corrected ``log_weight``,
-    ``stats``) with ``count`` and ``eps``, and host facts (``rounds``,
+    ``stats``) with ``count``, ``rounds`` and ``eps`` (and the ``sm_*``
+    summary lanes with ``summary_lanes``), and host facts (``rounds``,
     ``host_reads``, ``grids_resolved`` — None without a grid —
     ``kde_support``).  ``final`` pins the temperature to 1
     (``Temperature``'s last-generation rule)."""
@@ -519,7 +526,13 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             new_carry["rec_loggen"] = log_den_q[n_target:]
         wire = {"m": m1, "theta": theta1, "distance": dist1,
                 "log_weight": lw1, "stats": stats1, "count": count,
+                "rounds": torch.full((), rounds, dtype=torch.int64,
+                                     device=dev),
                 "eps": eps_t}
+        if summary_lanes:
+            valid1 = torch.arange(n_target, device=dev) < count
+            wire.update(summary_wire_lanes(m1, theta1, dist1, lw1, valid1,
+                                           M))
         info = {"rounds": rounds, "host_reads": reads,
                 "grids_resolved": resolved,
                 "kde_support": [
@@ -541,7 +554,8 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
                             rate_pred_factor: float = 1.0,
                             adaptive_cfg: Optional[dict] = None,
                             stoch_cfg: Optional[dict] = None,
-                            eps_sketch: bool = False):
+                            eps_sketch: bool = False,
+                            summary_lanes: bool = False):
     """``fused(carry, generator, final_mask=None) -> (carry, wires,
     infos)`` for K generations.
 
@@ -559,13 +573,20 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
     ``wires`` stacks the K generations' outputs on the device (leading
     axis K); ``infos`` holds each generation's host facts, with its KDE
     launches (``kde_launches``).  ``final_mask`` [K] (stochastic triple)
-    marks the run's last generation, whose temperature is 1."""
+    marks the run's last generation, whose temperature is 1.
+    ``summary_lanes`` adds each generation's ``sm_*`` summary lanes to
+    its wire.
+
+    Every carry and wire tensor a block returns is freshly allocated (the
+    rejection buffers are new per generation): no later block writes
+    into a tensor an in-flight fetch or the device store still holds."""
     one_gen = build_one_gen(
         kernel, bandwidth_selectors, scalings, dims, n_target, B,
         max_rounds, d, s, eps_mode, eps_alpha, eps_multiplier,
         eps_weighted, distance_params, raw_round, support_cap=support_cap,
         rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
-        stoch_cfg=stoch_cfg, eps_sketch=eps_sketch)
+        stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
+        summary_lanes=summary_lanes)
 
     def fused(carry: dict, generator: torch.Generator,
               final_mask: Optional[List[bool]] = None):
@@ -661,7 +682,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                           rate_pred_factor: float = 1.0,
                           adaptive_cfg: Optional[dict] = None,
                           stoch_cfg: Optional[dict] = None,
-                          eps_sketch: bool = False):
+                          eps_sketch: bool = False,
+                          summary_lanes: bool = False):
     """``onedispatch(carry, generator, ctl) -> (carry, ctl_out, wires)``:
     the rest of a run (at most ``ctl["t_limit"]`` <= ``max_T``
     generations) from ``carry``, with the stop chain after every
@@ -689,7 +711,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
     with ``count``, ``kde_launches`` and ``sample_s``, its seconds up to
     its control read; the undershot one last).
     ``wires`` stacks the written generations' outputs (leading axis
-    ``t``), or is None when none was written."""
+    ``t``; with ``summary_lanes`` their ``sm_*`` lanes too), or is None
+    when none was written."""
     if max_T < 1:
         raise ValueError("max_T must be >= 1")
     one_gen = build_one_gen(
@@ -697,7 +720,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
         max_rounds, d, s, eps_mode, eps_alpha, eps_multiplier,
         eps_weighted, distance_params, raw_round, support_cap=support_cap,
         rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
-        stoch_cfg=stoch_cfg, eps_sketch=eps_sketch)
+        stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
+        summary_lanes=summary_lanes)
     stoch = stoch_cfg is not None
     temperature = eps_mode == "temperature"
 

@@ -20,6 +20,13 @@ rows per call); the records are harvested once per call and handed to
 ``record_proposal_density`` also set and the density deferred, the
 harvest carries the proposal density, which the ``Sample`` evaluates
 once over the kept rows of each call (one K1 launch per model).
+
+With ``defer_wire_fetch=True`` and no records, the accepted rows are not
+fetched: a device copy of them becomes the ``Sample``'s pending wire
+(``pyabc_tpu/sampler/vectorized.py:305``), with the CUDA event of its
+producer, and the caller hands it to a streaming-ingest worker or the
+device store.  The copy matters: the loop's buffers are rewound and
+refilled by the next generation while the wire may still be in flight.
 """
 
 from __future__ import annotations
@@ -30,9 +37,9 @@ from typing import Dict, Optional, Tuple
 import numpy as np
 
 from ..autotune import BatchAutotuner
-from ..convert import to_numpy, to_torch
+from ..convert import to_torch
 from ..device import resolve_device
-from .base import Sample, Sampler, SamplingError
+from .base import Sample, Sampler, SamplingError, fetch_to_host, mark_ready
 from .device_loop import build_stateful_loop, harvest_rec
 
 logger = logging.getLogger("ABC.Sampler")
@@ -78,10 +85,18 @@ class VectorizedSampler(Sampler):
         return self._tuner.safety(self.safety_factor)
 
     def observe_generation(self, accepted: int, total: int,
-                           rounds: Optional[int] = None):
+                           rounds: Optional[int] = None,
+                           compute_s: float = 0.0, overlap_s: float = 0.0):
         """Fold a generation that ran outside :meth:`sample_until_n_accepted`
-        (a fused block's) into the autotuner."""
-        self._tuner.observe(accepted, total, rounds=rounds)
+        (a fused block's) into the autotuner, with its share of the wire
+        ledger's ``compute_s`` / ``overlap_s``."""
+        self._tuner.observe(accepted, total, rounds=rounds,
+                            compute_s=compute_s, overlap_s=overlap_s)
+
+    def observe_timing(self, compute_s: float, overlap_s: float = 0.0):
+        """Fold a sequential generation's wire-ledger seconds into the
+        autotuner (its rate was observed per sampler call)."""
+        self._tuner.observe_timing(compute_s, overlap_s)
 
     @staticmethod
     def raw_round(round_fn, B: int):
@@ -95,8 +110,8 @@ class VectorizedSampler(Sampler):
                            self.max_batch_size))
 
     def sample_until_n_accepted(self, n, round_fn, generator, params,
-                                max_eval=np.inf, all_accepted=False
-                                ) -> Sample:
+                                max_eval=np.inf, all_accepted=False,
+                                defer_wire_fetch: bool = False) -> Sample:
         sample = Sample(record_rejected=self.record_rejected,
                         max_records=self.max_records)
         # params arrive as host numpy (fits are control plane); pin them
@@ -165,10 +180,16 @@ class VectorizedSampler(Sampler):
                                max_eval, count, n)
                 break
         view = finalize(state, params)
-        host = {k: v for k, v in view.items()
-                if k != "stats" or self.fetch_stats}
-        sample.append_device_batch(to_numpy(host), rounds * B, count,
-                                   device_view=view)
+        wire_keys = [k for k in view if k != "stats" or self.fetch_stats]
+        if defer_wire_fetch and not record_cap:
+            view = {k: v.clone() for k, v in view.items()}
+            wire = {k: view[k] for k in wire_keys}
+            sample.append_pending_wire(wire, rounds * B, count, view,
+                                       ready=mark_ready(wire))
+        else:
+            sample.append_device_batch(
+                fetch_to_host({k: view[k] for k in wire_keys}), rounds * B,
+                count, device_view=view)
         self._states[loop_key] = state
         while len(self._states) > 4:
             self._states.pop(next(iter(self._states)))

@@ -43,10 +43,33 @@ covers at most ``onedispatch_max_t`` generations; a longer run dispatches
 again from the carried population.  A generation that falls short of
 the population is redone sequentially, as after a fused block.
 
-Not ported yet (ROADMAP): the pipelined and lazy-History engines — the
-JAX package takes the pipelined and lazy branches at pop 1e6 by default,
-this port runs the classic loop, fused blocks and one-dispatch runs with
-every population written — and the multi-fidelity components.
+The device-to-host wire (:mod:`.wire`) runs under every engine: each
+generation's population leaves the card through one chokepoint
+(``sampler.base.fetch_to_host``) booked to the transfer ledger, and a
+fused block or one-dispatch run streams its generations' fetches on a
+:class:`~.wire.StreamingIngest` worker (``ingest_depth``) while the
+caller appends the previous one.  The ledger's ``compute_s`` and
+``overlap_s`` feed the batch autotuner's margin, per generation, as in
+the JAX package.
+
+``ingest_mode="auto"`` (the default) runs a device-eligible configuration
+at pop >= ``OVERLAP_MIN_POP`` = 2^17 through :meth:`ABCSMC._run_pipelined`:
+device blocks are dispatched ahead of the ingest frontier while a worker
+fetches the blocks before them, History appends and stop criteria run on
+the caller thread in generation order, and blocks dispatched past a stop
+or an undershoot are abandoned (``rewinds``).  ``"sequential"`` keeps the
+classic loop, ``"overlap"`` pipelines any eligible configuration.
+
+``history_mode="lazy"`` (the default, or ``$PYABC_TPU_HISTORY_MODE``)
+keeps each device engine's generations in a
+:class:`~.wire.store.DeviceRunStore` on the card and appends a summary
+row; History hydrates a population when it is read, and ``done()``
+writes every resident one, so the database holds the eager bits.
+``"eager"`` fetches and writes every population as it comes.
+
+Not ported yet (ROADMAP): the multi-fidelity components, checkpoints,
+the spill journal, and the JAX package's fallback to the sequential
+loop after a failed pipelined dispatch (here it raises).
 """
 
 from __future__ import annotations
@@ -54,7 +77,9 @@ from __future__ import annotations
 import functools
 import logging
 import math
+import os
 import time
+from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
 import numpy as np
@@ -73,7 +98,7 @@ from .population import Population
 from .populationstrategy import ConstantPopulationSize, PopulationStrategy
 from .random_variables import Distribution, ModelPerturbationKernel
 from .sampler import fused as _fused
-from .sampler.base import Sample, Sampler
+from .sampler.base import Sample, Sampler, fetch_to_host
 from .sampler.rounds import RoundKernel
 from .sampler.vectorized import VectorizedSampler, _pow2_at_least
 from .storage.history import PRE_TIME, History
@@ -81,6 +106,10 @@ from .sumstat import SumStatSpec
 from .transition import MultivariateNormalTransition, Transition
 from .transition.multivariatenormal import _COMPRESS_MIN_N
 from .weighted_statistics import effective_sample_size
+from .wire import StreamingIngest, transfer
+from .wire import store as _wire_store
+from .wire.ingest import (SCALAR_KEYS, GenStream, batch_to_population,
+                          split_single_wire)
 
 logger = logging.getLogger("ABC")
 
@@ -130,6 +159,9 @@ class ABCSMC:
                  fused_support_cap: Optional[int] = 1 << 14,
                  run_mode: str = "auto",
                  onedispatch_max_t: int = 32,
+                 ingest_mode: str = "auto",
+                 ingest_depth: int = 2,
+                 history_mode: Optional[str] = None,
                  seed: int = 0,
                  device=None):
         if not isinstance(models, (list, tuple)):
@@ -198,6 +230,29 @@ class ABCSMC:
         #: generations one dispatch may write; a longer run dispatches
         #: again from the carried population
         self.onedispatch_max_t = max(1, int(onedispatch_max_t))
+        if ingest_mode not in ("auto", "overlap", "sequential"):
+            raise ValueError("ingest_mode must be 'auto', 'overlap' or "
+                             f"'sequential' (got {ingest_mode!r})")
+        #: "overlap" runs an eligible configuration through the pipelined
+        #: engine, "auto" does so from OVERLAP_MIN_POP, "sequential" never
+        self.ingest_mode = ingest_mode
+        #: blocks in flight in the pipelined engine, and tickets in
+        #: flight on every streaming-ingest engine; 0 runs the same calls
+        #: inline on the caller thread
+        self.ingest_depth = int(ingest_depth)
+        if history_mode is None:
+            history_mode = os.environ.get(_wire_store.HISTORY_MODE_ENV,
+                                          "lazy")
+        if history_mode not in ("lazy", "eager"):
+            raise ValueError("history_mode must be 'lazy' or 'eager' "
+                             f"(got {history_mode!r})")
+        #: "lazy" keeps device engines' generations in the run's
+        #: DeviceRunStore and appends summary rows; "eager" writes every
+        #: population as it comes
+        self.history_mode = history_mode
+        self._store: Optional[_wire_store.DeviceRunStore] = None
+        #: per-generation transfer-ledger deltas (wire/transfer.py), by t
+        self.generation_transfer: Dict[int, dict] = {}
         #: per run(): one-dispatch calls made, and the seconds of their
         #: per-generation control reads (after a device sync)
         self.run_dispatches = 0
@@ -213,14 +268,16 @@ class ABCSMC:
         self._seq_probe_s: Optional[float] = None
         self.minimum_epsilon = 0.0
         self.min_acceptance_rate = 0.0
-        #: per-generation rows: t, path ("sequential", "fused" or
-        #: "onedispatch"), engine (the probe's choice above
+        #: per-generation rows: t, path ("sequential", "fused",
+        #: "onedispatch" or "pipelined"), engine (the probe's choice above
         #: PROBE_MIN_POP, "onedispatch" on a one-dispatch row, else
-        #: None), wall_s
-        #: (append to append; a fused block's wall over its written
-        #: generations), sample_s (a fused block: its generations' device
+        #: None), wall_s (append to append; a fused block's wall over
+        #: its written generations; in the pipelined engine harvest to
+        #: harvest), sample_s (a fused block: its generations' device
         #: loop, before the host copies), eps, n, evaluations,
-        #: acceptance_rate, ess, batch, kde_launches (KDE kernel launches
+        #: acceptance_rate, ess, batch, compute_s / d2h_s / overlap_s (its
+        #: share of the wire ledger), history_mode ("lazy" when a device
+        #: store was attached), kde_launches (KDE kernel launches
         #: in the generation), kde_support (per model: pdf support rows,
         #: grid-compressed or not), records (candidates recorded),
         #: record_batches (sampler calls that kept records: each
@@ -228,7 +285,8 @@ class ABCSMC:
         #: temperature reads them), refit_s (seconds of the distance fit
         #: whose params the generation used), peak_mem_gb (peak device
         #: memory allocated in the generation — in a fused block, in the
-        #: block — on the card; None on the CPU); fused and one-dispatch
+        #: block; in the pipelined engine, since the previous harvest — on
+        #: the card; None on the CPU); fused, pipelined and one-dispatch
         #: rows also carry rounds, host_reads (values the host read in the
         #: generation) and grids_resolved (None without a grid-compressed
         #: support)
@@ -294,11 +352,21 @@ class ABCSMC:
                                stores_sum_stats=self.stores_sum_stats)
         self.x_0 = self._coerce_stats(self.history.observed_sum_stat())
         self._bind()
+        # summary rows whose device store died with an earlier process
+        # cannot be hydrated: max_t anchors on the last durable generation
+        self.history.purge_stale_lazy()
         return self.history
 
     def _bind(self):
         # a new or loaded run never starts from another run's population
         self._fused_carry = None
+        # lazy History: one device store per bound run; History drains its
+        # spill queue on the caller thread, ingest workers deposit
+        if self.history_mode == "lazy":
+            self._store = _wire_store.DeviceRunStore()
+            self.history.attach_store(self._store)
+        else:
+            self._store = None
         self.spec = SumStatSpec.from_example(self.x_0)
         self._obs_flat = self.spec.flatten_single(self.x_0,
                                                   device=self.device)
@@ -314,6 +382,32 @@ class ABCSMC:
             spec=self.spec,
             obs_flat=self._obs_flat,
             dim=self.dim)
+
+    @property
+    def _lazy_active(self) -> bool:
+        """Device engines keep their generations in the store and append
+        summary rows."""
+        return self._store is not None and self.history is not None
+
+    #: "auto" ingest pipelines from this population up: below it the
+    #: fetch is short and the fused engine owns the regime
+    OVERLAP_MIN_POP = 1 << 17
+
+    def _overlap_enabled(self) -> bool:
+        """Route ``run()`` through :meth:`_run_pipelined`?  Never with
+        ``ingest_mode="sequential"`` or a one-dispatch run; with an
+        eligible device chain always for "overlap", from
+        ``OVERLAP_MIN_POP`` for "auto"."""
+        if self.run_mode == "onedispatch" or self.ingest_mode == "sequential":
+            return False
+        if not self._device_chain_eligible():
+            if self.ingest_mode == "overlap":
+                logger.warning(
+                    "ingest_mode='overlap' requested but the component "
+                    "chain has no device form; using the sequential loop")
+            return False
+        return (self.ingest_mode == "overlap"
+                or self.population_strategy(0) >= self.OVERLAP_MIN_POP)
 
     # ---- transition fitting with padding buckets ----------------------
 
@@ -610,18 +704,21 @@ class ABCSMC:
                 out["rec_loggen"] = torch.zeros(R, device=dev)
         return out
 
-    def _get_block_fn(self, t: int, n: int, B: int, K: int):
-        """The K-generation block of this configuration."""
+    def _get_block_fn(self, t: int, n: int, B: int, K: int,
+                      summary: bool = False):
+        """The K-generation block of this configuration (``summary``: with
+        the ``sm_*`` summary lanes, for the lazy History)."""
         return self._get_engine_fn(_fused.build_fused_generations, t, n, B,
-                                   K=K)
+                                   K=K, summary_lanes=summary)
 
-    def _get_run_fn(self, t: int, n: int, B: int, K: int, max_T: int):
+    def _get_run_fn(self, t: int, n: int, B: int, K: int, max_T: int,
+                    summary: bool = False):
         """The one-dispatch run of this configuration: its K-generation
         blocks, at most ``max_T`` generations per dispatch."""
         return self._get_engine_fn(
             _fused.build_onedispatch_run, t, n, B, K=K, max_T=max_T,
             single_model_stop=(self.stop_if_only_single_model_alive
-                               and self.M > 1))
+                               and self.M > 1), summary_lanes=summary)
 
     def _get_engine_fn(self, build: Callable, t: int, n: int, B: int,
                        **static):
@@ -690,33 +787,140 @@ class ABCSMC:
             self._fused_cache.pop(next(iter(self._fused_cache)))
         return fn
 
-    def _population_from_wire(self, wires: dict, k: int
-                              ) -> Optional[Population]:
-        """Generation ``k`` of a block as a host population, weights
-        normalized as ``Sample.get_accepted_population`` does; None when
-        every weight is zero."""
-        keys = ["m", "theta", "distance", "log_weight"]
-        if self.sampler.fetch_stats:
-            keys.append("stats")
-        host = to_numpy({key: wires[key][k] for key in keys})
-        logw = host["log_weight"]
-        logw = logw - logw.max()
-        w = np.exp(np.asarray(logw, dtype=np.float64))
-        total = w.sum()
-        if not np.isfinite(total) or total <= 0:
+    def _host_wire(self, wires: dict) -> dict:
+        """The lanes of a device engine's wire that leave the card: the
+        stats only when a host reader needs them (``fetch_stats``)."""
+        return {k: v for k, v in wires.items()
+                if k != "stats" or self.sampler.fetch_stats}
+
+    def _lazy_gen_fetch(self, t0: int):
+        """A :class:`GenStream` fetch for the lazy History: deposit
+        generation ``t0 + k``'s wire in the store and fetch only its
+        summary lanes and scalars, under ``egress("summary")``.  Runs on
+        the ingest worker."""
+        store = self._store
+
+        def fetch(k, gen_wire, n_rows, ready):
+            small = {key: gen_wire[key] for key in
+                     _wire_store.SUMMARY_LANE_KEYS + SCALAR_KEYS
+                     if key in gen_wire}
+            with transfer.egress("summary"):
+                out = fetch_to_host(small, ready)
+            count, rounds = int(out["count"]), int(out["rounds"])
+            eps = (float(np.asarray(out["eps"], dtype=np.float64))
+                   if "eps" in out else None)
+            store.deposit(t0 + k, gen_wire, n=n_rows, count=count, eps=eps,
+                          norm="stream", ready=ready)
+            return _wire_store.summary_from_lanes(out), count, rounds, eps
+
+        return fetch
+
+    def _append_device_generation(self, t_k: int, payload, count: int,
+                                  rounds: int, eps_raw, B: int, n: int,
+                                  info: dict, path: str, lazy: bool):
+        """Append generation ``t_k`` of a device engine to History from
+        its fetched ``payload`` (the population batch, or with ``lazy``
+        the summary packet of a generation left in the store):
+        ``(population or None, models alive, timeline row)`` (the row
+        without its times), or None when its weights are degenerate."""
+        label = {"fused": "fused block", "pipelined": "pipelined block",
+                 "onedispatch": "one-dispatch run"}[path]
+        eps_mode = self._eps_device_config()[0]
+        evals = rounds * B
+        pop = None
+        if lazy:
+            ess = float(payload["ess"])
+            alive = sum(1 for x in payload["model_w"] if x > 0)
+            ok = np.isfinite(ess) and ess > 0
+        else:
+            pop = batch_to_population(payload)
+            ok = pop is not None
+        if not ok:
+            logger.warning("%s produced degenerate weights at t=%d: "
+                           "sequential fallback", label, t_k)
+            if lazy:
+                self._store.drop(t_k)
             return None
-        return Population(
-            m=host["m"].astype(np.int32), theta=host["theta"],
-            weight=(w / total).astype(np.float32),
-            distance=host["distance"],
-            sum_stats=({"__flat__": host["stats"]} if "stats" in host
-                       else {}))
+        if not lazy:
+            ess = float(effective_sample_size(pop.weight))
+            alive = pop.nr_of_models_alive()
+        # a constant ε is the host's value: the float32 round trip would
+        # defeat `eps <= minimum_epsilon`
+        eps = (float(self.eps(t_k)) if eps_mode == "constant"
+               else float(eps_raw))
+        acc_rate = count / max(evals, 1)
+        names = [m.name for m in self.models]
+        if lazy:
+            self.history.append_population_lazy(
+                t_k, eps, evals, summary=payload, model_names=names,
+                param_names=self._param_names(), stat_spec=self.spec.shapes)
+        else:
+            self.history.append_population(
+                t_k, eps, pop, evals, names, self._param_names(),
+                stat_spec=self.spec.shapes)
+        # the engine's ε/T is the durable schedule entry
+        if eps_mode == "quantile":
+            self.eps._look_up[t_k] = eps
+        elif eps_mode == "temperature":
+            self.eps.temperatures[t_k] = eps
+        logger.info("t: %d, eps: %.8g (%s), acceptance rate: %.4g, ESS: "
+                    "%.4g, evals: %d", t_k, eps, path, acc_rate, ess, evals)
+        return pop, alive, {
+            "t": t_k, "path": path, "eps": eps, "n": n, "accepted": count,
+            "evaluations": evals, "acceptance_rate": acc_rate, "ess": ess,
+            "batch": B, "rounds": rounds, "host_reads": info["host_reads"],
+            "grids_resolved": info["grids_resolved"],
+            "kde_launches": info["kde_launches"],
+            "kde_support": info["kde_support"], "records": 0,
+            "record_batches": 0, "refit_s": 0.0}
+
+    def _stop_after(self, eps: float, alive: int, acc_rate: float,
+                    sims: int, max_total_nr_simulations) -> Optional[str]:
+        """The sequential loop's stop criteria, in its order, after a
+        device engine's generation (None: go on)."""
+        if isinstance(self.eps, TemperatureBase):
+            if eps <= 1.0:
+                return STOP_TEMPERATURE
+        elif eps <= self.minimum_epsilon:
+            return STOP_EPS
+        if (self.stop_if_only_single_model_alive and alive <= 1
+                and self.M > 1):
+            return STOP_SINGLE_MODEL
+        if acc_rate < self.min_acceptance_rate:
+            return STOP_ACC_RATE
+        if sims >= max_total_nr_simulations:
+            return STOP_BUDGET
+        return None
+
+    def _record(self, row: dict, tr: Optional[dict] = None):
+        """Append a timeline row with its wire-ledger share ``tr``."""
+        tr = tr or {}
+        row.update({"compute_s": tr.get("compute_s", 0.0),
+                    "d2h_s": tr.get("d2h_s", 0.0),
+                    "overlap_s": tr.get("overlap_s", 0.0),
+                    "history_mode": ("lazy" if self._lazy_active
+                                     else "eager")})
+        self.generation_transfer[row["t"]] = tr
+        self.timeline.append(row)
+
+    def _observe_device_rows(self, rows: List[dict], tr: dict):
+        """Time-stamped rows of a device engine into the timeline and the
+        autotuner, each with its share of the ledger delta ``tr``."""
+        share = {k: v / len(rows) for k, v in tr.items()}
+        for row in rows:
+            accepted = row.pop("accepted")
+            self._record(row, share)
+            self.sampler.observe_generation(
+                accepted, row["evaluations"], rounds=row["rounds"],
+                compute_s=share["compute_s"], overlap_s=share["overlap_s"])
 
     def _run_fused_block(self, t: int, t_max, total_sims: int,
                          max_total_nr_simulations):
         """One fused block from ``t``: ``(written, sims_added,
         stop_reason)``, ``written`` generations appended to History (0:
-        the sequential engine takes ``t``).  A failed block raises."""
+        the sequential engine takes ``t``).  The generations' fetches
+        stream on an ingest worker while the caller appends.  A failed
+        block raises."""
         carry = self._fused_carry
         self._fused_carry = None
         if carry is None:
@@ -728,68 +932,64 @@ class ABCSMC:
             return 0, 0, None
         B = samp.choose_batch(n)
         mode = self._block_mode()
-        eps_mode = self._eps_device_config()[0]
         carry_in = self._seed_block_carry(t, carry, B, samp.rate_est,
                                           samp.safety())
         if carry_in is None:
             return 0, 0, None
-        fn = self._get_block_fn(t, n, B, K)
+        lazy = self._lazy_active
+        fn = self._get_block_fn(t, n, B, K, summary=lazy)
         on_card = self.device.type == "cuda"
 
         t0 = time.perf_counter()
+        tr0 = transfer.snapshot()
         carry_out, wires, infos = fn(
             carry_in, self.generator,
             self._final_mask(t, K) if mode["stoch"] else None)
         dispatch_s = time.perf_counter() - t0
+        engine = StreamingIngest(depth=self.ingest_depth)
+        stream = GenStream(engine, self._host_wire(wires), K, n,
+                           label=f"fused@t={t}",
+                           fetch=self._lazy_gen_fetch(t) if lazy else None)
         written = 0
         stop_reason = None
         rounds_seen = 0
         rows = []
         pop_k = None
-        for k in range(K):
-            t_k = t + k
-            if t_k >= t_max:
-                break
-            count_k = int(wires["count"][k])
-            rounds_k = infos[k]["rounds"]
-            rounds_seen += rounds_k
-            if count_k < n:
-                logger.info("fused block undershot at t=%d (%d/%d "
-                            "accepted): falling back to the sequential "
-                            "path", t_k, count_k, n)
-                break
-            got = self._write_device_generation(wires, k, t_k, n, B,
-                                                count_k, infos[k], "fused")
-            if got is None:
-                break
-            pop_k, row = got
-            rows.append(row)
-            written += 1
-            eps_k, acc_rate = row["eps"], row["acceptance_rate"]
-            # stop criteria in the sequential loop's order
-            code = _fused.STOP_NONE
-            if eps_mode == "temperature":
-                if eps_k <= 1.0:
-                    code = _fused.STOP_TEMPERATURE
-            elif eps_k <= self.minimum_epsilon:
-                code = _fused.STOP_EPS
-            if code == _fused.STOP_NONE:
-                if (self.stop_if_only_single_model_alive
-                        and pop_k.nr_of_models_alive() <= 1
-                        and self.M > 1):
-                    code = _fused.STOP_SINGLE_MODEL
-                elif acc_rate < self.min_acceptance_rate:
-                    code = _fused.STOP_ACC_RATE
-                elif (total_sims + rounds_seen * B
-                      >= max_total_nr_simulations):
-                    code = _fused.STOP_BUDGET
-            if code != _fused.STOP_NONE:
-                stop_reason = STOP_REASONS[code]
-                break
+        try:
+            for k in range(K):
+                t_k = t + k
+                if t_k >= t_max:
+                    break
+                payload, count_k, rounds_k, eps_raw = stream.result()
+                rounds_seen += rounds_k
+                if count_k < n:
+                    logger.info("fused block undershot at t=%d (%d/%d "
+                                "accepted): falling back to the sequential "
+                                "path", t_k, count_k, n)
+                    break
+                got = self._append_device_generation(
+                    t_k, payload, count_k, rounds_k, eps_raw, B, n,
+                    infos[k], "fused", lazy)
+                if got is None:
+                    break
+                pop_k, alive, row = got
+                rows.append(row)
+                written += 1
+                stop_reason = self._stop_after(
+                    row["eps"], alive, row["acceptance_rate"],
+                    total_sims + rounds_seen * B, max_total_nr_simulations)
+                if stop_reason is not None:
+                    break
+        finally:
+            stream.abandon()
+            engine.close()
         # every generation the block ran counts against the budget,
         # discarded ones included
         sims_added = sum(info["rounds"] for info in infos) * B
         samp.nr_evaluations_ += sims_added
+        if lazy:
+            # deposits past the last written generation have no row
+            self._store.drop_from(t + written)
         block_s = time.perf_counter() - t0
         self.blocks.append({
             "t": t, "K": K, "written": written, "batch": B,
@@ -809,56 +1009,16 @@ class ABCSMC:
                         "wall_s": block_s / written,
                         "sample_s": dispatch_s / written,
                         "peak_mem_gb": peak})
-            self.timeline.append(row)
-            samp.observe_generation(row.pop("accepted"),
-                                    row["evaluations"], rounds=row["rounds"])
+        self._observe_device_rows(rows, transfer.delta(tr0))
         if stop_reason is None and t + written < t_max:
+            if pop_k is None:
+                # lazy: the host continuation needs the last generation's
+                # rows; the block's earlier ones stay on the card
+                pop_k = self.history.hydrate_population(t + written - 1)
             # the device carry only after a whole block
             self._hand_over(t + written, pop_k,
                             carry_out if written == K else None)
         return written, sims_added, stop_reason
-
-    def _write_device_generation(self, wires: dict, k: int, t_k: int,
-                                 n: int, B: int, count: int, info: dict,
-                                 path: str):
-        """Append generation ``k`` of a device engine's ``wires`` to
-        History as generation ``t_k``: ``(population, timeline row)``
-        (the row without its times), or None when its weights are
-        degenerate.  ``info`` holds the generation's host facts."""
-        label = {"fused": "fused block",
-                 "onedispatch": "one-dispatch run"}[path]
-        eps_mode = self._eps_device_config()[0]
-        evals = info["rounds"] * B
-        pop = self._population_from_wire(wires, k)
-        if pop is None:
-            logger.warning("%s produced degenerate weights at t=%d: "
-                           "sequential fallback", label, t_k)
-            return None
-        # a constant ε is the host's value: the float32 round trip would
-        # defeat `eps <= minimum_epsilon`
-        eps = (float(self.eps(t_k)) if eps_mode == "constant"
-               else float(wires["eps"][k]))
-        acc_rate = count / max(evals, 1)
-        self.history.append_population(
-            t_k, eps, pop, evals, [m.name for m in self.models],
-            self._param_names(), stat_spec=self.spec.shapes)
-        # the engine's ε/T is the durable schedule entry
-        if eps_mode == "quantile":
-            self.eps._look_up[t_k] = eps
-        elif eps_mode == "temperature":
-            self.eps.temperatures[t_k] = eps
-        ess = float(effective_sample_size(pop.weight))
-        logger.info("t: %d, eps: %.8g (%s), acceptance rate: %.4g, ESS: "
-                    "%.4g, evals: %d", t_k, eps, path, acc_rate, ess, evals)
-        return pop, {"t": t_k, "path": path, "eps": eps, "n": n,
-                     "accepted": count, "evaluations": evals,
-                     "acceptance_rate": acc_rate, "ess": ess, "batch": B,
-                     "rounds": info["rounds"],
-                     "host_reads": info["host_reads"],
-                     "grids_resolved": info["grids_resolved"],
-                     "kde_launches": info["kde_launches"],
-                     "kde_support": info["kde_support"], "records": 0,
-                     "record_batches": 0, "refit_s": 0.0}
 
     def _hand_over(self, t: int, population: Population,
                    carry: Optional[dict]):
@@ -884,7 +1044,8 @@ class ABCSMC:
         generations) as one dispatch with the stop chain on the device:
         ``(written, sims_added, stop_reason)`` like
         :meth:`_run_fused_block`, ``written`` generations appended to
-        History (0: the sequential engine takes ``t``).  A failed
+        History (0: the sequential engine takes ``t``).  The written
+        generations drain through a :class:`GenStream`.  A failed
         dispatch raises."""
         carry = self._fused_carry
         self._fused_carry = None
@@ -901,6 +1062,7 @@ class ABCSMC:
                                           samp.safety())
         if carry_in is None:
             return 0, 0, None
+        lazy = self._lazy_active
         i32max = int(np.iinfo(np.int32).max)
         t_limit = (int(np.clip(t_max - t, 1, max_T))
                    if np.isfinite(t_max) else max_T)
@@ -914,10 +1076,11 @@ class ABCSMC:
                "budget_rounds": budget_rounds, "t_limit": t_limit,
                "final_rel": (max(int(t_max) - 1 - t, 0)
                              if np.isfinite(t_max) else i32max)}
-        fn = self._get_run_fn(t, n, B, K, max_T)
+        fn = self._get_run_fn(t, n, B, K, max_T, summary=lazy)
         on_card = self.device.type == "cuda"
 
         t0 = time.perf_counter()
+        tr0 = transfer.snapshot()
         carry_out, ctl_out, wires = fn(carry_in, self.generator, ctl)
         dispatch_s = time.perf_counter() - t0
         self.run_dispatches += 1
@@ -927,16 +1090,29 @@ class ABCSMC:
         written = 0
         rows = []
         pop_k = None
-        for k in range(ctl_out["t"]):
-            got = self._write_device_generation(
-                wires, k, t + k, n, B, gens[k]["count"], gens[k],
-                "onedispatch")
-            if got is None:
-                break
-            pop_k, row = got
-            rows.append({**row, "engine": "onedispatch",
-                         "sample_s": gens[k]["sample_s"]})
-            written += 1
+        if ctl_out["t"]:
+            engine = StreamingIngest(depth=self.ingest_depth)
+            stream = GenStream(engine, self._host_wire(wires), ctl_out["t"],
+                               n, label=f"onedispatch@t={t}",
+                               fetch=(self._lazy_gen_fetch(t) if lazy
+                                      else None))
+            try:
+                for k in range(ctl_out["t"]):
+                    payload, count_k, rounds_k, eps_raw = stream.result()
+                    got = self._append_device_generation(
+                        t + k, payload, count_k, rounds_k, eps_raw, B, n,
+                        gens[k], "onedispatch", lazy)
+                    if got is None:
+                        break
+                    pop_k, _, row = got
+                    rows.append({**row, "engine": "onedispatch",
+                                 "sample_s": gens[k]["sample_s"]})
+                    written += 1
+            finally:
+                stream.abandon()
+                engine.close()
+        if lazy:
+            self._store.drop_from(t + written)
         # every generation the dispatch ran counts against the budget,
         # an undershot one included
         sims_added = ctl_out["rounds"] * B
@@ -958,16 +1134,328 @@ class ABCSMC:
         for row in rows:
             row.update({"wall_s": row["sample_s"] + host_s,
                         "peak_mem_gb": peak})
-            self.timeline.append(row)
-            samp.observe_generation(row.pop("accepted"),
-                                    row["evaluations"], rounds=row["rounds"])
+        self._observe_device_rows(rows, transfer.delta(tr0))
         if stop_reason is None and t + written < t_max:
+            if pop_k is None:
+                pop_k = self.history.hydrate_population(t + written - 1)
             # t_limit reached: the carry seeds the next dispatch; after an
             # undershoot the sequential engine redoes the next generation
             self._hand_over(t + written, pop_k,
                             carry_out if clean and stop_code
                             == _fused.STOP_NONE else None)
         return written, sims_added, stop_reason
+
+    # ---- the pipelined engine (wire/) -----------------------------------
+
+    def _run_pipelined(self, t0: int, t_max, max_total_nr_simulations):
+        """The overlapped generation loop (``pyabc_tpu/smc.py:2330``).
+
+        Device blocks (K = ``fuse_generations`` when the fused engine is
+        eligible, else 1) are dispatched ahead of the ingest frontier, up
+        to ``max(ingest_depth, 1)`` in flight: block i + 1 runs from
+        block i's carry, which never leaves the card, while an ingest
+        worker fetches block i's generations on its own CUDA stream.  A
+        port block is a host-driven loop, so what overlaps the fetch is
+        the next block's loop.  History appends and the stop criteria run
+        here, in generation order, as each block is harvested.
+
+        A stop, an undershoot or degenerate weights found behind blocks
+        already dispatched abandons them (``rewind_to_frontier``): their
+        simulations are not counted, nothing of them reaches History, and
+        the ledger counts their generations as ``rewinds``.  Their draws
+        from the run's generator are spent, as the JAX package's
+        speculative blocks spend their keys.  ``ingest_depth=0`` runs the
+        same calls inline.  The first generation, and any generation after
+        a rewind, runs sequentially with its fetch deferred to the
+        engine; the batch of every block is sized from the rate estimate
+        frozen at the last sequential generation, so the results do not
+        depend on the depth.  An error on the worker raises on the next
+        harvest."""
+        samp = self.sampler
+        mode = self._block_mode()
+        lazy = self._lazy_active
+        on_card = self.device.type == "cuda"
+        ingest = StreamingIngest(depth=self.ingest_depth)
+        inflight = deque()
+        st = {"t": t0,           # ingest frontier: next generation to append
+              "t_disp": t0,      # dispatch frontier
+              "total_sims": 0,
+              "carry": self._fused_carry,  # latest dispatched device carry
+              "stop": None,
+              "last_pop": None,  # population of the last appended generation
+              "last_dp": None,   # its device view
+              "prepared_t": t0,  # host components are fitted up to here
+              # dispatch batch sizing, frozen between sequential generations
+              # so that the depth cannot change what is dispatched
+              "rate_disp": samp.rate_est, "safety_disp": samp.safety(),
+              "gen_mark": time.perf_counter(),
+              "tr_mark": transfer.snapshot()}
+        self._fused_carry = None
+        names = [m.name for m in self.models]
+
+        def rewind_to_frontier():
+            abandoned = 0
+            while inflight:
+                blk = inflight.pop()
+                if blk.get("stream") is not None:
+                    blk["stream"].abandon()
+                elif blk["ticket"] is not None:
+                    blk["ticket"].abandon()
+                abandoned += blk["K"]
+            if abandoned:
+                transfer.record_rewind(abandoned)
+            st["carry"] = None
+            st["t_disp"] = st["t"]
+            if lazy:
+                self._store.drop_from(st["t"])
+
+        def dispatch_block() -> bool:
+            carry, t_d = st["carry"], st["t_disp"]
+            n = self.population_strategy(t_d)
+            if carry["theta"].shape[0] != n:
+                st["carry"] = None
+                return False
+            fused_K = (self.fuse_generations if self._fused_eligible()
+                       else 1)
+            K = fused_K if fused_K > 1 and t_d + fused_K <= t_max else 1
+            if t_d + K > t_max:
+                return False
+            B = samp._round_to_valid_batch(
+                n / max(st["rate_disp"], 1e-6) * st["safety_disp"])
+            carry_in = self._seed_block_carry(t_d, carry, B, st["rate_disp"],
+                                              st["safety_disp"])
+            if carry_in is None:
+                st["carry"] = None
+                return False
+            fn = self._get_block_fn(t_d, n, B, K, summary=lazy)
+            mark = time.perf_counter()
+            carry_out, wires, infos = fn(
+                carry_in, self.generator,
+                self._final_mask(t_d, K) if mode["stoch"] else None)
+            stream = GenStream(ingest, self._host_wire(wires), K, n,
+                               label=f"block@t={t_d}",
+                               fetch=(self._lazy_gen_fetch(t_d) if lazy
+                                      else None))
+            inflight.append({"kind": "block", "ticket": None,
+                             "stream": stream, "lazy": lazy, "t0": t_d,
+                             "K": K, "B": B, "n": n, "infos": infos,
+                             "carry_out": carry_out,
+                             "dispatch_s": time.perf_counter() - mark})
+            st["carry"] = carry_out
+            st["t_disp"] = t_d + K
+            return True
+
+        def sequential_gen() -> bool:
+            t = st["t"]
+            if t > st["prepared_t"]:
+                # the host components skipped the blocks' generations:
+                # refit them from the last appended one
+                prep = Sample()
+                prep.device_population = st["last_dp"]
+                if st["last_pop"] is None:
+                    st["last_pop"] = self.history.hydrate_population(t - 1)
+                self._prepare_next_iteration(t, prep, st["last_pop"],
+                                             samp.rate_est)
+                st["prepared_t"] = t
+            current_eps = float(self.eps(t))
+            n = self.population_strategy(t)
+            max_eval = (n / self.min_acceptance_rate
+                        if self.min_acceptance_rate > 0 else np.inf)
+            params = {"distance": self.distance_function.get_params(t),
+                      "acceptor": self.acceptor.get_params(t, self.eps)}
+            if t == 0:
+                round_fn = self._kernel.prior_round
+            else:
+                round_fn = self._kernel.generation_round
+                probs = self._model_probabilities(t - 1)
+                with np.errstate(divide="ignore"):
+                    params["model_log_probs"] = np.log(
+                        np.maximum(probs, 1e-300)).astype(np.float32)
+                params["transition"] = self._trans_params
+            logger.info("t: %d, eps: %.8g", t, current_eps)
+            launches0 = weighted_kde_logpdf_cuda.launches
+            mark = time.perf_counter()
+            sample = samp.sample_until_n_accepted(
+                n, round_fn, self.generator, params, max_eval=max_eval,
+                defer_wire_fetch=True)
+            if sample.n_accepted < n:
+                st["stop"] = ("Stopping: acceptance rate fell below "
+                              "min_acceptance_rate (%d/%d accepted)"
+                              % (sample.n_accepted, n))
+                return False
+            st["total_sims"] += sample.nr_evaluations
+            st["rate_disp"] = samp.rate_est
+            st["safety_disp"] = samp.safety()
+            dp = sample.device_population
+            st["carry"] = dp if dp is not None and "distance" in dp else None
+            entry = {"kind": "seq", "ticket": None, "t0": t, "K": 1, "n": n,
+                     "dp": st["carry"], "row": {
+                         "t": t, "path": "sequential", "eps": current_eps,
+                         "n": n, "evaluations": sample.nr_evaluations,
+                         "acceptance_rate": sample.acceptance_rate,
+                         "batch": samp.last_batch,
+                         "sample_s": time.perf_counter() - mark,
+                         "kde_launches": (weighted_kde_logpdf_cuda.launches
+                                          - launches0),
+                         "kde_support": ([_pdf_support_rows(p)
+                                          for p in params["transition"]]
+                                         if t > 0 else []),
+                         "records": sample.n_recorded,
+                         "record_batches": sample.n_record_batches,
+                         "refit_s": self._refit_s}}
+            wire = sample.take_pending_wire()
+            if wire is not None:
+                ready = sample.pending_ready
+                entry["ticket"] = ingest.submit(
+                    lambda: split_single_wire(fetch_to_host(wire, ready), n),
+                    label=f"gen@t={t}")
+            else:
+                # the records needed the rows on the host already
+                entry["kind"] = "pop"
+                entry["pop"] = sample.get_accepted_population(n)
+            inflight.append(entry)
+            st["t_disp"] = t + 1
+            return True
+
+        def harvest_block(blk: dict) -> List[dict]:
+            rows = []
+            rounds_seen = 0
+            base_sims = st["total_sims"]
+            try:
+                for k in range(blk["K"]):
+                    t_k = blk["t0"] + k
+                    payload, count_k, rounds_k, eps_raw = \
+                        blk["stream"].result()
+                    rounds_seen += rounds_k
+                    if count_k < blk["n"]:
+                        logger.info("pipelined block undershot at t=%d "
+                                    "(%d/%d accepted): sequential fallback",
+                                    t_k, count_k, blk["n"])
+                        st["fallback"] = True
+                        break
+                    got = self._append_device_generation(
+                        t_k, payload, count_k, rounds_k, eps_raw, blk["B"],
+                        blk["n"], blk["infos"][k], "pipelined", blk["lazy"])
+                    if got is None:
+                        st["fallback"] = True
+                        break
+                    pop_k, alive, row = got
+                    rows.append(row)
+                    st["t"] = t_k + 1
+                    st["last_pop"] = pop_k
+                    st["stop"] = self._stop_after(
+                        row["eps"], alive, row["acceptance_rate"],
+                        base_sims + rounds_seen * blk["B"],
+                        max_total_nr_simulations)
+                    if st["stop"]:
+                        break
+            finally:
+                # every generation of a harvested block ran: its rounds
+                # count (an abandoned speculative block's never do)
+                blk["stream"].abandon()
+                sims = sum(i["rounds"] for i in blk["infos"]) * blk["B"]
+                st["total_sims"] += sims
+                samp.nr_evaluations_ += sims
+            if rows:
+                complete = len(rows) == blk["K"]
+                st["last_dp"] = blk["carry_out"] if complete else None
+                if complete and mode["adaptive"]:
+                    # pre-seed the host weight schedule with the in-block
+                    # refit for t0 + K: a later sequential generation
+                    # runs under the fused chain's weights
+                    self.distance_function.weights[blk["t0"] + blk["K"]] = \
+                        blk["carry_out"]["dist_w"].cpu().numpy().astype(
+                            np.float32)
+            return rows
+
+        def harvest_sequential(blk: dict) -> List[dict]:
+            row = blk["row"]
+            if blk["kind"] == "seq":
+                gens, _, _, _ = blk["ticket"].result()
+                pop = batch_to_population(gens[0])
+                if pop is None:
+                    logger.warning("pipelined sequential generation at t=%d "
+                                   "produced degenerate weights", row["t"])
+                    st["fallback"] = True
+                    return []
+            else:
+                pop = blk["pop"]
+            self.history.append_population(
+                row["t"], row["eps"], pop, row["evaluations"], names,
+                self._param_names(), stat_spec=self.spec.shapes)
+            row["ess"] = float(effective_sample_size(pop.weight))
+            logger.info("t: %d, acceptance rate: %.4g, ESS: %.4g, evals: %d",
+                        row["t"], row["acceptance_rate"], row["ess"],
+                        row["evaluations"])
+            st["t"] = row["t"] + 1
+            st["last_pop"] = pop
+            st["last_dp"] = blk["dp"]
+            st["stop"] = self._stop_after(
+                row["eps"], pop.nr_of_models_alive(), row["acceptance_rate"],
+                st["total_sims"], max_total_nr_simulations)
+            return [row]
+
+        def harvest_one():
+            blk = inflight.popleft()
+            st["fallback"] = False
+            rows = (harvest_block(blk) if blk["kind"] == "block"
+                    else harvest_sequential(blk))
+            if rows:
+                now = time.perf_counter()
+                wall = (now - st["gen_mark"]) / len(rows)
+                st["gen_mark"] = now
+                tr = transfer.delta(st["tr_mark"])
+                st["tr_mark"] = transfer.snapshot()
+                at_scale = blk["n"] > self.PROBE_MIN_POP
+                if blk["kind"] != "block":
+                    if blk["t0"] > 0:
+                        self._note_sequential_gen_s(wall)
+                elif (at_scale and blk["K"] > 1
+                        and self._engine_choice is None):
+                    self._decide_engine(wall)
+                peak = None
+                if on_card:
+                    peak = torch.cuda.max_memory_allocated(self.device) / 1e9
+                    torch.cuda.reset_peak_memory_stats(self.device)
+                for row in rows:
+                    row.update({"engine": (self._engine_choice if at_scale
+                                           else None),
+                                "wall_s": wall, "peak_mem_gb": peak})
+                    if blk["kind"] == "block":
+                        row["sample_s"] = blk["dispatch_s"] / len(rows)
+                if blk["kind"] == "block":
+                    self._observe_device_rows(rows, tr)
+                else:
+                    # the sampler observed its own rate
+                    self._record(rows[0], tr)
+            if st["fallback"] or st["stop"]:
+                rewind_to_frontier()
+
+        depth_cap = max(self.ingest_depth, 1)
+        if on_card:
+            torch.cuda.reset_peak_memory_stats(self.device)
+        try:
+            while st["t"] < t_max and st["stop"] is None:
+                if st["carry"] is None and not inflight:
+                    if not sequential_gen():
+                        break
+                    continue
+                while (st["carry"] is not None
+                       and len(inflight) < depth_cap
+                       and st["total_sims"] < max_total_nr_simulations
+                       and dispatch_block()):
+                    pass
+                if inflight:
+                    harvest_one()
+                elif st["carry"] is not None:
+                    break  # the dispatch frontier reached t_max
+        finally:
+            ingest.close()  # abandons anything still in flight
+        if st["stop"]:
+            logger.info(st["stop"])
+            self.stop_reason = st["stop"]
+        # keep the device chain hot for a later run() continuation
+        self._fused_carry = st["carry"] if st["stop"] is None else None
 
     # ---- calibration and resume ----------------------------------------
 
@@ -1088,13 +1576,21 @@ class ABCSMC:
         t = t0
         t_max = (t0 + max_nr_populations
                  if np.isfinite(max_nr_populations) else np.inf)
+        if self._overlap_enabled():
+            self._run_pipelined(t0, t_max, max_total_nr_simulations)
+            self.history.done()
+            return self.history
         total_sims = 0
         gen_mark = time.perf_counter()
+        tr_mark = transfer.snapshot()
         launches_mark = weighted_kde_logpdf_cuda.launches
         on_card = self.device.type == "cuda"
         if on_card:
             torch.cuda.reset_peak_memory_stats(self.device)
         model_names = [m.name for m in self.models]
+        # the lazy History's sequential deposit needs the rows on the
+        # card; an adaptive refit reads them on the host
+        defer = self._lazy_active and not self._distance_is_adaptive()
         while t < t_max:
             # one dispatch for the rest of the run: the device checks the
             # stop chain itself and t_limit clips the dispatch
@@ -1107,6 +1603,7 @@ class ABCSMC:
                 if written:
                     t += written
                     gen_mark = time.perf_counter()
+                    tr_mark = transfer.snapshot()
                     if on_card:
                         torch.cuda.reset_peak_memory_stats(self.device)
                 if stop_reason is not None:
@@ -1130,6 +1627,7 @@ class ABCSMC:
                 if written:
                     t += written
                     gen_mark = time.perf_counter()
+                    tr_mark = transfer.snapshot()
                     if on_card:
                         torch.cuda.reset_peak_memory_stats(self.device)
                     if stop_reason is not None:
@@ -1156,7 +1654,8 @@ class ABCSMC:
             logger.info("t: %d, eps: %.8g", t, current_eps)
             sample_mark = time.perf_counter()
             sample = self.sampler.sample_until_n_accepted(
-                n, round_fn, self.generator, params, max_eval=max_eval)
+                n, round_fn, self.generator, params, max_eval=max_eval,
+                defer_wire_fetch=defer)
             sample_s = time.perf_counter() - sample_mark
             if sample.n_accepted < n:
                 self.stop_reason = (
@@ -1165,15 +1664,35 @@ class ABCSMC:
                     % (sample.n_accepted, n))
                 logger.info(self.stop_reason)
                 break
-            population = sample.get_accepted_population(n)
             total_sims += sample.nr_evaluations
             acceptance_rate = sample.acceptance_rate
-            self.history.append_population(
-                t, current_eps, population, sample.nr_evaluations,
-                model_names, self._param_names(), stat_spec=self.spec.shapes)
+            if self._lazy_active and sample.pending_wire is not None:
+                # the rows stay on the card and a summary row is appended;
+                # the host adaptation still needs them: hydrate (the eager
+                # decode; the durable blobs are written on the way)
+                self._store.deposit(
+                    t, sample.take_pending_wire(), n=n,
+                    count=sample.n_accepted, eps=current_eps, norm="sample",
+                    ready=sample.pending_ready)
+                self.history.append_population_lazy(
+                    t, current_eps, sample.nr_evaluations,
+                    summary=_wire_store.summarize_device_population(
+                        sample.device_population, self.M),
+                    model_names=model_names,
+                    param_names=self._param_names(),
+                    stat_spec=self.spec.shapes)
+                population = self.history.hydrate_population(t)
+            else:
+                population = sample.get_accepted_population(n)
+                self.history.append_population(
+                    t, current_eps, population, sample.nr_evaluations,
+                    model_names, self._param_names(),
+                    stat_spec=self.spec.shapes)
             ess = float(effective_sample_size(population.weight))
             now = time.perf_counter()
-            self.timeline.append({
+            tr_t = transfer.delta(tr_mark)
+            tr_mark = transfer.snapshot()
+            self._record({
                 "t": t, "path": "sequential",
                 "engine": (self._engine_choice
                            if n > self.PROBE_MIN_POP else None),
@@ -1191,7 +1710,12 @@ class ABCSMC:
                 "record_batches": sample.n_record_batches,
                 "refit_s": self._refit_s,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
-                                / 1e9 if on_card else None)})
+                                / 1e9 if on_card else None)}, tr_t)
+            # the sampler observed its rate per call; the ledger's
+            # compute / overlap split is seen only here
+            observe_timing = getattr(self.sampler, "observe_timing", None)
+            if observe_timing is not None:
+                observe_timing(tr_t["compute_s"], tr_t["overlap_s"])
             # the engine probe's baseline (t = 0's prior round has no
             # refit or proposal work and would bias it low)
             if t > 0:

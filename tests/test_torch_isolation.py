@@ -40,7 +40,9 @@ def test_port_files_exist():
                 "epsilon/temperature.py", "models/ode.py",
                 "petab/__init__.py", "petab/base.py", "petab/ode.py",
                 "petab/sbml.py", "petab/problem.py", "sampler/fused.py",
-                "ops/quantile_sketch.py"):
+                "ops/quantile_sketch.py", "wire/__init__.py",
+                "wire/transfer.py", "wire/streaming.py", "wire/ingest.py",
+                "wire/store.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 
