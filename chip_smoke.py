@@ -113,6 +113,34 @@ Phases, each printed as one JSON line and each fatal on failure:
    in-block weight pre-seed for each block that follows a block, and the
    peak memory of every generation.
 
+10. ``library`` / ``stats1e5`` / ``adaptivepop`` / ``local1e4`` — the
+   component library a user configures.  ``library`` evaluates every
+   deterministic function of it on the card and on the CPU from one
+   seeded numpy input — each family's ``log_pdf``/``cdf``,
+   ``TruncatedRV``, ``LowerBoundDecorator``, ``TabulatedRV``, the eight
+   library distances after one adaptive update from the same records,
+   ``LocalTransition.log_pdf_from_params`` given installed params, the
+   weighted statistics and ``residual_weighted_choice`` — held to
+   ``LIB_TOL_ABS + LIB_TOL_REL·|cpu|`` elementwise and ``LIB_TOL_REDUCE``
+   relative for reductions over 1e5 rows (integer results equal); then
+   1e6 draws per family from a card generator against scipy, a KS test
+   (continuous) or χ² (discrete) at p > 1e-3.  ``stats1e5`` runs the JAX
+   package's analytic suite (tests/test_statistical.py: cookie jar,
+   beta-binomial with Beta priors, continuous non-Gaussian,
+   exponential–gamma with a Gamma prior, truncated-normal prior) at pop
+   1e5 per problem through ``ABCSMC.run``'s defaults, each held to its
+   JAX test's own tolerance, with K1 in every generation t >= 1 of every
+   model that has parameters.  ``adaptivepop`` runs config #2 with
+   ``AdaptivePopulationSize(16384, mean_cv=0.01,
+   max_population_size=2**18)`` for 8 generations: each generation has
+   the size the strategy set, K1 runs 2 + sizes × alive models × 5 times
+   per generation t >= 1 (the finalize and the bootstrap refits), and
+   run_gate's tolerances hold at the last size; it reports the size and
+   the adaptation's host seconds per generation.  ``local1e4`` runs
+   ``lv1e5``'s model, priors and data with ``LocalTransition()`` at pop
+   1e4 for 8 generations, held to ``lv1e5``'s posterior and ε gates (its
+   proposal density is not K1: none launched), and reports peak memory.
+
 Every phase before these pins ``history_mode="eager"``, and every run at
 pop 1e6 among them ``ingest_mode="sequential"``, so that each measures
 the engine it did before the pipeline and the lazy rows became the
@@ -122,7 +150,9 @@ whose hydrated populations must equal the eager runs' bit for bit.
 The ``kernels`` phase runs last: its row (g) takes config #5's record
 shape [records × support] from the ``petab1e5`` run's timeline, rows (h),
 (i) and (j) the capped shapes of ``fused1e6``, ``fusedlv1e5`` and
-``pipelinedsir1e6`` (stated default shapes without those runs).
+``pipelinedsir1e6``, row (k) the largest bootstrap density of
+``adaptivepop`` and row (l) the largest finalize of ``stats1e5`` (stated
+default shapes without those runs).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -163,7 +193,8 @@ from pathlib import Path
 ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "petab1e5", "sbml1e5", "fused16384", "fused1e6", "fusedlv1e5",
               "fusedpetab1e5", "onedispatch1e6", "onedispatchpetab1e5",
-              "pipelined1e6", "pipelinedsir1e6", "kernels")
+              "pipelined1e6", "pipelinedsir1e6", "library", "stats1e5",
+              "adaptivepop", "local1e4", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat")
 TOL_ABS = 1e-4
@@ -371,6 +402,35 @@ def fused_cases(state) -> list:
     return out
 
 
+#: rows (k) and (l) without their runs: a bootstrap refit at pop 2^17
+#: (model B's share of 2^18 rows, grid-compressed) and a finalize of the
+#: analytic suite at pop 1e5 (one model, the 8192-cell grid)
+BOOT_SHAPE_DEFAULT = (104_858, 8192, 1)
+STATS_SHAPE_DEFAULT = (100_000, 8192, 1)
+
+
+def library_cases(state) -> list:
+    """Rows (k) and (l): the adaptivepop phase's largest bootstrap
+    density (its particles as queries against a refit on nn·w_m rows,
+    grid-compressed to a power of two of >= 8192 cells from 2^14 rows on)
+    and the stats1e5 phase's largest finalize (the beta-binomial runs
+    none: under its JAX test's schedule, MedianEpsilon(0.1) against
+    minimum_epsilon 0.2, it stops after generation 0), from the runs or
+    at the stated defaults."""
+    out = []
+    for label, key, default in (
+            ("k adaptivepop bootstrap", "adaptivepop_boot_shape",
+             BOOT_SHAPE_DEFAULT),
+            ("l stats1e5 finalize", "stats_finalize_shape",
+             STATS_SHAPE_DEFAULT)):
+        m, n, d = state.get(key, default)
+        source = "run" if key in state else "default"
+        grid = d == 1 and n >= 8192 and n & (n - 1) == 0
+        out.append((f"{label} ({source})", m, n, d,
+                    {"grid": True} if grid else {"uniform": True}))
+    return out
+
+
 def phase_kernels(torch, state):
     from pyabc_tpu_torch.ops import kde as kde_plain
     from pyabc_tpu_torch.ops import kde_cuda
@@ -381,7 +441,7 @@ def phase_kernels(torch, state):
     rows = []
     ok_all = True
     for label, m, n, d, kw in (KDE_CASES + [record_case(state)]
-                               + fused_cases(state)):
+                               + fused_cases(state) + library_cases(state)):
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
@@ -1066,12 +1126,13 @@ ADAPTIVE_POP = 100_000
 
 
 def adaptive_abc(name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
-                 defaults: bool = False):
+                 defaults: bool = False, transitions=None):
     """``(abc, distance, priors, truth)`` of one adaptive workload on the
     card: full-width model, ``AdaptivePNormDistance(p=2)`` with the
     median-absolute-deviation scale, ``MedianEpsilon``, batch 2^19;
     ``fuse`` K > 1 runs fused blocks.  Eager rows are pinned unless
-    ``defaults`` (the pipelinedsir1e6 phase)."""
+    ``defaults`` (the pipelinedsir1e6 phase); ``transitions`` replaces
+    the Gaussian KDE (the local1e4 phase)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch import models as pt_models
 
@@ -1083,22 +1144,26 @@ def adaptive_abc(name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
         sampler=pt.VectorizedSampler(min_batch_size=1 << 19,
                                      max_batch_size=1 << 19, device="cuda"),
         stores_sum_stats=False, fuse_generations=fuse, seed=0,
-        device="cuda", **({} if defaults else {"history_mode": "eager"}))
+        transitions=transitions, device="cuda",
+        **({} if defaults else {"history_mode": "eager"}))
     abc.new("sqlite://", observed)
     return abc, distance, priors, getattr(pt_models, truth)
 
 
 def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
-                 defaults: bool = False) -> dict:
+                 defaults: bool = False, transitions=None) -> dict:
     """One adaptive workload through ``ABCSMC.run`` on the card, with its
     per-generation timeline and the gates of the module docstring;
-    ``defaults`` runs the constructor's defaults (pipelined at pop 1e6)."""
+    ``defaults`` runs the constructor's defaults (pipelined at pop 1e6).
+    With ``transitions`` (a LocalTransition) the proposal density is not
+    K1: its launch gate becomes none launched."""
     import numpy as np
 
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
 
     gens = ADAPTIVE[name][2]
-    abc, distance, priors, truth = adaptive_abc(name, fuse, pop, defaults)
+    abc, distance, priors, truth = adaptive_abc(name, fuse, pop, defaults,
+                                                transitions)
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
     abc.run(max_nr_populations=gens)
@@ -1119,7 +1184,9 @@ def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
     checks = {
         "gens": len(rows) == gens,
         "eps": all(math.isfinite(r["eps"]) and r["eps"] > 0 for r in rows),
-        "launches": all(r["kde_launches"] >= 1 for r in rows if r["t"] >= 1),
+        "launches": (all(r["kde_launches"] >= 1 for r in rows
+                         if r["t"] >= 1) if transitions is None
+                     else launches == 0),
         "history_rows": (list(abc.history.get_all_populations().t)
                          == [-1] + [r["t"] for r in rows]),
         "mean": bool(np.all(np.abs(mean - log_truth) <= 4 * std)),
@@ -1144,7 +1211,7 @@ def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
                                  and np.all(np.isfinite(w_exit)))
     else:
         checks["weights"] = (sorted(distance.weights) == list(range(gens))
-                             and all(r["records"] >= ADAPTIVE_POP
+                             and all(r["records"] >= pop
                                      for r in rows[:-1]))
     fused = fused_report(abc, rows) if fuse > 1 else {}
     if fused:
@@ -1621,6 +1688,516 @@ def phase_repeat(torch, state):
                            for r in rows)})
 
 
+# ------------------------------------------------- the component library
+
+#: the library phase: draws per family for the goodness-of-fit tests, the
+#: p-value every family must pass, and the card-vs-CPU tolerances —
+#: elementwise functions ``LIB_TOL_ABS + LIB_TOL_REL·|cpu|``, reductions
+#: over LIB_POINTS rows ``LIB_TOL_REDUCE`` relative (float32 sums in
+#: another order)
+LIBRARY_DRAWS = 1_000_000
+LIBRARY_P_MIN = 1e-3
+LIB_TOL_ABS = 1e-5
+LIB_TOL_REL = 1e-5
+LIB_TOL_REDUCE = 1e-4
+LIB_POINTS = 100_000
+#: name, args, kwargs (RV(...) and scipy.stats alike), grid of log_pdf/cdf
+LIBRARY_FAMILIES = [
+    ("norm", (0.5, 2.0), {}, (-6.0, 7.0)),
+    ("uniform", (-1.0, 3.0), {}, (-2.0, 3.0)),
+    ("lognorm", (), {"s": 0.7, "scale": 1.5}, (-1.0, 8.0)),
+    ("expon", (0.2, 1.5), {}, (-1.0, 9.0)),
+    ("laplace", (0.3, 0.8), {}, (-4.0, 4.0)),
+    ("cauchy", (0.1, 0.5), {}, (-6.0, 6.0)),
+    ("gamma", (2.5,), {"scale": 1.3}, (-1.0, 12.0)),
+    ("beta", (2.0, 5.0), {}, (-0.2, 1.2)),
+    ("randint", (2, 9), {}, (-1.0, 12.0)),
+    ("poisson", (3.5,), {}, (0.0, 16.0)),
+    ("t", (4.0, 0.2, 1.5), {}, (-9.0, 9.0)),
+    ("chi2", (3.0,), {}, (-1.0, 14.0)),
+    ("weibull_min", (1.7, 0.0, 2.0), {}, (-1.0, 7.0)),
+    ("binom", (12, 0.3), {}, (-2.0, 15.0)),
+    ("nbinom", (5, 0.4), {}, (-2.0, 30.0)),
+]
+
+
+def _compare(card, host, atol, rtol):
+    """``(ok, max_abs_err)`` of a card result against the CPU's: equal
+    infinities and NaNs agree, anything else within ``atol + rtol·|cpu|``;
+    integer tensors must be equal."""
+    import torch
+    a, b = card.detach().cpu(), host.detach()
+    if not a.is_floating_point():
+        return bool(torch.equal(a, b)), float((a != b).sum())
+    a, b = a.double(), b.double()
+    same = (a == b) | (torch.isnan(a) & torch.isnan(b))
+    err = torch.where(same, torch.zeros_like(a), (a - b).abs())
+    bad = torch.isnan(err) | (err > atol + rtol * b.abs().nan_to_num(0.0))
+    return (not bool(bad.any())), float(err.nan_to_num(math.inf).max())
+
+
+def _goodness_of_fit(draws, frozen, discrete) -> tuple:
+    """``(test, p)``: KS for a continuous family, χ² over the support
+    (expected counts >= 5, the rest lumped) for a discrete one."""
+    import numpy as np
+    import scipy.stats as ss
+    if not discrete:
+        return "ks", float(ss.kstest(draws, frozen.cdf).pvalue)
+    ks, counts = np.unique(draws, return_counts=True)
+    expected = frozen.pmf(ks) * draws.size
+    keep = expected >= 5
+    obs, exp = counts[keep], expected[keep]
+    rest = draws.size - exp.sum()
+    if rest > 1e-6 * draws.size:
+        obs = np.append(obs, counts[~keep].sum())
+        exp = np.append(exp, rest)
+    return "chi2", float(ss.chisquare(obs, exp * obs.sum() / exp.sum()
+                                      ).pvalue)
+
+
+def phase_library(torch, state):
+    """Every deterministic function of the component library on the card
+    and on the CPU from one seeded numpy input, held to the stated
+    tolerances; then 1e6 draws per family from a card generator against
+    scipy."""
+    import numpy as np
+    import scipy.stats as ss
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch import weighted_statistics as ws
+    from pyabc_tpu_torch.convert import install_local_transition, to_torch
+    from pyabc_tpu_torch.ops.choice import residual_weighted_choice
+    from pyabc_tpu_torch.ops.quantile_sketch import sketch_error_bound
+    from pyabc_tpu_torch.sumstat import SumStatSpec
+
+    t_phase = time.perf_counter()
+    cuda, cpu = torch.device("cuda", 0), torch.device("cpu")
+    rng = np.random.default_rng(20261017)
+    checks = {}
+
+    def agree(key, fn, atol=LIB_TOL_ABS, rtol=LIB_TOL_REL):
+        card, host = fn(cuda), fn(cpu)
+        ok, err = _compare(card, host, atol, rtol)
+        checks[key] = {"ok": ok, "max_abs_err": err}
+
+    def on(arr, dev):
+        return torch.as_tensor(arr, device=dev)
+
+    def rv_cases():
+        for name, args, kwargs, (lo, hi) in LIBRARY_FAMILIES:
+            yield name, pt.RV(name, *args, **kwargs), (lo, hi), \
+                getattr(ss, name)(*args, **kwargs)
+        yield ("truncated_norm", pt.TruncatedRV(pt.RV("norm", 0.0, 1.0),
+                                                lower=0.0),
+               (-1.0, 4.0), ss.truncnorm(0.0, np.inf))
+        yield ("lower_bound_gamma",
+               pt.LowerBoundDecorator(pt.RV("gamma", 2.0), 0.5),
+               (0.0, 8.0), None)
+        yield ("tabulated_gumbel_r", pt.TabulatedRV("gumbel_r", 0.5, 1.2),
+               (-3.0, 9.0), ss.gumbel_r(0.5, 1.2))
+        yield ("tabulated_hypergeom", pt.TabulatedRV("hypergeom", 20, 7, 12),
+               (-1.0, 10.0), ss.hypergeom(20, 7, 12))
+
+    draws_out = {}
+    for i, (name, rv, (lo, hi), frozen) in enumerate(rv_cases()):
+        grid = (np.arange(lo, hi + 0.5, 0.5) if rv.discrete
+                else np.linspace(lo, hi, 4097)).astype(np.float32)
+        agree(f"{name}.log_pdf", lambda d: rv.log_pdf(on(grid, d)))
+        agree(f"{name}.cdf", lambda d: rv.cdf(on(grid, d)))
+        gen = torch.Generator(device=cuda)
+        gen.manual_seed(1000 + i)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        x = rv.sample(gen, (LIBRARY_DRAWS,))
+        torch.cuda.synchronize()
+        sample_s = time.perf_counter() - t0
+        row = {"sample_s": sample_s, "finite": bool(torch.isfinite(x).all())}
+        if frozen is not None:
+            test, pval = _goodness_of_fit(
+                x.cpu().numpy().astype(np.float64), frozen, rv.discrete)
+            row.update({"test": test, "p": pval,
+                        "ok": row["finite"] and pval > LIBRARY_P_MIN})
+        else:
+            row["ok"] = row["finite"]
+        draws_out[name] = row
+
+    # the eight distances: calibrate, one adaptive update from the same
+    # records, then a query batch under generation 1's params
+    x0 = {"a": np.array([0.5, -1.0], np.float32), "b": np.float32(2.0)}
+    calib = {"a": rng.normal(0, [1.0, 3.0], (4000, 2)).astype(np.float32),
+             "b": rng.gamma(2.0, 1.0, 4000).astype(np.float32)}
+    records = {"a": rng.normal(0.2, [0.5, 2.0], (20000, 2)).astype(
+        np.float32), "b": rng.gamma(3.0, 0.5, 20000).astype(np.float32)}
+    query = {"a": rng.normal(0, 1.5, (8192, 2)).astype(np.float32),
+             "b": rng.gamma(2.0, 1.0, 8192).astype(np.float32)}
+    distances = {
+        "AggregatedDistance": lambda: pt.AggregatedDistance(
+            [pt.PNormDistance(p=1), pt.ZScoreDistance()],
+            weights=[1.0, 0.5], factors=[2.0, 1.0]),
+        "AdaptiveAggregatedDistance": lambda: pt.AdaptiveAggregatedDistance(
+            [pt.PNormDistance(p=2), pt.MinMaxDistance(p=1)]),
+        "ZScoreDistance": pt.ZScoreDistance,
+        "PCADistance": pt.PCADistance,
+        "DistanceWithMeasureList": lambda: pt.DistanceWithMeasureList(
+            measures_to_use=["a"], p=1.5),
+        "RangeEstimatorDistance": lambda: pt.RangeEstimatorDistance(p=2),
+        "MinMaxDistance": lambda: pt.MinMaxDistance(p=2),
+        "PercentileDistance": lambda: pt.PercentileDistance(
+            measures_to_use=["b"]),
+    }
+
+    def distance_on(make, dev):
+        d = make()
+        spec = SumStatSpec.from_example(x0)
+        d.bind(spec, x0)
+        d.initialize(0, lambda: {k: on(v, dev) for k, v in calib.items()},
+                     x0, spec)
+        d.update(1, lambda: {k: on(v, dev) for k, v in records.items()})
+        stats = spec.flatten({k: on(v, dev) for k, v in query.items()})
+        return d.compute(stats, spec.flatten_single(x0, device=dev),
+                         to_torch(d.get_params(1), dev))
+
+    for name, make in distances.items():
+        agree(name, lambda dev: distance_on(make, dev))
+
+    # LocalTransition's density given installed params (a CPU fit)
+    support = rng.normal(0, 1, (4096, 4)).astype(np.float32)
+    w = rng.uniform(0.5, 1.5, 4096).astype(np.float32)
+    fit = pt.LocalTransition(device="cpu").fit(support, w)
+    local = install_local_transition(pt.LocalTransition(device="cpu"),
+                                     fit.theta, fit.w, fit._chols,
+                                     fit._log_norms)
+    queries = rng.normal(0, 1.5, (4096, 4)).astype(np.float32)
+    agree("LocalTransition.log_pdf_from_params",
+          lambda d: pt.LocalTransition.log_pdf_from_params(
+              on(queries, d), to_torch(local.get_params(), d)))
+
+    # weighted statistics and the residual choice over LIB_POINTS rows
+    px = rng.normal(1.0, 2.0, LIB_POINTS).astype(np.float32)
+    pw = rng.exponential(1.0, LIB_POINTS).astype(np.float32)
+    for fn in ("weighted_mean", "weighted_std", "weighted_var"):
+        agree(fn, lambda d: getattr(ws, fn)(on(px, d), on(pw, d))[None],
+              atol=0.0, rtol=LIB_TOL_REDUCE)
+    agree("weighted_mse", lambda d: ws.weighted_mse(
+        on(px, d), on(pw, d), 0.7)[None], atol=0.0, rtol=LIB_TOL_REDUCE)
+    agree("effective_sample_size",
+          lambda d: ws.effective_sample_size(on(pw, d))[None],
+          atol=0.0, rtol=LIB_TOL_REDUCE)
+    for alpha in (0.1, 0.5, 0.9):
+        agree(f"weighted_quantile({alpha})", lambda d: ws.weighted_quantile(
+            on(px, d), on(pw, d), alpha)[None], atol=0.0,
+            rtol=LIB_TOL_REDUCE)
+    bound = sketch_error_bound(float(px.min()), float(px.max()))
+    agree("weighted_quantile(0.5, sketch)", lambda d: ws.weighted_quantile(
+        on(px, d), on(pw, d), 0.5, method="sketch")[None], atol=bound,
+        rtol=0.0)
+    log_w = np.log(pw).astype(np.float32)
+    for n in (4096, LIB_POINTS):
+        agree(f"residual_weighted_choice({n})",
+              lambda d: residual_weighted_choice(on(log_w, d), n))
+    agree("resample_indices_deterministic(sorted)",
+          lambda d: ws.resample_indices_deterministic(
+              on(pw / pw.sum(), d), 4096, rank_cap=None))
+
+    ok = (all(c["ok"] for c in checks.values())
+          and all(r["ok"] for r in draws_out.values()))
+    emit({"phase": "library", "ok": ok,
+          "seconds": time.perf_counter() - t_phase, "tol_abs": LIB_TOL_ABS,
+          "tol_rel": LIB_TOL_REL, "tol_reduce_rel": LIB_TOL_REDUCE,
+          "draws": LIBRARY_DRAWS, "p_min": LIBRARY_P_MIN,
+          "card_vs_cpu": checks, "samples": draws_out})
+    if not ok:
+        raise RuntimeError("library: a card result or a family's draws "
+                           "failed")
+
+
+#: the analytic suite at pop 1e5 per problem
+STATS_POP = 100_000
+
+
+def stats_problems(torch):
+    """The JAX package's tests/test_statistical.py problems on the card:
+    name -> (ABCSMC kwargs, observed, run kwargs, verdict(history) ->
+    (deviation, tolerance))."""
+    import numpy as np
+    from scipy.special import binom as sp_binom, gamma as sp_gamma
+
+    import pyabc_tpu_torch as pt
+
+    def jar(theta):
+        def model(generator, th):
+            p = torch.full((th.shape[0],), 1.0 - theta, device=th.device)
+            return {"result": torch.bernoulli(p, generator=generator)}
+        return pt.SimpleModel(model, name=f"jar{theta}")
+
+    def cookie_verdict(h):
+        mp = h.get_model_probabilities(h.max_t)
+        dev = (abs(float(mp.get(0, 0.0)) - 0.25)
+               + abs(float(mp.get(1, 0.0)) - 0.75))
+        return dev, 0.05
+
+    def bb_model(generator, th):
+        p = th[:, 0:1].expand(th.shape[0], 5)
+        return {"result": torch.bernoulli(p, generator=generator).sum(1)}
+
+    def bb_verdict(h):
+        def evidence(a, b):
+            beta = lambda x, y: sp_gamma(x) * sp_gamma(y) / sp_gamma(x + y)
+            return sp_binom(5, 2) * beta(a + 2, b + 3) / beta(a, b)
+        e1, e2 = evidence(1.0, 1.0), evidence(10.0, 1.0)
+        mp = h.get_model_probabilities(h.max_t)
+        dev = (abs(float(mp.get(0, 0.0)) - e1 / (e1 + e2))
+               + abs(float(mp.get(1, 0.0)) - e2 / (e1 + e2)))
+        return dev, 0.08
+
+    def su_model(generator, th):
+        u = th[:, 0]
+        return {"result": u * torch.rand(u.shape, generator=generator,
+                                         device=u.device)}
+
+    def su_verdict(h):
+        df, w = h.get_distribution(m=0)
+        x = df["u"].to_numpy()
+        order = np.argsort(x)
+        xs = np.hstack((-200.0, x[order], 200.0))
+        cdf = np.hstack((0.0, np.cumsum(w[order]), 1.0))
+        grid = np.linspace(0.1, 1.0, 50)
+        f = np.where(grid > 0.5, (np.log(grid) - np.log(0.5))
+                     / (-np.log(0.5)), 0.0)
+        return float(np.abs(np.interp(grid, xs, cdf) - f).max()), 0.12
+
+    y = np.random.default_rng(5).exponential(1.0 / 1.6, size=8).astype(
+        np.float32)
+
+    def eg_model(generator, theta):
+        lam = torch.clamp(theta[:, :1], min=1e-6)
+        u = 1e-7 + (1.0 - 1e-7) * torch.rand(
+            theta.shape[0], 8, generator=generator, device=theta.device)
+        return {"ybar": (-torch.log(u) / lam).mean(1)}
+
+    def eg_verdict(h):
+        df, w = h.get_distribution()
+        lam = float(np.sum(df["lam"].to_numpy() * w))
+        post = (2.0 + 8) / (1.0 + float(np.sum(y)))
+        return abs(lam - post) / post, 0.2
+
+    def tn_model(generator, theta):
+        mu = theta[:, 0]
+        return {"y": mu + 0.2 * torch.randn(mu.shape, generator=generator,
+                                            device=mu.device)}
+
+    def tn_verdict(h):
+        df, w = h.get_distribution()
+        draws = df["mu"].to_numpy()
+        mean = float(np.sum(draws * w))
+        # in bounds and 0 < mean < 0.45: the deviation from the band's
+        # middle against its half-width
+        inside = bool((draws >= 0.0).all())
+        return (abs(mean - 0.225) if inside else math.inf), 0.225
+
+    return {
+        "cookie_jar": (dict(models=[jar(0.2), jar(0.6)],
+                            parameter_priors=[pt.Distribution(),
+                                              pt.Distribution()],
+                            distance_function=pt.MinMaxDistance(),
+                            eps=pt.MedianEpsilon(0.1), seed=8),
+                       {"result": 0},
+                       dict(minimum_epsilon=0.2, max_nr_populations=1),
+                       cookie_verdict),
+        "beta_binomial": (dict(models=[pt.SimpleModel(bb_model, name="m1"),
+                                       pt.SimpleModel(bb_model, name="m2")],
+                               parameter_priors=[
+                                   pt.Distribution(theta=pt.RV("beta", 1, 1)),
+                                   pt.Distribution(
+                                       theta=pt.RV("beta", 10, 1))],
+                               distance_function=pt.MinMaxDistance(),
+                               eps=pt.MedianEpsilon(0.1), seed=10),
+                          {"result": 2},
+                          dict(minimum_epsilon=0.2, max_nr_populations=3),
+                          bb_verdict),
+        "continuous_non_gaussian": (
+            dict(models=pt.SimpleModel(su_model, name="scaled_uniform"),
+                 parameter_priors=pt.Distribution(
+                     u=pt.RV("uniform", 0.0, 1.0)),
+                 distance_function=pt.MinMaxDistance(),
+                 eps=pt.MedianEpsilon(0.2), seed=12),
+            {"result": 0.5}, dict(minimum_epsilon=-1, max_nr_populations=2),
+            su_verdict),
+        "exponential_gamma": (
+            dict(models=pt.SimpleModel(eg_model),
+                 parameter_priors=pt.Distribution(
+                     lam=pt.RV("gamma", 2.0, scale=1.0)),
+                 distance_function=pt.PNormDistance(p=1), seed=17),
+            {"ybar": float(np.mean(y))},
+            dict(max_nr_populations=7, minimum_epsilon=1e-3), eg_verdict),
+        "truncated_prior": (
+            dict(models=pt.SimpleModel(tn_model),
+                 parameter_priors=pt.Distribution(
+                     mu=pt.TruncatedRV(pt.RV("norm", 0.0, 1.0), lower=0.0)),
+                 distance_function=pt.PNormDistance(p=2), seed=13),
+            {"y": 0.15}, dict(max_nr_populations=4), tn_verdict),
+    }
+
+
+def phase_stats1e5(torch, state):
+    """The analytic suite at pop 1e5 per problem through ``ABCSMC.run``'s
+    defaults on the card, each held to its JAX test's own tolerance, with
+    K1 in every generation t >= 1 of every model that has parameters."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    t_phase = time.perf_counter()
+    rows, launches_total = {}, 0
+    for name, (kw, observed, run_kw, verdict) in stats_problems(torch).items():
+        abc = pt.ABCSMC(population_size=STATS_POP, device="cuda", **kw)
+        abc.new("sqlite://", observed)
+        weighted_kde_logpdf_cuda.launches = 0
+        t0 = time.perf_counter()
+        h = abc.run(**run_kw)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = weighted_kde_logpdf_cuda.launches
+        launches_total += launches
+        dev, tol = verdict(h)
+        with_params = sum(p.dim > 0 for p in abc.parameter_priors)
+        per_gen = [r["kde_launches"] for r in abc.timeline if r["t"] >= 1]
+        checks = {"deviation": bool(dev < tol),
+                  "launches": all(k >= with_params for k in per_gen),
+                  "gens": len(abc.timeline) >= 1}
+        # each finalize: the generation's particles against each model's
+        # support rows
+        shapes = [(r["n"], sup["rows"], abc.parameter_priors[m].dim)
+                  for r in abc.timeline if r["t"] >= 1
+                  for m, sup in enumerate(r["kde_support"] or ()) if sup]
+        if shapes and max(shapes) > state.get("stats_finalize_shape", (0,)):
+            state["stats_finalize_shape"] = max(shapes)
+            state["stats_finalize_problem"] = name
+        rows[name] = {"ok": all(checks.values()), "checks": checks,
+                      "deviation": dev, "tolerance": tol, "wall_s": wall,
+                      "kde_launches": launches,
+                      "kde_launches_by_gen": per_gen,
+                      "gens_run": len(abc.timeline),
+                      "peak_mem_gb": max((r["peak_mem_gb"]
+                                          for r in abc.timeline), default=0)}
+    state.setdefault("launches", {})["stats1e5"] = launches_total
+    ok = all(r["ok"] for r in rows.values())
+    emit({"phase": "stats1e5", "ok": ok,
+          "seconds": time.perf_counter() - t_phase, "pop": STATS_POP,
+          "largest_finalize": {
+              "problem": state.get("stats_finalize_problem"),
+              "shape": state.get("stats_finalize_shape")},
+          "problems": rows})
+    if not ok:
+        raise RuntimeError("stats1e5: a problem missed its JAX tolerance "
+                           "or K1 did not run")
+
+
+#: config #2 under AdaptivePopulationSize: start, bound, generations and
+#: the target CV (at pop 16384 config #2's bootstrap CV reads ~0.02, so
+#: 0.01 asks for a larger population)
+ADAPTIVEPOP_START = 16384
+ADAPTIVEPOP_MAX = 1 << 18
+ADAPTIVEPOP_GENS = 8
+ADAPTIVEPOP_CV = 0.01
+
+
+def phase_adaptivepop(torch, state):
+    """Config #2 with ``AdaptivePopulationSize``: each generation has the
+    size the strategy set, K1 runs as often as the code gives (the
+    finalize's 2 plus sizes × alive models × n_bootstrap refits) and
+    run_gate's tolerances hold at the last generation's size."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    t_phase = time.perf_counter()
+    models, priors, distance, observed, posterior_fn = \
+        make_two_gaussians_problem()
+    strategy = pt.AdaptivePopulationSize(
+        ADAPTIVEPOP_START, mean_cv=ADAPTIVEPOP_CV,
+        max_population_size=ADAPTIVEPOP_MAX)
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=strategy,
+        eps=pt.MedianEpsilon(),
+        sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
+                                     max_rounds_per_call=16, device="cuda"),
+        stores_sum_stats=False, history_mode="eager", seed=0,
+        device="cuda")
+    abc.new("sqlite://", observed)
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    abc.run(max_nr_populations=ADAPTIVEPOP_GENS)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weighted_kde_logpdf_cuda.launches
+    updates = strategy.updates
+    rows = abc.timeline
+    by_t = {u["t"]: u for u in updates}
+    expected = {r["t"]: 2 + len(by_t[r["t"]]["sizes"])
+                * by_t[r["t"]]["alive"] * strategy.n_bootstrap
+                for r in rows if r["t"] >= 1}
+    t_last = abc.history.max_t
+    pop = rows[-1]["n"]
+    p_b = float(abc.history.get_model_probabilities(t_last).get(1, 0.0))
+    p_true = float(posterior_fn(1.0))
+    df, w = abc.history.get_distribution(m=1, t=t_last)
+    mu = float(np.sum(df["mu"].to_numpy() * w)) if len(df) else math.nan
+    tol_p = max(2.5e-3, 2.5 / pop ** 0.5)
+    tol_mu = max(3e-3, 3.0 / pop ** 0.5)
+    checks = {
+        "gens": len(rows) == ADAPTIVEPOP_GENS,
+        "sizes": (rows[0]["n"] == ADAPTIVEPOP_START
+                  and all(r["n"] == by_t[r["t"]]["after"]
+                          for r in rows if r["t"] >= 1)),
+        "size_changed": any(r["n"] != ADAPTIVEPOP_START for r in rows),
+        "launches": all(r["kde_launches"] == expected[r["t"]]
+                        for r in rows if r["t"] >= 1),
+        "gate": abs(p_b - p_true) < tol_p and abs(mu - 1.0) < tol_mu,
+    }
+    boot_shapes = [sh for u in updates for sh in u["density_shapes"]]
+    if boot_shapes:
+        state["adaptivepop_boot_shape"] = max(boot_shapes)
+    state.setdefault("launches", {})["adaptivepop"] = launches
+    ok = all(checks.values())
+    emit({"phase": "adaptivepop", "ok": ok,
+          "seconds": time.perf_counter() - t_phase, "checks": checks,
+          "mean_cv": ADAPTIVEPOP_CV, "start": ADAPTIVEPOP_START,
+          "max_population_size": ADAPTIVEPOP_MAX, "wall_s": wall,
+          "kde_launches": launches, "p_model_b": p_b, "p_analytic": p_true,
+          "tol_p": tol_p, "mu_b": mu, "tol_mu": tol_mu,
+          "bootstrap_shape_max": state.get("adaptivepop_boot_shape"),
+          "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
+          "generations": [{**generation_row(r), "n": r["n"],
+                           "adapt_s": r["adapt_s"],
+                           "kde_launches_expected": expected.get(r["t"])}
+                          for r in rows],
+          "updates": updates})
+    if not ok:
+        raise RuntimeError(f"adaptivepop failed its checks: {checks}")
+
+
+#: config #3 with the local transition
+LOCAL_POP = 10_000
+
+
+def phase_local1e4(torch, state):
+    """lv1e5's model, priors and data with ``LocalTransition()`` at pop
+    1e4: lv1e5's posterior and ε gates, its peak memory reported."""
+    import pyabc_tpu_torch as pt
+    t_phase = time.perf_counter()
+    row = run_adaptive(torch, "lv1e5", pop=LOCAL_POP,
+                       transitions=[pt.LocalTransition()])
+    row["seconds"] = time.perf_counter() - t_phase
+    state.setdefault("launches", {})["local1e4"] = row["kde_launches"]
+    row["peak_mem_gb_by_gen"] = [g["peak_mem_gb"]
+                                 for g in row["generations"]]
+    emit({"phase": "local1e4", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"local1e4 failed its checks: {row['checks']}")
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -1660,6 +2237,8 @@ PHASES = {"card": phase_card, "build": phase_build,
           "onedispatchpetab1e5": phase_onedispatchpetab1e5,
           "pipelined1e6": phase_pipelined1e6,
           "pipelinedsir1e6": phase_pipelinedsir1e6,
+          "library": phase_library, "stats1e5": phase_stats1e5,
+          "adaptivepop": phase_adaptivepop, "local1e4": phase_local1e4,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 

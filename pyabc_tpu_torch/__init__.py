@@ -7,7 +7,12 @@ distance over the record stream, or a stochastic kernel -> quantile
 epsilon or temperature -> uniform or stochastic acceptor -> sqlite
 History; models: Gaussians, Lotka-Volterra SDE, SIR tau-leap, ODEs
 through the PEtab importers of :mod:`.petab`) with the weighted-KDE
-log-density as a hand-written CUDA kernel (``csrc/kde_logpdf.cu``).
+log-density as a hand-written CUDA kernel (``csrc/kde_logpdf.cu``), and
+the component library a user configures: the prior families and their
+truncation, the population-size strategies, the local and random-walk
+transitions and the grid search over them, the aggregated, z-score, PCA
+and range distances, ``IntegratedModel`` and the host bridges of
+:mod:`.external`.
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see :mod:`.device`).  Nothing here imports JAX or the JAX package.
 """
@@ -16,10 +21,15 @@ from .acceptor import (Acceptor, ScaledPDFNorm, StochasticAcceptor,
                        UniformAcceptor, pdf_norm_from_kernel,
                        pdf_norm_max_found)
 from .device import resolve_device
-from .distance import (AdaptivePNormDistance, BinomialKernel, Distance,
-                       IndependentLaplaceKernel, IndependentNormalKernel,
-                       NegativeBinomialKernel, NormalKernel, PNormDistance,
-                       PoissonKernel, SimpleFunctionKernel, StochasticKernel)
+from .distance import (AdaptiveAggregatedDistance, AdaptivePNormDistance,
+                       AggregatedDistance, BinomialKernel, Distance,
+                       DistanceWithMeasureList, IndependentLaplaceKernel,
+                       IndependentNormalKernel, MinMaxDistance,
+                       NegativeBinomialKernel, NormalKernel, PCADistance,
+                       PercentileDistance, PNormDistance, PoissonKernel,
+                       RangeEstimatorDistance, SimpleFunctionDistance,
+                       SimpleFunctionKernel, StochasticKernel,
+                       ZScoreDistance)
 from .distance import scale
 from .distance.scale import SCALE_FUNCTIONS
 from .epsilon import (AcceptanceRateScheme, ConstantEpsilon, DalyScheme,
@@ -28,15 +38,19 @@ from .epsilon import (AcceptanceRateScheme, ConstantEpsilon, DalyScheme,
                       ListEpsilon, ListTemperature, MedianEpsilon,
                       PolynomialDecayFixedIterScheme, QuantileEpsilon,
                       Temperature, TemperatureBase, TemperatureScheme)
-from .model import Model, SimpleModel
+from .model import IntegratedModel, Model, ModelResult, SimpleModel
 from .parameters import Parameter, ParameterSpace
 from .population import Population
-from .populationstrategy import ConstantPopulationSize
-from .random_variables import RV, Distribution, ModelPerturbationKernel
+from .populationstrategy import (AdaptivePopulationSize,
+                                 ConstantPopulationSize, ListPopulationSize)
+from .random_variables import (RV, Distribution, LowerBoundDecorator,
+                               ModelPerturbationKernel, RVBase, RVDecorator,
+                               ScipyRV, TabulatedRV, TruncatedRV)
 from .sampler import VectorizedSampler
 from .smc import ABCSMC
 from .storage import History
-from .transition import MultivariateNormalTransition
+from .transition import (DiscreteRandomWalkTransition, GridSearchCV,
+                         LocalTransition, MultivariateNormalTransition)
 
 __all__ = [
     "ABCSMC", "Acceptor", "UniformAcceptor", "Distance", "PNormDistance",
@@ -54,4 +68,12 @@ __all__ = [
     "TemperatureScheme", "AcceptanceRateScheme", "ExpDecayFixedIterScheme",
     "ExpDecayFixedRatioScheme", "PolynomialDecayFixedIterScheme",
     "DalyScheme", "FrielPettittScheme", "EssScheme",
+    "RVBase", "RVDecorator", "TruncatedRV", "LowerBoundDecorator",
+    "ScipyRV", "TabulatedRV", "ListPopulationSize",
+    "AdaptivePopulationSize", "LocalTransition",
+    "DiscreteRandomWalkTransition", "GridSearchCV", "AggregatedDistance",
+    "AdaptiveAggregatedDistance", "ZScoreDistance", "PCADistance",
+    "DistanceWithMeasureList", "RangeEstimatorDistance", "MinMaxDistance",
+    "PercentileDistance", "SimpleFunctionDistance", "IntegratedModel",
+    "ModelResult",
 ]

@@ -21,8 +21,11 @@ a port ``Temperature`` and ``StochasticAcceptor``.  ``carry_to_torch``,
 ``carry_to_numpy`` and ``install_block_state`` move a fused block's carry
 between the packages and put in the block state (ε/T, rate, safety,
 distance weights, record ring), so that one generation of both can start
-from an identical carry.  Loading a database written by ``pyabc_tpu``
-needs its PTW1 blob codec and comes later.
+from an identical carry.  ``install_local_transition`` puts a fitted
+``LocalTransition``'s state (support, weights, Cholesky factors and log
+norms, e.g. from the JAX package's fit) into a port ``LocalTransition``;
+``install_population_size`` sets an ``AdaptivePopulationSize``'s current
+size.
 """
 
 from __future__ import annotations
@@ -65,12 +68,40 @@ def to_numpy(tree):
     return np.asarray(tree)
 
 
-def install_weights(distance, weights: dict):
+def install_weights(distance, weights: dict, sub_weights=None):
     """Replace ``distance.weights`` with ``{int(t): float32 w}`` copied
-    from ``weights``; returns the distance."""
+    from ``weights`` — for an (adaptive) aggregated distance its
+    sub-distance weights — and, given ``sub_weights`` (one schedule or
+    None per sub-distance of an aggregated distance), each sub-distance's
+    own; returns the distance."""
     distance.weights = {int(t): np.array(to_numpy(w), dtype=np.float32)
                         for t, w in weights.items()}
+    for sub, sched in zip(getattr(distance, "distances", ()),
+                          sub_weights or ()):
+        if sched is not None:
+            install_weights(sub, sched)
     return distance
+
+
+def install_local_transition(transition, support, w, chols, log_norms):
+    """Put a fitted state into a port ``LocalTransition``: the support
+    ``[N, D]``, its normalized weights ``[N]``, the per-particle Cholesky
+    factors ``[N, D, D]`` and log norms ``[N]`` (host arrays or tensors,
+    e.g. a JAX fit's ``theta``, ``w``, ``_chols``, ``_log_norms``).
+    Returns the transition."""
+    transition.theta = np.array(to_numpy(support), dtype=np.float32)
+    transition.w = np.array(to_numpy(w), dtype=np.float32)
+    transition._chols = np.array(to_numpy(chols), dtype=np.float32)
+    transition._log_norms = np.array(to_numpy(log_norms), dtype=np.float32)
+    transition._fitted = True
+    return transition
+
+
+def install_population_size(strategy, nr_particles: int):
+    """Set a population strategy's current size (an
+    ``AdaptivePopulationSize`` resumes from it); returns the strategy."""
+    strategy.nr_particles = int(nr_particles)
+    return strategy
 
 
 def carry_to_torch(carry_np: dict, device) -> dict:

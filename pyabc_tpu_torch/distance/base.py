@@ -82,3 +82,26 @@ class Distance:
     def to_json(self) -> str:
         import json
         return json.dumps(self.get_config())
+
+
+class SimpleFunctionDistance(Distance):
+    """A user function ``fn(x_dict, x0_dict) -> [N]`` over tensors (the
+    flat block unflattened by key)."""
+
+    def __init__(self, fn: Callable):
+        super().__init__()
+        self.fn = fn
+
+    def compute(self, stats, obs, params):
+        return self.fn(self.spec.unflatten(stats), self.spec.unflatten(obs))
+
+    def get_config(self):
+        return {"name": getattr(self.fn, "__name__", type(self).__name__)}
+
+
+def to_distance(maybe_distance) -> Distance:
+    """A :class:`Distance` as is; a callable wrapped as
+    :class:`SimpleFunctionDistance`."""
+    if isinstance(maybe_distance, Distance):
+        return maybe_distance
+    return SimpleFunctionDistance(maybe_distance)

@@ -1,21 +1,25 @@
-"""Concrete distances: port of ``PNormDistance`` and
-``AdaptivePNormDistance`` from ``pyabc_tpu/distance/distance.py`` (the
-aggregated, z-score, PCA, range, min-max and percentile distances are
-not ported yet).
+"""Concrete distances: port of ``pyabc_tpu/distance/distance.py`` —
+``PNormDistance``, ``AdaptivePNormDistance``, ``AggregatedDistance``,
+``AdaptiveAggregatedDistance``, ``ZScoreDistance``, ``PCADistance``,
+``DistanceWithMeasureList``, ``RangeEstimatorDistance``,
+``MinMaxDistance`` and ``PercentileDistance``.
 
-The adaptive weights are host numpy ``{t: w[S]}``, as in the JAX
-package; the scale refit behind them runs on the record block's device.
+Weights, ranges and whitening matrices are host numpy state, as in the
+JAX package (the range and PCA calibrations run on the host there too);
+the adaptive refits over the record stream run on the record block's
+device.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Mapping, Optional, Union
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Union
 
 import numpy as np
 import torch
 
-from .base import Distance
-from .scale import SCALE_FUNCTIONS, median_absolute_deviation
+from ..convert import to_torch
+from .base import Distance, to_distance
+from .scale import SCALE_FUNCTIONS, median_absolute_deviation, span
 
 
 class PNormDistance(Distance):
@@ -173,3 +177,234 @@ class AdaptivePNormDistance(PNormDistance):
                                       "custom"),
             "max_weight_ratio": self.max_weight_ratio,
         }
+
+
+class AggregatedDistance(Distance):
+    """Weighted sum of sub-distances: ``d = Σ_j f_j · w_j · d_j(x, x0)``."""
+
+    def __init__(self, distances: Sequence, weights=None, factors=None):
+        super().__init__()
+        self.distances: List[Distance] = [to_distance(d) for d in distances]
+        self.weights: Dict[int, np.ndarray] = {}
+        if weights is not None:
+            self.weights[0] = np.asarray(weights, dtype=np.float32)
+        self.factors = (np.asarray(factors, dtype=np.float32)
+                        if factors is not None
+                        else np.ones(len(self.distances), dtype=np.float32))
+
+    def bind(self, spec, x_0=None):
+        super().bind(spec, x_0)
+        for d in self.distances:
+            d.bind(spec, x_0)
+
+    def initialize(self, t, get_sample_stats, x_0, spec):
+        super().initialize(t, get_sample_stats, x_0, spec)
+        for d in self.distances:
+            d.initialize(t, get_sample_stats, x_0, spec)
+
+    def configure_sampler(self, sampler):
+        super().configure_sampler(sampler)
+        for d in self.distances:
+            d.configure_sampler(sampler)
+
+    def params_time_invariant(self) -> bool:
+        return (all(d.params_time_invariant() for d in self.distances)
+                and len(self.weights) <= 1
+                and Distance.params_time_invariant(self))
+
+    def update(self, t, get_all_stats=None) -> bool:
+        changed = False
+        for d in self.distances:
+            changed |= d.update(t, get_all_stats)
+        return changed
+
+    def _weights_for(self, t: int) -> np.ndarray:
+        if not self.weights:
+            return np.ones(len(self.distances), dtype=np.float32)
+        ts = [tt for tt in self.weights if tt <= t]
+        return self.weights[max(ts) if ts else min(self.weights)]
+
+    def get_params(self, t: int) -> dict:
+        return {"w": (self._weights_for(t) * self.factors).astype(np.float32),
+                "sub": tuple(d.get_params(t) for d in self.distances)}
+
+    def compute(self, stats, obs, params):
+        vals = torch.stack([d.compute(stats, obs, p) for d, p
+                            in zip(self.distances, params["sub"])], dim=-1)
+        return torch.sum(vals * params["w"], dim=-1)
+
+    def get_config(self):
+        return {"name": type(self).__name__,
+                "distances": [d.get_config() for d in self.distances]}
+
+
+class AdaptiveAggregatedDistance(AggregatedDistance):
+    """Aggregated distance whose sub-distance weights are refit every
+    generation as ``1 / scale`` of the sub-distances' values over the
+    record stream (rejected candidates included, as
+    :class:`AdaptivePNormDistance` takes them), on the records' device."""
+
+    requires_all_sum_stats = True
+
+    def __init__(self, distances, scale_function: Optional[Callable] = None,
+                 adaptive: bool = True):
+        super().__init__(distances)
+        self.scale_function = scale_function or span
+        self.adaptive = adaptive
+        self._x0_flat: Optional[torch.Tensor] = None
+
+    def _on_bind(self, x_0):
+        if x_0 is not None:
+            self._x0_flat = self.spec.flatten_single(x_0)
+
+    def initialize(self, t, get_sample_stats, x_0, spec):
+        super().initialize(t, get_sample_stats, x_0, spec)
+        if get_sample_stats is not None:
+            self._fit(t, spec.flatten(get_sample_stats()))
+
+    def update(self, t, get_all_stats=None) -> bool:
+        changed = super().update(t, get_all_stats)
+        if self.adaptive and get_all_stats is not None:
+            self._fit(t, self.spec.flatten(get_all_stats()))
+            changed = True
+        return changed
+
+    def params_time_invariant(self) -> bool:
+        return (not self.adaptive) and super().params_time_invariant()
+
+    def _fit(self, t: int, data: torch.Tensor):
+        obs = self._x0_flat.to(data.device)
+        vals = torch.stack(
+            [d.compute(data, obs, to_torch(d.get_params(t), data.device))
+             for d in self.distances], dim=-1)  # [N, n_dist]
+        scale = self.scale_function(vals, None).detach().cpu().numpy()
+        with np.errstate(divide="ignore"):
+            w = np.where(scale > 0, 1.0 / np.maximum(scale, 1e-30), 1.0)
+        self.weights[t] = w.astype(np.float32)
+
+
+class ZScoreDistance(Distance):
+    """Relative error: Σ |(x − x0) / x0| (a zero x0 component counts 0
+    where x matches it and inf elsewhere)."""
+
+    def compute(self, stats, obs, params):
+        nz = obs.abs() > 0
+        denom = torch.where(nz, obs.abs(), torch.ones_like(obs))
+        rel = torch.where(nz, ((stats - obs) / denom).abs(),
+                          torch.where(stats.abs() > 0,
+                                      torch.full_like(stats, float("inf")),
+                                      torch.zeros_like(stats)))
+        return rel.sum(dim=-1)
+
+
+class PCADistance(Distance):
+    """Whitened euclidean distance ``||W (x − x0)||₂`` with ``W = Λ^(-1/2)
+    Vᵀ`` from the calibration sample's covariance (host numpy)."""
+
+    def __init__(self):
+        super().__init__()
+        self._trafo: Optional[np.ndarray] = None
+
+    def _on_bind(self, x_0):
+        # neutral whitening until the calibration sample arrives
+        self._trafo = np.eye(self.spec.total_size, dtype=np.float32)
+
+    def initialize(self, t, get_sample_stats, x_0, spec):
+        super().initialize(t, get_sample_stats, x_0, spec)
+        if get_sample_stats is None:
+            return
+        data = spec.flatten(get_sample_stats()).detach().cpu().numpy()
+        cov = np.cov(data, rowvar=False)
+        cov = np.atleast_2d(cov) + 1e-8 * np.eye(data.shape[1])
+        evals, evecs = np.linalg.eigh(cov)
+        evals = np.maximum(evals, 1e-12)
+        self._trafo = (evecs / np.sqrt(evals)).T.astype(np.float32)
+
+    def get_params(self, t):
+        return {"W": self._trafo}
+
+    def compute(self, stats, obs, params):
+        z = (stats - obs) @ params["W"].T
+        return torch.sqrt((z * z).sum(dim=-1))
+
+
+class DistanceWithMeasureList(PNormDistance):
+    """p-norm over a subset of the summary statistics:
+    ``measures_to_use`` is "all" or a list of keys; the other keys get
+    weight 0."""
+
+    def __init__(self, measures_to_use="all", p: float = 2.0):
+        super().__init__(p=p)
+        self.measures_to_use = measures_to_use
+
+    def _measure_mask(self) -> np.ndarray:
+        if self.measures_to_use == "all":
+            return np.ones(self.spec.total_size, dtype=np.float32)
+        return self.spec.expand_key_values(
+            {k: 1.0 for k in self.measures_to_use}, default=0.0)
+
+    def get_params(self, t):
+        params = super().get_params(t)
+        params["w"] = params["w"] * self._measure_mask()
+        return params
+
+    def get_config(self):
+        cfg = super().get_config()
+        cfg["measures_to_use"] = (self.measures_to_use
+                                  if self.measures_to_use == "all"
+                                  else list(self.measures_to_use))
+        return cfg
+
+
+class RangeEstimatorDistance(DistanceWithMeasureList):
+    """p-norm normalized by a per-component range calibrated on the
+    calibration sample (host numpy): the range's inverse is the p-norm
+    weight vector.  Subclasses define ``lower`` / ``upper``."""
+
+    def __init__(self, measures_to_use="all", p: float = 2.0):
+        super().__init__(measures_to_use=measures_to_use, p=p)
+        self._inv_range: Optional[np.ndarray] = None
+
+    @staticmethod
+    def lower(data: np.ndarray) -> np.ndarray:
+        return np.min(data, axis=0)
+
+    @staticmethod
+    def upper(data: np.ndarray) -> np.ndarray:
+        return np.max(data, axis=0)
+
+    def _on_bind(self, x_0):
+        super()._on_bind(x_0)
+        self._inv_range = np.ones(self.spec.total_size, dtype=np.float32)
+
+    def initialize(self, t, get_sample_stats, x_0, spec):
+        super().initialize(t, get_sample_stats, x_0, spec)
+        if get_sample_stats is None:
+            return
+        data = spec.flatten(get_sample_stats()).detach().cpu().numpy()
+        rng = self.upper(data) - self.lower(data)
+        with np.errstate(divide="ignore"):
+            self._inv_range = np.where(rng > 0, 1.0 / np.maximum(rng, 1e-30),
+                                       0.0).astype(np.float32)
+
+    def get_params(self, t):
+        return {"w": (self._inv_range * self._measure_mask()).astype(
+            np.float32)}
+
+
+class MinMaxDistance(RangeEstimatorDistance):
+    """Range = max − min."""
+
+
+class PercentileDistance(RangeEstimatorDistance):
+    """Range between the 10th and 90th percentiles."""
+
+    PERCENTILE = 10
+
+    @classmethod
+    def lower(cls, data):
+        return np.percentile(data, cls.PERCENTILE, axis=0)
+
+    @classmethod
+    def upper(cls, data):
+        return np.percentile(data, 100 - cls.PERCENTILE, axis=0)

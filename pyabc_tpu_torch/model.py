@@ -1,6 +1,7 @@
 """Models: batched stochastic forward simulators.
 
-Port of ``Model`` and ``SimpleModel`` from ``pyabc_tpu/model.py``.  A
+Port of ``Model``, ``SimpleModel``, ``ModelResult`` and
+``IntegratedModel`` from ``pyabc_tpu/model.py``.  A
 model is a batched function
 
     sample_fn(generator, theta[N, D]) -> {stat_name: tensor[N, ...]}
@@ -11,9 +12,23 @@ run's ``torch.Generator`` and ``theta`` lies on its device.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Dict, Mapping, Optional
 
 import torch
+
+
+class ModelResult:
+    """What a model hands the round: summary statistics and, for an
+    :class:`IntegratedModel`, the candidates it rejected early."""
+
+    def __init__(self, sum_stats=None, distance=None, accepted=None,
+                 weight=None, early_reject=None):
+        self.sum_stats = sum_stats
+        self.distance = distance
+        self.accepted = accepted
+        self.weight = weight
+        self.early_reject = early_reject
 
 
 class Model:
@@ -56,3 +71,19 @@ class SimpleModel(Model):
         if isinstance(maybe_model, Model):
             return maybe_model
         return SimpleModel(maybe_model)
+
+
+class IntegratedModel(Model):
+    """Simulation fused with an early reject: the round passes its
+    epsilon (``eps``: a 0-d tensor, or inf at calibration and for a plain
+    ``simulate``), and the model returns a :class:`ModelResult` whose
+    ``early_reject[N]`` (bool, or None) marks candidates that cannot be
+    accepted; the round does not accept them whatever their distance."""
+
+    def integrated_simulate(self, generator: torch.Generator,
+                            theta: torch.Tensor, eps) -> ModelResult:
+        raise NotImplementedError
+
+    def simulate(self, generator, theta):
+        return self.integrated_simulate(generator, theta,
+                                        math.inf).sum_stats

@@ -11,6 +11,13 @@ from ..model import SimpleModel
 from ..random_variables import RV, Distribution
 
 
+def gaussian_model(generator, theta):
+    """y ~ N(mu, 1); ``theta[:, 0]`` = mu."""
+    mu = theta[:, 0]
+    return {"y": mu + torch.randn(mu.shape, generator=generator,
+                                  device=mu.device)}
+
+
 class GaussianModel(SimpleModel):
     def __init__(self, sigma: float = 1.0, name: str = "gaussian"):
         self.sigma = float(sigma)

@@ -1,7 +1,7 @@
 """Weighted index sampling by inverse CDF.
 
-Port of ``fast_weighted_choice`` and ``systematic_weighted_choice`` from
-``pyabc_tpu/ops/choice.py``.  The JAX package inverts the CDF with a
+Port of ``fast_weighted_choice``, ``systematic_weighted_choice`` and
+``residual_weighted_choice`` from ``pyabc_tpu/ops/choice.py``.  The JAX package inverts the CDF with a
 two-level blocked count (a TPU-shaped way around ``searchsorted``'s
 serial gathers); here the inversion is ``torch.searchsorted(cdf, u,
 right=True)`` — the same index (the first i with ``cdf[i] > u``) — and
@@ -94,3 +94,20 @@ def systematic_weighted_choice(generator: Optional[torch.Generator],
     u = (u0 + torch.arange(n, dtype=cdf.dtype, device=log_w.device)) \
         / n * cdf[-1]
     return invert_cdf(cdf, cap_draws(cdf, u))
+
+
+def residual_weighted_choice(log_w: torch.Tensor, n: int,
+                             rank_cap: Optional[int] = None
+                             ) -> torch.Tensor:
+    """Deterministic residual resampling: ``n`` indices ∝ ``exp(log_w)``
+    with no sampling noise — ⌊n·w⌋ copies each, the remaining slots to
+    the largest remainders (exact stable ranking up to ``rank_cap``
+    support points, default ``weighted_statistics.RESIDUAL_RANK_CAP``,
+    the sort-free top-k sketch above).  The copies are expanded by an
+    integer prefix sum, which repeats exactly on the card."""
+    from ..weighted_statistics import (RESIDUAL_RANK_CAP,
+                                       resample_indices_deterministic)
+    if rank_cap is None:
+        rank_cap = RESIDUAL_RANK_CAP
+    return resample_indices_deterministic(torch.softmax(log_w, dim=0), n,
+                                          rank_cap=rank_cap)

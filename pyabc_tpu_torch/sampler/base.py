@@ -100,14 +100,17 @@ def fetch_to_host(tree, ready: Optional["torch.cuda.Event"] = None):
     copy ran, and synchronize that stream — ``d2h_s``.  A worker thread
     copying this way overlaps the caller's next kernels on the default
     stream instead of queueing behind them.  On the CPU the arrays are
-    copied (the caller may reuse the tensors)."""
+    copied (the caller may reuse the tensors) and no ``compute_s`` is
+    booked: the producer already ran, so there is no wait to charge, and
+    the autotuner, which reads the overlap ratio only when ``compute_s``
+    > 0, sizes a CPU run's batches independently of thread timing."""
     cuda = [t for t in _tensors(tree, []) if t.is_cuda]
-    t0 = time.perf_counter()
     if cuda:
+        t0 = time.perf_counter()
         if ready is None:
             ready = mark_ready(tree)
         ready.synchronize()
-    transfer.record_compute(time.perf_counter() - t0)
+        transfer.record_compute(time.perf_counter() - t0)
     with transfer.timed_d2h() as timer:
         if cuda:
             stream = _copy_stream(cuda[0].device)

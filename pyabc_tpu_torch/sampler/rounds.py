@@ -3,8 +3,10 @@
 Port of ``RoundKernel`` from ``pyabc_tpu/sampler/rounds.py`` (the prior
 round, the generation round and the proposal density; the staged
 multi-fidelity round comes later).  One round proposes B candidates,
-simulates every model on the whole batch and selects by model index,
-computes distances, accepts, and forms the log importance weight
+simulates every model on the whole batch and selects by model index
+(an ``IntegratedModel`` gets the round's epsilon and may reject
+candidates early), computes distances, accepts, and forms the log
+importance weight
 
     log prior + log acceptance weight − log proposal density
 
@@ -29,7 +31,7 @@ import torch
 
 from ..acceptor import Acceptor
 from ..distance.base import Distance
-from ..model import Model
+from ..model import IntegratedModel, Model
 from ..ops.choice import fast_weighted_choice
 from ..random_variables import Distribution, ModelPerturbationKernel
 from ..sumstat import SumStatSpec
@@ -75,27 +77,41 @@ class RoundKernel:
     # ---- shared helpers --------------------------------------------------
 
     def _simulate_all(self, generator, theta: torch.Tensor,
-                      m: torch.Tensor) -> torch.Tensor:
+                      m: torch.Tensor, eps):
         """Simulate every model on the full batch, select by model index
-        (flops are spent on masked lanes — the fixed-shape trade)."""
-        stats = torch.zeros(theta.shape[0], self.spec.total_size,
+        (flops are spent on masked lanes — the fixed-shape trade):
+        ``(stats, early_reject)``.  An :class:`~..model.IntegratedModel`
+        gets the round's epsilon and may mark candidates it rejected
+        early."""
+        B = theta.shape[0]
+        stats = torch.zeros(B, self.spec.total_size,
                             dtype=torch.float32, device=theta.device)
+        early = torch.zeros(B, dtype=torch.bool, device=theta.device)
         for j, model in enumerate(self.models):
-            s_j = self.spec.flatten(
-                model.simulate(generator, theta[:, :self.priors[j].dim]))
-            stats = torch.where((m == j)[:, None], s_j, stats)
-        return stats
+            theta_j = theta[:, :self.priors[j].dim]
+            sel = m == j
+            if isinstance(model, IntegratedModel):
+                res = model.integrated_simulate(generator, theta_j, eps)
+                s_j = self.spec.flatten(res.sum_stats)
+                if res.early_reject is not None:
+                    early = torch.where(sel, res.early_reject, early)
+            else:
+                s_j = self.spec.flatten(model.simulate(generator, theta_j))
+            stats = torch.where(sel[:, None], s_j, stats)
+        return stats, early
 
     def _evaluate(self, generator, theta, m, params, all_accepted=False):
         """Simulate + distance + accept: ``(stats, distance, accepted,
         log_acc_term)``.  Calibration (``all_accepted``) accepts every
-        finite distance."""
-        stats = self._simulate_all(generator, theta, m)
+        finite distance; otherwise an early-rejected candidate is not
+        accepted."""
+        eps = params.get("acceptor", {}).get("eps", math.inf)
+        stats, early = self._simulate_all(generator, theta, m, eps)
         d = self.distance.compute(stats, self.obs_flat, params["distance"])
         if all_accepted:
             return stats, d, torch.isfinite(d), torch.zeros_like(d)
         acc, acc_w = self.acceptor.accept(generator, d, params["acceptor"])
-        accepted = acc & torch.isfinite(d)
+        accepted = acc & ~early & torch.isfinite(d)
         return stats, d, accepted, torch.log(torch.clamp(acc_w, min=1e-38))
 
     def _log_prior(self, m: torch.Tensor, theta: torch.Tensor

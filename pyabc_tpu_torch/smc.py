@@ -113,6 +113,12 @@ from .wire.ingest import (SCALAR_KEYS, GenStream, batch_to_population,
 
 logger = logging.getLogger("ABC")
 
+#: what a population-size adaptation may fail with and still leave the
+#: run going (the size is kept); anything else, a device fault included,
+#: propagates
+_ADAPTATION_FAILURES = (ValueError, ArithmeticError, np.linalg.LinAlgError,
+                        torch.linalg.LinAlgError)
+
 STOP_EPS = "Stopping: minimum epsilon reached"
 STOP_SINGLE_MODEL = "Stopping: single model alive"
 STOP_ACC_RATE = "Stopping: acceptance rate too low"
@@ -201,6 +207,11 @@ class ABCSMC:
         if isinstance(population_size, int):
             population_size = ConstantPopulationSize(population_size)
         self.population_strategy = population_size
+        # components that compute on a device of their own (the adaptive
+        # size's bootstrap, LocalTransition's fit) default to the run's
+        for comp in [population_size, *self.transitions]:
+            if getattr(comp, "device", False) is None:
+                comp.device = self.device
         self.eps = eps if eps is not None else MedianEpsilon()
         self.acceptor = acceptor if acceptor is not None else UniformAcceptor()
         self.stop_if_only_single_model_alive = stop_if_only_single_model_alive
@@ -283,7 +294,9 @@ class ABCSMC:
         #: record_batches (sampler calls that kept records: each
         #: evaluates the proposal density over its records when a
         #: temperature reads them), refit_s (seconds of the distance fit
-        #: whose params the generation used), peak_mem_gb (peak device
+        #: whose params the generation used), adapt_s (sequential rows:
+        #: host seconds of the population-size adaptation that sized the
+        #: generation), peak_mem_gb (peak device
         #: memory allocated in the generation — in a fused block, in the
         #: block; in the pipelined engine, since the previous harvest — on
         #: the card; None on the CPU); fused, pipelined and one-dispatch
@@ -297,6 +310,8 @@ class ABCSMC:
         #: ones included), host_reads, kde_launches, wall_s, stop
         self.blocks: List[dict] = []
         self._refit_s = 0.0
+        #: host seconds of the last population-size adaptation
+        self._adapt_s = 0.0
         self.stop_reason: Optional[str] = None
 
         self.history: Optional[History] = None
@@ -451,6 +466,28 @@ class ABCSMC:
             params.append(self.transitions[m].pad_params(
                 self.transitions[m].get_params(), bucket))
         self._trans_params = tuple(params)
+
+    def _adapt_population_size(self, t: int):
+        """Let the population strategy see the transitions fitted for
+        generation ``t`` and the model probabilities of ``t - 1``.  A
+        numerical failure of the adaptation (a power law that cannot be
+        fitted, a singular covariance) is logged and the size kept; a
+        fault of the device or of the KDE kernel (a ``RuntimeError``)
+        propagates, so that no launch failure passes as a kept size."""
+        self._adapt_s = 0.0
+        if t == 0:
+            return
+        mark = time.perf_counter()
+        probs = self._model_probabilities(t - 1)
+        alive = [m for m in range(self.M) if probs[m] > 0]
+        try:
+            self.population_strategy.update(
+                [self.transitions[m] for m in alive],
+                np.asarray([probs[m] for m in alive]), t=t)
+        except _ADAPTATION_FAILURES as e:
+            logger.warning("population size adaptation failed: %s", e,
+                           exc_info=True)
+        self._adapt_s = time.perf_counter() - mark
 
     def _model_probabilities(self, t: int) -> np.ndarray:
         probs = np.zeros(self.M)
@@ -1554,6 +1591,7 @@ class ABCSMC:
 
         t0 = self.history.max_t + 1
         self._fit_transitions(t0)
+        self._adapt_population_size(t0)
         if t0 == 0:
             self._calibrate(t0)
         else:
@@ -1709,6 +1747,7 @@ class ABCSMC:
                 "records": sample.n_recorded,
                 "record_batches": sample.n_record_batches,
                 "refit_s": self._refit_s,
+                "adapt_s": self._adapt_s,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
                                 / 1e9 if on_card else None)}, tr_t)
             # the sampler observed its rate per call; the ledger's
@@ -1763,6 +1802,7 @@ class ABCSMC:
         from the accepted stats still on the device — before the acceptor
         and epsilon see them."""
         self._fit_transitions(t, population=population)
+        self._adapt_population_size(t)
 
         def get_all_stats():
             flat = sample.get_all_stats()

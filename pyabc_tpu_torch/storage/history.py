@@ -3,9 +3,11 @@
 Port of ``pyabc_tpu/storage/history.py``: stdlib sqlite3 with one row
 per (run, generation, model) holding that model's particles as array
 blobs — one INSERT per model per generation at any population size.
-Blobs are plain ``.npy`` (``allow_pickle=False``); reading a database
-written by ``pyabc_tpu`` (its PTW1 blob codec) comes later.  ``db`` may
-be a path, ``"sqlite:///path"`` or ``"sqlite://"`` (in memory).
+Blobs are written as plain ``.npy`` (``allow_pickle=False``) and read
+as either that or the JAX package's PTW1 codec (``wire.transfer.
+decode_array``), so a database that ``pyabc_tpu`` wrote loads here.
+``db`` may be a path, ``"sqlite:///path"`` or ``"sqlite://"`` (in
+memory).
 
 Lazy rows (``ABCSMC(history_mode="lazy")``): the orchestrator attaches a
 :class:`~pyabc_tpu_torch.wire.store.DeviceRunStore` and appends each
@@ -32,6 +34,7 @@ import numpy as np
 import pandas as pd
 
 from ..population import Population
+from ..wire import transfer
 from .bytes_storage import from_bytes, to_bytes
 
 PRE_TIME = -1  # calibration-sample time index
@@ -90,6 +93,9 @@ def _pack(arr: np.ndarray) -> bytes:
 
 
 def _unpack(blob: bytes) -> np.ndarray:
+    """Blob -> array: a PTW1 blob (the JAX package's default) or ``.npy``."""
+    if transfer.is_ptw1(blob):
+        return transfer.decode_array(blob)
     return np.load(io.BytesIO(blob), allow_pickle=False)
 
 

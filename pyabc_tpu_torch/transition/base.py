@@ -5,6 +5,12 @@ Port of ``pyabc_tpu/transition/base.py``.  ``fit`` runs once per
 in the JAX package — and exposes the fitted state as a params dict that
 the static kernels ``rvs_from_params`` / ``log_pdf_from_params`` consume
 on the run's device.
+
+The bootstrap estimate of the fitted density's uncertainty,
+:meth:`Transition.mean_cv` and :meth:`Transition.required_nr_samples`,
+draws the bootstrap indices from a ``torch.Generator`` on its device,
+refits on the host and evaluates each refit's density at the test points
+on that device (for the Gaussian KDE: the KDE kernel).
 """
 
 from __future__ import annotations
@@ -14,13 +20,18 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..convert import to_torch
+from ..device import device_of, resolve_device
+from ..ops.choice import fast_weighted_choice
+
 
 class Transition:
     """Abstract perturbation kernel over parameter space."""
 
     #: keys passed through :meth:`pad_params` unchanged (shared state)
     NO_PAD_KEYS: tuple = ()
-    #: fill value of padded support rows per key; other keys zero-pad
+    #: fill value of padded support rows per key ("eye" fills a ``[*, D,
+    #: D]`` stack with identity matrices); other keys zero-pad
     PAD_FILL: dict = {"log_w": -1e30}  # padded rows carry ~zero weight
     #: whether the fused engine may refit this transition inside a block
     #: (``ABCSMC._device_chain_eligible``); concrete classes opt in
@@ -65,7 +76,10 @@ class Transition:
                 continue
             fill = self.PAD_FILL.get(k)
             pad_rows = (n_pad - n,) + v.shape[1:]
-            if fill is not None:
+            if isinstance(fill, str) and fill == "eye":
+                out[k] = np.concatenate([v, np.broadcast_to(
+                    np.eye(v.shape[-1], dtype=v.dtype), pad_rows)])
+            elif fill is not None:
                 out[k] = np.concatenate(
                     [v, np.full(pad_rows, fill, dtype=v.dtype)])
             else:
@@ -84,3 +98,102 @@ class Transition:
     def static_fns(self):
         """(rvs_from_params, log_pdf_from_params) of this transition."""
         return (type(self).rvs_from_params, type(self).log_pdf_from_params)
+
+    # ---- eager convenience ---------------------------------------------
+
+    def _check_fitted(self):
+        if not self._fitted:
+            raise NotFittedError(type(self).__name__)
+
+    def _as_device_tensor(self, x) -> torch.Tensor:
+        """``x`` as float32 on its own device (a tensor) or on the
+        transition's ``device`` attribute (the card by default)."""
+        if torch.is_tensor(x):
+            return x.to(torch.float32)
+        dev = resolve_device(getattr(self, "device", None))
+        return torch.as_tensor(np.asarray(x, dtype=np.float32), device=dev)
+
+    def rvs(self, generator: torch.Generator, size: Optional[int] = None
+            ) -> torch.Tensor:
+        self._check_fitted()
+        n = 1 if size is None else int(size)
+        dev = device_of(generator)
+        if self.theta.shape[-1] == 0:
+            out = torch.zeros(n, 0, device=dev)
+        else:
+            out = self.rvs_from_params(
+                generator, to_torch(self.get_params(), dev), n)
+        return out[0] if size is None else out
+
+    def log_pdf(self, x) -> torch.Tensor:
+        self._check_fitted()
+        x = self._as_device_tensor(x)
+        single = x.ndim == 1
+        x2 = torch.atleast_2d(x)
+        if self.theta.shape[-1] == 0:
+            out = torch.zeros(x2.shape[0], device=x.device)
+        else:
+            out = self.log_pdf_from_params(
+                x2, to_torch(self.get_params(), x.device))
+        return out[0] if single else out
+
+    def pdf(self, x) -> torch.Tensor:
+        return torch.exp(self.log_pdf(x))
+
+    # ---- bootstrap density uncertainty -----------------------------------
+
+    def mean_cv(self, generator: torch.Generator,
+                n_samples: Optional[int] = None, n_bootstrap: int = 5,
+                test_points=None) -> float:
+        """Mean coefficient of variation of the fitted density over the
+        test points (default: the support), weighted by the support
+        weights, from ``n_bootstrap`` refits on multinomial resamples of
+        ``n_samples`` rows.  Each refit's density runs on the generator's
+        device; the last refit's density shape is kept as
+        ``cv_density_shape`` = ``(test rows, support rows, d)``."""
+        self._check_fitted()
+        dev = device_of(generator)
+        n = int(self.theta.shape[0]) if n_samples is None else int(n_samples)
+        test = self.theta if test_points is None else test_points
+        test = torch.as_tensor(np.asarray(test, dtype=np.float32),
+                               device=dev)
+        log_w = torch.as_tensor(np.log(np.maximum(self.w, 1e-38)),
+                                device=dev)
+        hyper = {k: v for k, v in self.__dict__.items()
+                 if k not in ("theta", "w", "_fitted")}
+        densities = []
+        for _ in range(n_bootstrap):
+            idx = fast_weighted_choice(generator, log_w, n).cpu().numpy()
+            boot = type(self)()
+            boot.__dict__.update(hyper)
+            boot.fit(self.theta[idx], np.ones(n, dtype=np.float32))
+            params = boot.get_params()
+            densities.append(torch.exp(boot.log_pdf_from_params(
+                test, to_torch(params, dev))))
+        self.cv_density_shape = (
+            int(test.shape[0]),
+            int(params.get("c_support", params["support"]).shape[0]),
+            int(test.shape[1]))
+        dens = torch.stack(densities)  # [n_bootstrap, M]
+        cv = dens.std(0, correction=0) / dens.mean(0).clamp(min=1e-30)
+        w = torch.as_tensor(self.w, device=dev)
+        return float((w * cv).sum())
+
+    def required_nr_samples(self, generator: torch.Generator,
+                            coefficient_of_variation: float,
+                            n_bootstrap: int = 5) -> int:
+        """The population size whose bootstrap CV meets the target: CVs
+        at a quarter, half and all of the current size, a power law
+        through them, inverted (``predict_population_size``)."""
+        from .predict_population_size import predict_population_size
+        current = int(self.theta.shape[0])
+        cvs = {n: self.mean_cv(generator, n_samples=n,
+                               n_bootstrap=n_bootstrap)
+               for n in sorted({max(current // 4, 8), max(current // 2, 8),
+                                current})}
+        return predict_population_size(cvs, coefficient_of_variation,
+                                       fallback=current)
+
+
+class NotFittedError(Exception):
+    """Raised when rvs / pdf is called before fit."""

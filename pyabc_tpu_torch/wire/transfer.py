@@ -34,16 +34,22 @@ Ledger keys (cumulative since process start):
 Every fetched byte is attributed to one ``EGRESS_SUBSYSTEMS`` bucket, the
 calling thread's :func:`egress` label (``population`` by default).
 
-Not ported: the PTW1 blob codec (History blobs stay ``.npy``; reading a
-database that ``pyabc_tpu`` wrote comes with it) and the telemetry
-registry the JAX package stores these counters in.
+The PTW1 blob codec (:func:`encode_array` / :func:`decode_array`) is
+here too, so that the port's History reads a database that ``pyabc_tpu``
+wrote; the port itself goes on writing plain ``.npy`` blobs.  Not
+ported: the telemetry registry the JAX package stores these counters in.
 """
 
 from __future__ import annotations
 
+import json
+import struct
 import threading
 import time
+import zlib
 from contextlib import contextmanager
+
+import numpy as np
 
 #: ledger keys, in the order snapshots report them; ``d2h_s`` and
 #: ``fetch_s`` read the same counter
@@ -169,3 +175,60 @@ class timed_d2h:
     def commit(self, tree):
         record_d2h(tree_nbytes(tree), self.seconds)
         return tree
+
+
+# ---- the PTW1 blob codec ----------------------------------------------
+#
+# ``PTW1`` + a little-endian u32 header length + a JSON header (dtype,
+# shape, codec) + a zlib payload.  Codec "delta" stores a wrapping
+# same-width unsigned delta along axis 0 (exactly invertible), "plain"
+# the raw bytes.
+
+_CODEC_MAGIC = b"PTW1"
+_UINT_FOR_SIZE = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
+
+
+def encode_array(arr: np.ndarray, codec: str = "delta") -> bytes:
+    """One array as a self-describing PTW1 blob.  ``codec="delta"``
+    deltas along axis 0 before compression; arrays the delta cannot help
+    (0-d, single-row, exotic itemsizes) are stored plain."""
+    shape = np.asarray(arr).shape  # before ascontiguousarray: it
+    arr = np.ascontiguousarray(arr)  # promotes 0-d to (1,)
+    if arr.dtype.hasobject:
+        raise ValueError("object arrays cannot ride the wire codec")
+    u_dtype = _UINT_FOR_SIZE.get(arr.dtype.itemsize)
+    if codec == "delta" and u_dtype is not None and arr.ndim >= 1 \
+            and arr.shape[0] >= 2:
+        u = arr.view(u_dtype)
+        d = np.empty_like(u)
+        d[0] = u[0]
+        np.subtract(u[1:], u[:-1], out=d[1:])  # wraps mod 2^width
+        used, payload = "delta", d.tobytes()
+    else:
+        used, payload = "plain", arr.tobytes()
+    header = json.dumps({"dtype": arr.dtype.str, "shape": list(shape),
+                         "codec": used}).encode("ascii")
+    return (_CODEC_MAGIC + struct.pack("<I", len(header)) + header
+            + zlib.compress(payload, 1))
+
+
+def is_ptw1(blob: bytes) -> bool:
+    return bytes(blob[:4]) == _CODEC_MAGIC
+
+
+def decode_array(blob: bytes) -> np.ndarray:
+    """Exact inverse of :func:`encode_array` (bit-identical)."""
+    if not is_ptw1(blob):
+        raise ValueError("not a PTW1 codec blob")
+    (hlen,) = struct.unpack("<I", blob[4:8])
+    meta = json.loads(bytes(blob[8:8 + hlen]).decode("ascii"))
+    raw = zlib.decompress(bytes(blob[8 + hlen:]))
+    dtype = np.dtype(meta["dtype"])
+    shape = tuple(meta["shape"])
+    if meta["codec"] == "delta":
+        d = np.frombuffer(raw, dtype=_UINT_FOR_SIZE[dtype.itemsize]
+                          ).reshape(shape)
+        # a cumsum in the same unsigned width wraps mod 2^width: the
+        # exact inverse of the wrapping delta
+        return np.cumsum(d, axis=0, dtype=d.dtype).view(dtype)
+    return np.frombuffer(raw, dtype=dtype).reshape(shape).copy()

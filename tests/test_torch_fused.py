@@ -314,6 +314,43 @@ def test_capped_support_below_cap_bit_identical():
         np.testing.assert_array_equal(w_a, w_b)
 
 
+def _batches_with_overlap(monkeypatch, credit):
+    """The capped-support run above with every ``GenStream`` overlap
+    credit replaced by ``credit`` seconds: the batches the autotuner
+    chose and the populations."""
+    from pyabc_tpu_torch.wire import transfer
+    real = transfer.record_overlap
+    monkeypatch.setattr(transfer, "record_overlap",
+                        lambda seconds: real(credit))
+    abc, _ = _abc(fuse=3, pop=400, eps=pt.ConstantEpsilon(0.2), seed=6)
+    batches = []
+    choose = abc.sampler._tuner.choose_batch
+
+    def spy(*args, **kwargs):
+        batches.append(choose(*args, **kwargs))
+        return batches[-1]
+
+    abc.sampler._tuner.choose_batch = spy
+    h = abc.run(max_nr_populations=5)
+    monkeypatch.setattr(transfer, "record_overlap", real)
+    return batches, [h.get_distribution(m=1, t=t) for t in range(5)]
+
+
+def test_cpu_run_does_not_depend_on_the_overlap_credit(monkeypatch):
+    """On the CPU no fetch waits on a producer, so the ledger books no
+    compute seconds and the tuner never reads the overlap ratio: a run
+    whose ingest worker happened to overlap the caller (credit > 0) and
+    one whose worker did not (credit 0) choose the same batches and draw
+    the same populations."""
+    batches_0, pops_0 = _batches_with_overlap(monkeypatch, 0.0)
+    batches_1, pops_1 = _batches_with_overlap(monkeypatch, 1e-3)
+    assert batches_0 == batches_1
+    for (df_0, w_0), (df_1, w_1) in zip(pops_0, pops_1):
+        np.testing.assert_array_equal(df_0["mu"].to_numpy(),
+                                      df_1["mu"].to_numpy())
+        np.testing.assert_array_equal(w_0, w_1)
+
+
 def test_capped_support_refit_posterior_parity():
     # seed 8: with the JAX test's seed 7 the port's exact-refit run draws
     # one model-A particle far in its KDE's tail at t = 4 (a weight of 14 %

@@ -42,7 +42,11 @@ def test_port_files_exist():
                 "petab/sbml.py", "petab/problem.py", "sampler/fused.py",
                 "ops/quantile_sketch.py", "wire/__init__.py",
                 "wire/transfer.py", "wire/streaming.py", "wire/ingest.py",
-                "wire/store.py"):
+                "wire/store.py", "cv/__init__.py", "cv/bootstrap.py",
+                "external/__init__.py", "external/base.py",
+                "transition/local_transition.py", "transition/randomwalk.py",
+                "transition/model_selection.py",
+                "transition/predict_population_size.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 
