@@ -13,10 +13,11 @@ Phases, each printed as one JSON line and each fatal on failure:
    at the shapes the main path gives it (tolerance ``1e-4 + 1e-5·|ref|``),
    with the kernels' own time (``kernel_only_ms``: back-to-back launches
    of a prepared call), the whole wrapper call (``call_ms``), the plain
-   time, a one-call library yardstick computed over query chunks of at
-   most 8 GB (``library_ms``, ``library_chunks``), the least time the card
-   could take (``bound_ms``), and the partial kernel's registers and
-   spills as ``nvcc -Xptxas -v`` reports them.
+   time (the median of 3 calls; the comparison call alone where it takes
+   over a second), a one-call library yardstick computed over query
+   chunks of at most 8 GB (``library_ms``, ``library_chunks``), the
+   least time the card could take (``bound_ms``), and the partial
+   kernel's registers and spills as ``nvcc -Xptxas -v`` reports them.
 4. ``pop16384`` / ``pop1e6`` — the main path: two-Gaussian model selection
    (BASELINE config #2) through ``ABCSMC.run`` with ``MedianEpsilon`` and
    ``VectorizedSampler``, held to the analytic model posterior and mean
@@ -141,6 +142,41 @@ Phases, each printed as one JSON line and each fatal on failure:
    1e4 for 8 generations, held to ``lv1e5``'s posterior and ε gates (its
    proposal density is not K1: none launched), and reports peak memory.
 
+11. ``fidelitysir5e4`` / ``fidelitylv5e4`` / ``capacity1e7`` — the
+   multi-fidelity screen and the memory-planned carry.  The fidelity
+   phases are the JAX package's ``bench_fidelity`` rows: SIR / LV at full
+   width with a plain ``PNormDistance(p=2)``, pop 5e4, batch 2^18, K = 4,
+   ``QuantileEpsilon(alpha=0.15)``, 2 warm-up and 3 timed generations,
+   ``FidelityConfig(full_fraction=0.15, cal_rows=4096)`` against
+   ``fidelity="off"``.  Gates: both arms pass configs #3/#4's posterior
+   gate; the screened mean within 4·√(σ²/ESS_off + σ²/ESS_screen) of the
+   unscreened one; every generation after the first a device generation
+   of the staged round, with ``sims_full`` = rounds × slots ≤
+   ``sims_low`` = rounds × B; the first screened generation (a fresh
+   carry's NaN rings: no acceptable pair) at threshold +inf; the paired
+   audit (2048 final particles through both fidelities, the numpy
+   calibrator at the final ε) with a false-reject rate ≤ q + 3·√(q(1 −
+   q)/n_acceptable), q = 0.02.  They report accepted/s of both arms over
+   the timed generations and over the timed generations whose threshold
+   was finite, the speedup, full simulations per accepted particle, the
+   screen rate, each stage's simulator launches per round, each screened
+   generation's threshold with the acceptable pairs and the correlation
+   it was calibrated from, and each block's rounds beside its round
+   caps.  ``capacity1e7`` is the JAX package's ladder program on one
+   card: config #4 at pop 1e7 (batch 2^22), one dispatch, lazy History,
+   K = 4, ``MedianEpsilon``, 1 + 3 generations,
+   ``PYABC_TPU_CARRY_PRECISION=auto`` under a budget halfway
+   between the port's own f32 and bf16 minima.  Gates: f32 infeasible
+   there, the run completes narrowed, the plan and the measured peak
+   (``torch.cuda.max_memory_allocated`` over the dispatch) within the
+   budget, the stop and the posterior gate as an f32 twin's with no
+   budget set (whose plan fits unclamped), the means within 4·√2
+   run-to-run spreads of the twin's (``CAPACITY_SPREAD``, measured by
+   ``--phases capacityspread``; the 4·√(σ²/ESS) bound of one run's last
+   generation is reported too), and the run's codec within half a
+   quantum on its last population on the card; it reports the
+   prediction's error in percent.
+
 Every phase before these pins ``history_mode="eager"``, and every run at
 pop 1e6 among them ``ingest_mode="sequential"``, so that each measures
 the engine it did before the pipeline and the lazy rows became the
@@ -151,8 +187,9 @@ The ``kernels`` phase runs last: its row (g) takes config #5's record
 shape [records × support] from the ``petab1e5`` run's timeline, rows (h),
 (i) and (j) the capped shapes of ``fused1e6``, ``fusedlv1e5`` and
 ``pipelinedsir1e6``, row (k) the largest bootstrap density of
-``adaptivepop`` and row (l) the largest finalize of ``stats1e5`` (stated
-default shapes without those runs).
+``adaptivepop``, row (l) the largest finalize of ``stats1e5``, rows (m),
+(n) and (o) the finalize of ``fidelitysir5e4``, ``fidelitylv5e4`` and
+``capacity1e7`` (stated default shapes without those runs).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -171,6 +208,12 @@ rows permuted: with no branch on the data the two take the same time.
 ``torch.cumsum`` and ``ops.choice.ordered_cumsum`` give another result
 than their first call, then runs ``fused16384``'s configuration over
 seeds 0-19 and reports each run's last ESS, p(B) − analytic and paths.
+``capacity1e8`` plans ``capacity1e7``'s configuration at the JAX row's
+nominal pop 1e8 (batch 2^24) under the card's own budget and runs 1 + 2
+generations if the plan fits, else reports the ``CapacityError`` with its
+ledger.  ``capacityspread`` runs ``capacity1e7``'s configuration with no
+budget in float32 and bf16 at seeds 0-2 and reports the spread of the
+posterior means, at each run's last ε and at the smallest of them.
 
 The ``kernels`` summary line and the ``nvidia-smi`` name/power-limit
 line come just before the last line, which is ``{"ok": true, "device":
@@ -194,9 +237,11 @@ ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "petab1e5", "sbml1e5", "fused16384", "fused1e6", "fusedlv1e5",
               "fusedpetab1e5", "onedispatch1e6", "onedispatchpetab1e5",
               "pipelined1e6", "pipelinedsir1e6", "library", "stats1e5",
-              "adaptivepop", "local1e4", "kernels")
+              "adaptivepop", "local1e4", "fidelitysir5e4", "fidelitylv5e4",
+              "capacity1e7", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
-EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat")
+EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat", "capacity1e8",
+                "capacityspread")
 TOL_ABS = 1e-4
 TOL_REL = 1e-5
 #: largest [M, N] float32 block the library yardstick may materialize
@@ -431,6 +476,25 @@ def library_cases(state) -> list:
     return out
 
 
+def fidelity_capacity_cases(state) -> list:
+    """Rows (m), (n) and (o): the fidelitysir5e4, fidelitylv5e4 and
+    capacity1e7 phases' finalize density, the population against the
+    uniform-weight capped support (2^14 rows; 2^11 in capacity1e7), from
+    the runs or at these stated defaults."""
+    out = []
+    for label, key, default in (
+            ("m fidelitysir5e4 capped", "fidelitysir5e4_shape",
+             (FID_POP, 1 << 14, 2)),
+            ("n fidelitylv5e4 capped", "fidelitylv5e4_shape",
+             (FID_POP, 1 << 14, 4)),
+            ("o capacity1e7 capped", "capacity1e7_shape",
+             (CAPACITY_POP, 1 << 11, 2))):
+        m, n, d = state.get(key, default)
+        source = "run" if key in state else "default"
+        out.append((f"{label} ({source})", m, n, d, {"uniform": True}))
+    return out
+
+
 def phase_kernels(torch, state):
     from pyabc_tpu_torch.ops import kde as kde_plain
     from pyabc_tpu_torch.ops import kde_cuda
@@ -441,12 +505,18 @@ def phase_kernels(torch, state):
     rows = []
     ok_all = True
     for label, m, n, d, kw in (KDE_CASES + [record_case(state)]
-                               + fused_cases(state) + library_cases(state)):
+                               + fused_cases(state) + library_cases(state)
+                               + fidelity_capacity_cases(state)):
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         ref = kde_plain.weighted_kde_logpdf(*args)
+        end.record()
         torch.cuda.synchronize()
+        ref_ms = start.elapsed_time(end)
         err = (got - ref).abs()
         finite = bool(torch.isfinite(got).all() and torch.isfinite(ref).all())
         ok = finite and bool((err <= TOL_ABS + TOL_REL * ref.abs()).all())
@@ -454,8 +524,11 @@ def phase_kernels(torch, state):
             *args), reps=10, warmup=2)
         call = kde_cuda.KdeCall(*args)
         kernel_only_ms = time_loop(torch, call.run, reps=20)
-        plain_ms = time_cuda(torch, lambda: kde_plain.weighted_kde_logpdf(
-            *args), reps=3)
+        # where the plain version takes seconds (rows (j), (o)) its time
+        # is the comparison call's; else the median of 3 after it
+        plain_ms = (ref_ms if ref_ms > 1000.0 else time_cuda(
+            torch, lambda: kde_plain.weighted_kde_logpdf(*args), reps=3,
+            warmup=0))
         lib = library_logsumexp_ms(torch, kde_plain, c)
         bound_ms = 1e3 * kde_cuda.bound_seconds(m, n, d,
                                                 state["sm_clock_hz"])
@@ -2198,6 +2271,604 @@ def phase_local1e4(torch, state):
         raise RuntimeError(f"local1e4 failed its checks: {row['checks']}")
 
 
+# ---------------------------------------------------- fidelity and capacity
+
+#: the JAX package's bench_fidelity rows (bench.py:1878-2022)
+FID_POP = 50_000
+FID_BATCH = 1 << 18
+FID_WARMUP, FID_TIMED = 2, 3
+FID_AUDIT_ROWS = 2048
+FID_PROBLEMS = {"fidelitysir5e4": "sir", "fidelitylv5e4": "lv"}
+
+
+def fid_problem(which: str):
+    """``_fid_problem``'s screen-eligible SIR / LV problems in the port:
+    the full-width models, their priors and truths, a plain
+    ``PNormDistance(p=2)``, observed data from a CPU generator seeded 11
+    (SIR) or 7 (LV)."""
+    import torch
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models.lotka_volterra import LotkaVolterraSDE
+    from pyabc_tpu_torch.models.sir import SIRTauLeap
+    from pyabc_tpu_torch.random_variables import RV, Distribution
+
+    if which == "sir":
+        model = SIRTauLeap()
+        prior = Distribution(log_beta=RV("uniform", -2.0, 3.0),
+                             log_gamma=RV("uniform", -3.0, 3.0))
+        truth, seed = [0.8, 0.2], 11
+    else:
+        model = LotkaVolterraSDE()
+        prior = Distribution(log_a=RV("uniform", -1.0, 2.0),
+                             log_b=RV("uniform", -3.0, 2.0),
+                             log_c=RV("uniform", -2.0, 2.0),
+                             log_d=RV("uniform", -1.0, 2.0))
+        truth, seed = [1.1, 0.4, 1.0, 0.4], 7
+    gen = torch.Generator()
+    gen.manual_seed(seed)
+    obs = model.simulate(gen, torch.log(torch.tensor([truth])))
+    observed = {k: v[0].numpy() for k, v in obs.items()}
+    return [model], [prior], pt.PNormDistance(p=2), observed, truth
+
+
+def posterior_moments(abc, priors, truth) -> dict:
+    """The last generation's weighted mean, std and ESS per parameter,
+    and configs #3/#4's gate: the mean within 4 posterior std of the
+    generating value, each std at most 0.75 of the prior's."""
+    import numpy as np
+
+    names = priors[0].get_parameter_names()
+    df, w = abc.history.get_distribution(m=0, t=abc.history.max_t)
+    x = df[names].to_numpy(np.float64)
+    w = np.asarray(w, np.float64) / np.sum(w)
+    mean = (w[:, None] * x).sum(0)
+    std = np.sqrt((w[:, None] * (x - mean) ** 2).sum(0))
+    log_truth = np.log(np.asarray(truth))
+    prior_std = np.array([priors[0][k].scale for k in names]) / 12 ** 0.5
+    return {"mean": mean, "std": std, "ess": float(1.0 / np.sum(w * w)),
+            "gate": bool(np.all(np.abs(mean - log_truth) <= 4 * std)
+                         and np.all(std <= 0.75 * prior_std)),
+            "truth": log_truth, "prior_std": prior_std}
+
+
+def run_fidelity_arm(torch, which: str, screen: bool) -> dict:
+    """One arm of the A/B: ``fidelity="off"`` or the bench's
+    ``FidelityConfig(full_fraction=0.15, cal_rows=4096)``, pop 5e4, batch
+    pinned at 2^18, K = 4, ``QuantileEpsilon(alpha=0.15)``, 2 warm-up and
+    3 timed generations.  A screened device generation's row carries its
+    threshold ``screen_tau`` and the calibration facts behind it."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.fidelity import FidelityConfig
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    cfg = FidelityConfig(full_fraction=0.15, cal_rows=4096)
+    models, priors, distance, observed, truth = fid_problem(which)
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=FID_POP,
+        sampler=pt.VectorizedSampler(min_batch_size=FID_BATCH,
+                                     max_batch_size=FID_BATCH,
+                                     device="cuda"),
+        fuse_generations=4, stores_sum_stats=False,
+        eps=pt.QuantileEpsilon(alpha=0.15), seed=0,
+        fidelity=cfg if screen else "off", device="cuda")
+    abc.new("sqlite://", observed)
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    abc.run(max_nr_populations=FID_WARMUP + FID_TIMED)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weighted_kde_logpdf_cuda.launches
+    rows = list(abc.timeline)
+    timed = [r for r in rows if r["t"] >= FID_WARMUP]
+    # the timed generations whose round screened (a finite threshold)
+    screened = [r for r in timed if math.isfinite(r.get("screen_tau",
+                                                        math.inf))]
+    full_sims = sum(r.get("sims_full", r["evaluations"]) for r in rows)
+    return {"abc": abc, "cfg": cfg, "models": models, "priors": priors,
+            "observed": observed, "truth": truth, "rows": rows,
+            "wall_s": wall, "kde_launches": launches,
+            "accepted_per_s": FID_POP / statistics.median(
+                r["wall_s"] for r in timed),
+            "accepted_per_s_screened": (FID_POP / statistics.median(
+                r["wall_s"] for r in screened) if screened else None),
+            "timed_screened": [r["t"] for r in screened],
+            "gen_times_s": [r["wall_s"] for r in timed],
+            "sims_per_accepted": full_sims / (FID_POP * len(rows)),
+            "blocks": [{k: b.get(k) for k in ("t", "K", "written",
+                                              "rounds", "round_caps",
+                                              "max_rounds")}
+                       for b in abc.blocks],
+            "moments": posterior_moments(abc, priors, truth)}
+
+
+def fidelity_audit(torch, arm: dict) -> dict:
+    """``bench_fidelity``'s paired audit: the final population's first
+    2048 particles through both fidelities (one seed for both), the
+    numpy mirror of the calibrator at the final epsilon, and the realized
+    screen-pass and false-reject rates."""
+    import numpy as np
+
+    from pyabc_tpu_torch.fidelity import screen_threshold_np
+
+    abc, cfg = arm["abc"], arm["cfg"]
+    eps_final = float(abc.history.get_all_populations().epsilon.iloc[-1])
+    df, _ = abc.history.get_distribution(m=0, t=abc.history.max_t)
+    names = arm["priors"][0].get_parameter_names()
+    thetas = torch.as_tensor(df[names].to_numpy(np.float32)[
+        :FID_AUDIT_ROWS], device="cuda")
+    model = arm["models"][0]
+    obs = arm["observed"]
+
+    def dist(m):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(1234)
+        stats = m.simulate(gen, thetas)
+        arr = np.concatenate(
+            [stats[k].reshape(thetas.shape[0], -1).cpu().numpy()
+             for k in sorted(stats)], axis=1).astype(np.float64)
+        flat = np.concatenate([np.ravel(obs[k]) for k in sorted(obs)])
+        return np.sqrt(((arr - flat[None, :]) ** 2).sum(1))
+
+    d_full, d_lo = dist(model), dist(model.low_fidelity())
+    tau = screen_threshold_np(d_lo, d_full, eps_final,
+                              q=cfg.false_reject_q, margin=cfg.margin,
+                              min_corr=cfg.min_corr,
+                              min_pairs=cfg.min_pairs)
+    acceptable = d_full <= eps_final
+    n_acc = int(acceptable.sum())
+    if np.isfinite(tau) and n_acc:
+        screen_rate = float(np.mean(d_lo <= tau))
+        false_reject = float(np.mean(d_lo[acceptable] > tau))
+    else:
+        screen_rate, false_reject = 1.0, 0.0   # no screen: no debt
+    q = cfg.false_reject_q
+    limit = q + 3.0 * math.sqrt(q * (1.0 - q) / max(n_acc, 1))
+    return {"eps_final": eps_final, "tau": tau, "n_acceptable": n_acc,
+            "screen_rate": screen_rate, "false_reject": false_reject,
+            "false_reject_limit": limit, "ok": false_reject <= limit}
+
+
+def stage_launches(torch, arm: dict) -> dict:
+    """Simulator kernel launches per round of each stage: one
+    low-fidelity call on the batch and one full-fidelity call on the
+    slots, profiled (``simulator_call``), at prior draws."""
+    model = arm["models"][0]
+    prior = arm["priors"][0]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(3)
+    n_full = arm["cfg"].n_full(FID_BATCH)
+    theta = prior.rvs_array(gen, FID_BATCH)
+    return {"low": simulator_call(torch, model.low_fidelity(), theta),
+            "full": simulator_call(torch, model, theta[:n_full]),
+            "n_full": n_full}
+
+
+def _phase_fidelity(torch, state, name: str):
+    which = FID_PROBLEMS[name]
+    off = run_fidelity_arm(torch, which, screen=False)
+    scr = run_fidelity_arm(torch, which, screen=True)
+    audit = fidelity_audit(torch, scr)
+    stages = stage_launches(torch, scr)
+    mo, ms = off["moments"], scr["moments"]
+    noise = 4.0 * (mo["std"] ** 2 / mo["ess"]
+                   + ms["std"] ** 2 / ms["ess"]) ** 0.5
+    screened = [r for r in scr["rows"] if "sims_full" in r]
+    n_full = scr["cfg"].n_full(FID_BATCH)
+    cfg = scr["cfg"]
+    checks = {
+        "posterior_off": mo["gate"], "posterior_screen": ms["gate"],
+        "screen_vs_off": bool((abs(ms["mean"] - mo["mean"])
+                               <= noise).all()),
+        # every generation after the first ran staged on the device: no
+        # screened block fell short and handed a generation back
+        "screened_rows": [r["t"] for r in screened]
+        == list(range(1, FID_WARMUP + FID_TIMED)),
+        "sims": all(r["sims_full"] <= r["sims_low"]
+                    and r["sims_full"] == r["rounds"] * n_full
+                    and r["sims_low"] == r["rounds"] * FID_BATCH
+                    for r in screened),
+        # the first block's carry comes from a sequential generation: NaN
+        # rings, no screen in its first generation
+        "first_unscreened": bool(screened)
+        and screened[0]["screen_tau"] == math.inf
+        and screened[0]["cal_pairs"] == 0,
+        "audit": audit["ok"],
+        "launches": all(r["kde_launches"] >= 1 for arm in (off, scr)
+                        for r in arm["rows"] if r["t"] >= 1),
+    }
+    g = screened[0] if screened else None
+    if g is not None:
+        state[f"{name}_shape"] = (FID_POP, g["kde_support"][0]["rows"],
+                                  len(mo["mean"]))
+    state.setdefault("launches", {})[name] = (off["kde_launches"]
+                                              + scr["kde_launches"])
+    row = {
+        "phase": name, "ok": all(checks.values()), "checks": checks,
+        "pop": FID_POP, "batch": FID_BATCH, "n_full": n_full,
+        "paths": [r["path"] for r in scr["rows"]],
+        "paths_off": [r["path"] for r in off["rows"]],
+        "accepted_per_s": scr["accepted_per_s"],
+        "accepted_per_s_off": off["accepted_per_s"],
+        "speedup": scr["accepted_per_s"] / off["accepted_per_s"],
+        # the timed window's generations with a finite threshold alone
+        "accepted_per_s_screened": scr["accepted_per_s_screened"],
+        "timed_screened": scr["timed_screened"],
+        "sims_per_accepted": scr["sims_per_accepted"],
+        "sims_per_accepted_off": off["sims_per_accepted"],
+        "screen_rate": audit["screen_rate"],
+        "false_reject_rate": audit["false_reject"],
+        "false_reject_limit": audit["false_reject_limit"],
+        "audit": audit,
+        "taus": [r["screen_tau"] for r in screened],
+        # what the self-disable rule read: acceptable pairs against
+        # min_pairs, the correlation against min_corr
+        "calibration": [{"t": r["t"], "tau": r["screen_tau"],
+                         "cal_pairs": r["cal_pairs"],
+                         "cal_corr": r["cal_corr"]} for r in screened],
+        "min_pairs": cfg.min_pairs, "min_corr": cfg.min_corr,
+        "blocks": scr["blocks"], "blocks_off": off["blocks"],
+        "simulator_per_round": stages,
+        "gen_times_s": scr["gen_times_s"],
+        "gen_times_s_off": off["gen_times_s"],
+        "wall_s": scr["wall_s"], "wall_s_off": off["wall_s"],
+        "kde_launches": scr["kde_launches"],
+        "kde_launches_off": off["kde_launches"],
+        "posterior_mean": ms["mean"].tolist(),
+        "posterior_mean_off": mo["mean"].tolist(),
+        "posterior_std": ms["std"].tolist(), "ess": ms["ess"],
+        "ess_off": mo["ess"], "mc_bound": noise.tolist(),
+        "truth": ms["truth"].tolist(),
+        "generations": [{**generation_row(r),
+                         **{k: r[k] for k in ("sims_low", "sims_full",
+                                              "screen_pass", "screen_tau",
+                                              "cal_pairs", "cal_corr",
+                                              "round_cap", "max_rounds")
+                            if k in r}}
+                        for r in scr["rows"]],
+        "generations_off": [generation_row(r) for r in off["rows"]],
+    }
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"{name} failed its checks: {checks}")
+
+
+def phase_fidelitysir5e4(torch, state):
+    _phase_fidelity(torch, state, "fidelitysir5e4")
+
+
+def phase_fidelitylv5e4(torch, state):
+    _phase_fidelity(torch, state, "fidelitylv5e4")
+
+
+#: PODSTAR_LADDER_PROGRAM (bench.py:1422-1478) on one card: config #4 at
+#: pop 1e7, batch pinned at 2^22 (a one-dispatch generation must fill the
+#: population within its round cap: ceil(4 · 1e7 / B) <= max_T)
+CAPACITY_POP = 10_000_000
+CAPACITY_BATCH = 1 << 22
+CAPACITY_GENS = 1 + 3
+#: the opt-in nominal row: pop 1e8, batch 2^24 (ceil(4e8 / 2^24) = 24)
+CAPACITY1E8_POP = 100_000_000
+CAPACITY1E8_BATCH = 1 << 24
+CAPACITY1E8_GENS = 1 + 2
+
+
+def capacity_abc(pop: int, batch: int, seed: int = 0):
+    """``(abc, priors, truth)``: config #4's ``make_sir_problem`` as the
+    ladder program runs it: ``MedianEpsilon``, one dispatch, lazy
+    History, K = 4, ``stores_sum_stats=False``, seed 0 (unless given),
+    the batch pinned.  One setting differs: the device chain admits at
+    most 2^35 (queries × support rows) per proposal density (the JAX
+    package's pair budget, ``_device_chain_eligible``), so the refit's
+    support cap is the largest power of two inside it (2^11 at pop 1e7,
+    2^8 at pop 1e8) where the default 2^14 would send the run to the
+    sequential engine."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import SIR_TRUTH, make_sir_problem
+
+    models, priors, distance, observed = make_sir_problem()
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=pop,
+        eps=pt.MedianEpsilon(),
+        sampler=pt.VectorizedSampler(min_batch_size=batch,
+                                     max_batch_size=batch, device="cuda"),
+        run_mode="onedispatch", history_mode="lazy", fuse_generations=4,
+        fused_support_cap=1 << int(math.log2((1 << 35) / pop)),
+        stores_sum_stats=False, seed=seed, device="cuda")
+    abc.new("sqlite://", observed)
+    return abc, priors, SIR_TRUTH
+
+
+def capacity_request(abc, pop: int, gens: int) -> dict:
+    """The one-dispatch consult's request for this run of ``gens``
+    generations before it runs: the pinned batch, K, ``max_T``, the
+    ledger's lanes (the sampler fetches no statistics in this
+    configuration: the records cover the adaptive refit, and the run
+    stores none; generation 0 is written eagerly, as an adaptive refit
+    reads it on the host, so no generation is resident in the store; the
+    dispatch from t = 1 writes the other ``gens - 1`` into its slots)."""
+    abc.sampler.fetch_stats = False
+    B = abc.sampler.choose_batch(pop)
+    kw = abc._capacity_kwargs("onedispatch", pop, B)
+    return dict(batch=B, K=abc.fuse_generations,
+                max_T=abc.onedispatch_max_t, wire_slots=gens - 1,
+                round_to_batch=abc.sampler._round_to_valid_batch, **kw)
+
+
+def run_capacity(torch, abc, gens: int) -> dict:
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    abc.run(max_nr_populations=gens)
+    torch.cuda.synchronize()
+    return {"wall_s": time.perf_counter() - t0,
+            "kde_launches": weighted_kde_logpdf_cuda.launches}
+
+
+def _env(**values):
+    """Set (a str) or unset (None) environment variables; returns the
+    previous values, which ``_env(**saved)`` restores."""
+    import os
+
+    saved = {k: os.environ.get(k) for k in values}
+    for k, v in values.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
+    return saved
+
+
+
+def capacity_run(torch, prec: str, seed: int = 0, budget=None) -> dict:
+    """One ``capacity1e7`` run at carry precision ``prec`` (and an
+    explicit budget), its peak measured over the dispatch; the run's
+    device memory is freed before it returns."""
+    import gc
+
+    saved = _env(PYABC_TPU_CARRY_PRECISION=prec,
+                 PYABC_TPU_HBM_BUDGET=(None if budget is None
+                                       else str(budget)),
+                 PYABC_TPU_CAPACITY_MEASURE="1")
+    try:
+        abc, priors, truth = capacity_abc(CAPACITY_POP, CAPACITY_BATCH,
+                                          seed=seed)
+        abc.sampler.fetch_stats = False
+        run = run_capacity(torch, abc, CAPACITY_GENS)
+        pop = abc.history.get_population(abc.history.max_t)
+        out = {**run, "plan": dict(abc.timeline.capacity),
+               "moments": posterior_moments(abc, priors, truth),
+               "rows": list(abc.timeline), "stop": abc.stop_reason,
+               "max_t": abc.history.max_t, "precision": abc._carry_mode,
+               "theta": pop.theta, "distance": pop.distance,
+               "weight": pop.weight}
+    finally:
+        _env(**saved)
+    del abc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def codec_roundtrip(torch, run: dict) -> dict:
+    """The run's own at-rest codec on its last population, on the card:
+    each decoded value within half a quantum of the float32 one (bf16:
+    2^-8 of its magnitude; int8: half its column's scale)."""
+    from pyabc_tpu_torch.ops.precision import decode_carry, encode_carry
+
+    mode = run["precision"]
+    lanes = {k: torch.as_tensor(run[k], dtype=torch.float32,
+                                device="cuda").reshape(len(run[k]), -1)
+             for k in ("theta", "distance")}
+    enc = encode_carry(dict(lanes), mode)
+    dec = decode_carry(dict(enc), mode)
+    worst = 0.0
+    for k, x in lanes.items():
+        err = (dec[k] - x).abs()
+        if mode == "bf16":
+            bound = x.abs() * 2.0 ** -8
+        else:
+            bound = enc[k + "_qs"].reshape(1, -1) * (0.5 + 1e-3)
+        worst = max(worst, float((err / torch.clamp(bound, min=1e-30))
+                                 .max()))
+    return {"mode": mode, "worst_error_over_bound": worst,
+            "ok": mode in ("bf16", "int8") and worst <= 1.0}
+
+
+#: the run-to-run spread (sd over seeds 0-2) of ``capacity1e7``'s float32
+#: posterior means, per parameter (``--phases capacityspread``, on an
+#: H100): about 30 and 90 times one run's σ/√ESS, and not removed by
+#: restricting the runs to a common ε
+CAPACITY_SPREAD = (0.00216, 0.00887)
+
+
+def phase_capacity1e7(torch, state):
+    """The discriminating budget, halfway between the port's own f32 and
+    bf16 minima, under ``PYABC_TPU_CARRY_PRECISION=auto``; then an f32
+    twin with no budget set.  The posterior means are held within
+    4·√2 run-to-run spreads of the twin's (:data:`CAPACITY_SPREAD`), and
+    the codec to half a quantum on the run's last population."""
+    import numpy as np
+
+    from pyabc_tpu_torch.capacity import CapacityError
+    from pyabc_tpu_torch.capacity import model as cap
+
+    saved = _env(PYABC_TPU_CARRY_PRECISION="auto")
+    try:
+        abc, _, _ = capacity_abc(CAPACITY_POP, CAPACITY_BATCH)
+        req = capacity_request(abc, CAPACITY_POP, CAPACITY_GENS)
+        del abc
+    finally:
+        _env(**saved)
+    mins = {}
+    for prec in ("f32", "bf16"):
+        try:
+            cap.plan(carry_precision=prec, budget=1, **req)
+            mins[prec] = 0   # a 1-byte budget fits: broken arithmetic
+        except CapacityError as err:
+            mins[prec] = int(err.predicted)
+    budget = (mins["f32"] + mins["bf16"]) // 2
+    f32_infeasible = False
+    try:
+        cap.plan(carry_precision="f32", budget=budget, **req)
+    except CapacityError:
+        f32_infeasible = True
+    run = capacity_run(torch, "auto", budget=budget)
+    codec = codec_roundtrip(torch, run)
+    twin = capacity_run(torch, "f32")
+    plan, twin_plan = run["plan"], twin["plan"]
+    measured = int(plan.get("measured_bytes", 0))
+    moments, twin_moments = run["moments"], twin["moments"]
+    limit = 4.0 * math.sqrt(2.0) * np.asarray(CAPACITY_SPREAD)
+    gap = np.abs(moments["mean"] - twin_moments["mean"])
+    ess_bound = 4.0 * (moments["std"] ** 2 / moments["ess"]
+                       + twin_moments["std"] ** 2
+                       / twin_moments["ess"]) ** 0.5
+    rows = run["rows"]
+    od = [r for r in rows if r["path"] == "onedispatch"]
+    checks = {
+        "minima": 0 < mins["bf16"] < mins["f32"],
+        "f32_infeasible": f32_infeasible,
+        "completed": [r["t"] for r in rows] == list(range(CAPACITY_GENS)),
+        "onedispatch": len(od) == CAPACITY_GENS - 1,
+        "precision": plan["precision"] != "f32",
+        "planned_within_budget": plan["predicted_bytes"] <= budget,
+        "measured_within_budget": 0 < measured <= budget,
+        "stop_as_twin": (run["stop"] == twin["stop"]
+                         and run["max_t"] == twin["max_t"]),
+        "twin_f32": twin_plan["precision"] == "f32",
+        "twin_fits_unclamped": twin_plan["note"] == "fits as requested",
+        "posterior": moments["gate"] and twin_moments["gate"],
+        "posterior_vs_twin": bool((gap <= limit).all()),
+        "codec_roundtrip": codec["ok"],
+        "launches": all(r["kde_launches"] >= 1 for r in rows
+                        if r["t"] >= 1),
+    }
+    if od:
+        state["capacity1e7_shape"] = (CAPACITY_POP,
+                                      od[0]["kde_support"][0]["rows"], 2)
+    state.setdefault("launches", {})["capacity1e7"] = (
+        run["kde_launches"] + twin["kde_launches"])
+    twin_measured = twin_plan.get("measured_bytes")
+    row = {
+        "phase": "capacity1e7", "ok": all(checks.values()),
+        "checks": checks, "pop": CAPACITY_POP, "batch": CAPACITY_BATCH,
+        "minima_bytes": mins, "budget_bytes": budget, "plan": plan,
+        "measured_bytes": measured,
+        "prediction_error_pct": (100.0 * (plan["predicted_bytes"]
+                                          - measured) / measured
+                                 if measured else None),
+        "twin_plan": twin_plan, "twin_measured_bytes": twin_measured,
+        "twin_prediction_error_pct": (
+            100.0 * (twin_plan["predicted_bytes"] - twin_measured)
+            / twin_measured if twin_measured else None),
+        "wall_s": run["wall_s"], "twin_wall_s": twin["wall_s"],
+        "kde_launches": run["kde_launches"],
+        "twin_kde_launches": twin["kde_launches"],
+        "stop": run["stop"], "twin_stop": twin["stop"],
+        "posterior_mean": moments["mean"].tolist(),
+        "twin_posterior_mean": twin_moments["mean"].tolist(),
+        "posterior_std": moments["std"].tolist(), "ess": moments["ess"],
+        "twin_ess": twin_moments["ess"], "mean_gap": gap.tolist(),
+        "gap_limit": limit.tolist(), "ess_bound": ess_bound.tolist(),
+        "codec": codec,
+        "eps": [r["eps"] for r in rows],
+        "twin_eps": [r["eps"] for r in twin["rows"]],
+        "truth": np.asarray(moments["truth"]).tolist(),
+        "generations": [generation_row(r) for r in rows],
+        "twin_generations": [generation_row(r) for r in twin["rows"]],
+    }
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"capacity1e7 failed its checks: {checks}")
+
+
+def phase_capacityspread(torch, state):
+    """The run-to-run spread behind :data:`CAPACITY_SPREAD`:
+    ``capacity1e7``'s run with no budget, float32 and bf16, at seeds 0-2;
+    each run's posterior means at its own last ε and at the smallest
+    last ε of the six (its particles with a larger distance dropped:
+    the population a run at that ε would have accepted from the same
+    proposals)."""
+    import numpy as np
+
+    runs = [(prec, seed, capacity_run(torch, prec, seed=seed))
+            for prec in ("f32", "bf16") for seed in range(3)]
+    eps_common = min(float(r["rows"][-1]["eps"]) for _, _, r in runs)
+    out = []
+    for prec, seed, r in runs:
+        keep = np.asarray(r["distance"]) <= eps_common
+        w = np.where(keep, np.asarray(r["weight"], np.float64), 0.0)
+        w = w / w.sum()
+        theta = np.asarray(r["theta"], np.float64)
+        mean_c = (w[:, None] * theta).sum(0)
+        out.append({"precision": prec, "seed": seed,
+                    "eps": [x["eps"] for x in r["rows"]],
+                    "mean": r["moments"]["mean"].tolist(),
+                    "std": r["moments"]["std"].tolist(),
+                    "ess": r["moments"]["ess"],
+                    "mean_at_common_eps": mean_c.tolist(),
+                    "ess_at_common_eps": float(1.0 / np.sum(w * w)),
+                    "measured_bytes": r["plan"].get("measured_bytes"),
+                    "predicted_bytes": r["plan"]["predicted_bytes"]})
+
+    def spread(key, prec):
+        return np.std([o[key] for o in out if o["precision"] == prec],
+                      axis=0, ddof=1).tolist()
+
+    emit({"phase": "capacityspread", "ok": True, "runs": out,
+          "eps_common": eps_common,
+          "spread": {p: spread("mean", p) for p in ("f32", "bf16")},
+          "spread_at_common_eps": {p: spread("mean_at_common_eps", p)
+                                   for p in ("f32", "bf16")},
+          "spread_in_use": list(CAPACITY_SPREAD)})
+
+
+def phase_capacity1e8(torch, state):
+    """The JAX ladder row's nominal pop 1e8 under the card's own budget
+    (its memory less the default headroom): the plan first, then the run
+    of 1 + 2 generations if it fits; a ``CapacityError`` is reported
+    with its ledger."""
+    from pyabc_tpu_torch.capacity import CapacityError
+    from pyabc_tpu_torch.capacity import model as cap
+
+    saved = _env(PYABC_TPU_CARRY_PRECISION="auto",
+                 PYABC_TPU_CAPACITY_MEASURE="1")
+    try:
+        abc, priors, truth = capacity_abc(CAPACITY1E8_POP,
+                                          CAPACITY1E8_BATCH)
+        req = capacity_request(abc, CAPACITY1E8_POP, CAPACITY1E8_GENS)
+        budget = cap.resolved_budget_bytes("cuda")
+        try:
+            plan = cap.plan(carry_precision="auto", budget=budget, **req)
+        except CapacityError as err:
+            emit({"phase": "capacity1e8", "ok": True, "fits": False,
+                  "pop": CAPACITY1E8_POP, "budget_bytes": err.budget,
+                  "predicted_bytes": err.predicted, "hint": err.hint,
+                  "ledger": dict(err.ledger),
+                  "error": str(err).splitlines()[0]})
+            return
+        emit({"phase": "capacity1e8", "plan": {
+            "precision": plan.carry_precision, "batch": plan.batch,
+            "K": plan.K, "max_T": plan.max_T, "note": plan.note,
+            "predicted_bytes": plan.predicted_bytes,
+            "budget_bytes": plan.budget_bytes,
+            "ledger": dict(plan.ledger)}})
+        run = run_capacity(torch, abc, CAPACITY1E8_GENS)
+        moments = posterior_moments(abc, priors, truth)
+    finally:
+        _env(**saved)
+    cap_row = dict(abc.timeline.capacity)
+    emit({"phase": "capacity1e8", "ok": True, "fits": True,
+          "pop": CAPACITY1E8_POP, "plan": cap_row, **run,
+          "measured_bytes": cap_row.get("measured_bytes"),
+          "gens_run": abc.history.max_t + 1,
+          "posterior_gate": moments["gate"],
+          "posterior_mean": moments["mean"].tolist(),
+          "generations": [generation_row(r) for r in abc.timeline]})
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -2239,6 +2910,10 @@ PHASES = {"card": phase_card, "build": phase_build,
           "pipelinedsir1e6": phase_pipelinedsir1e6,
           "library": phase_library, "stats1e5": phase_stats1e5,
           "adaptivepop": phase_adaptivepop, "local1e4": phase_local1e4,
+          "fidelitysir5e4": phase_fidelitysir5e4,
+          "fidelitylv5e4": phase_fidelitylv5e4,
+          "capacity1e7": phase_capacity1e7, "capacity1e8": phase_capacity1e8,
+          "capacityspread": phase_capacityspread,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 

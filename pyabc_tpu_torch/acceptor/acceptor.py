@@ -23,6 +23,12 @@ from .pdf_norm import pdf_norm_from_kernel, pdf_norm_max_found
 class Acceptor:
     """Abstract acceptor."""
 
+    #: fidelity-cascade capability flag: True when the accept decision is
+    #: a deterministic threshold on the distance (d <= eps), the decision
+    #: the screen's calibration bounds; a randomized acceptor's depends on
+    #: the exact density, which a surrogate does not reproduce
+    device_screen_ok = False
+
     def initialize(self, t: int, get_weighted_distances: Optional[Callable],
                    distance_function=None, x_0=None):
         pass
@@ -61,6 +67,13 @@ class UniformAcceptor(Acceptor):
         complete-history minimum needs the host's ε history every
         generation, and a subclass may override :meth:`get_params`."""
         return type(self) is UniformAcceptor and not self.use_complete_history
+
+    @property
+    def device_screen_ok(self) -> bool:
+        """The deterministic d <= eps test, under the same guards as
+        :attr:`device_accept_ok`."""
+        return (type(self) is UniformAcceptor
+                and not self.use_complete_history)
 
     def get_params(self, t: int, epsilon) -> dict:
         eps = float(epsilon(t))

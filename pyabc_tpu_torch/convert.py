@@ -19,9 +19,10 @@ numpy in both packages, e.g. the JAX package's fitted
 ``Temperature.temperatures`` and ``StochasticAcceptor.pdf_norms`` — into
 a port ``Temperature`` and ``StochasticAcceptor``.  ``carry_to_torch``,
 ``carry_to_numpy`` and ``install_block_state`` move a fused block's carry
-between the packages and put in the block state (ε/T, rate, safety,
-distance weights, record ring), so that one generation of both can start
-from an identical carry.  ``install_local_transition`` puts a fitted
+between the packages — its narrowed lanes included — and put in the
+block state (ε/T, rate, safety, distance weights, record ring,
+calibration rings), so that one generation of both can start from an
+identical carry.  ``install_local_transition`` puts a fitted
 ``LocalTransition``'s state (support, weights, Cholesky factors and log
 norms, e.g. from the JAX package's fit) into a port ``LocalTransition``;
 ``install_population_size`` sets an ``AdaptivePopulationSize``'s current
@@ -104,28 +105,52 @@ def install_population_size(strategy, nr_particles: int):
     return strategy
 
 
+def _carry_lane_to_torch(v, device):
+    """One carry lane: an int8 array (a narrowed lane's code) stays int8,
+    a bfloat16 one (``ml_dtypes``, as JAX hands it out) becomes a
+    bfloat16 tensor; anything else goes through :func:`to_torch`."""
+    if torch.is_tensor(v):
+        if v.dtype in (torch.int8, torch.bfloat16):
+            return v.to(device)
+        return to_torch(v, device)
+    arr = np.asarray(v)
+    if arr.dtype == np.int8:
+        return torch.as_tensor(np.array(arr), device=device)
+    if arr.dtype.name == "bfloat16":
+        return torch.as_tensor(arr.astype(np.float32),
+                               device=device).to(torch.bfloat16)
+    return to_torch(v, device)
+
+
 def carry_to_torch(carry_np: dict, device) -> dict:
     """A fused block's carry from host arrays — e.g. a JAX block's carry
     read back with ``np.asarray`` — as tensors on ``device``: floats
     float32, integers int64 (``count`` and the model index), 0-d arrays
-    0-d tensors."""
-    return {k: to_torch(v, device) for k, v in carry_np.items()}
+    0-d tensors; a narrowed lane keeps its at-rest dtype (int8 codes with
+    their float32 ``_qs``/``_qm`` aux lanes, or bfloat16), and the
+    calibration rings ``cal_lo``/``cal_full`` are float32 lanes."""
+    return {k: _carry_lane_to_torch(v, device) for k, v in carry_np.items()}
 
 
 def carry_to_numpy(carry: dict) -> dict:
     """The converse of :func:`carry_to_torch`: every lane as a host
-    array (the JAX package's ``fused`` takes these as its carry)."""
-    return {k: to_numpy(v) for k, v in carry.items()}
+    array (the JAX package's ``fused`` takes these as its carry).  int8
+    codes stay int8; a bfloat16 lane comes back as the float32 array of
+    the same values (numpy has no bfloat16)."""
+    return {k: to_numpy(v.to(torch.float32) if torch.is_tensor(v)
+                        and v.dtype == torch.bfloat16 else v)
+            for k, v in carry.items()}
 
 
 def install_block_state(carry: dict, eps=None, rate=None, safety=None,
-                        dist_w=None, ring=None) -> dict:
+                        dist_w=None, ring=None, cal=None) -> dict:
     """A copy of ``carry`` (host arrays or tensors) with the block state
     that a sequential generation does not hold put in: ε or T, the EWMA
-    rate and safety, the adaptive distance's raw weights ``dist_w``, and
-    the record ring ``{"rec_m", "rec_theta", "rec_dist",
-    "rec_loggen"}``.  Scalars become float32 of the carry's kind, so both
-    packages can start a generation from one identical state."""
+    rate and safety, the adaptive distance's raw weights ``dist_w``, the
+    record ring ``{"rec_m", "rec_theta", "rec_dist", "rec_loggen"}`` and
+    the calibration rings ``{"cal_lo", "cal_full"}``.  Scalars become
+    float32 of the carry's kind, so both packages can start a generation
+    from one identical state."""
     out = dict(carry)
     device = next((v.device for v in carry.values() if torch.is_tensor(v)),
                   None)
@@ -141,6 +166,8 @@ def install_block_state(carry: dict, eps=None, rate=None, safety=None,
     if ring is not None:
         for key, val in ring.items():
             out[key] = lane(val, np.int64 if key == "rec_m" else np.float32)
+    for key, val in (cal or {}).items():
+        out[key] = lane(val)
     return out
 
 

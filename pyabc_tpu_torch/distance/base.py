@@ -31,6 +31,13 @@ class Distance:
     #: ``record_rejected``)
     requires_all_sum_stats: bool = False
 
+    #: fidelity-cascade capability flag: True when low- and
+    #: full-fidelity distances under one ``get_params`` are comparable
+    #: across a whole run (time-invariant params, a fixed metric over the
+    #: flat statistics), so calibration pairs from generation t - 1 stay
+    #: on the scale of the screen at t (``ABCSMC._fidelity_eligible``)
+    device_screen_ok: bool = False
+
     def __init__(self):
         self.spec: Optional[SumStatSpec] = None
 

@@ -64,6 +64,14 @@ class PNormDistance(Distance):
         # a time-indexed weight schedule changes get_params across t
         return len(self.weights) <= 1 and super().params_time_invariant()
 
+    @property
+    def device_screen_ok(self) -> bool:
+        """A fixed-weight p-norm scores low- and full-fidelity statistics
+        on one time-invariant scale; a weight schedule and every subclass
+        (the adaptive refit moves the scale) do not."""
+        return (type(self) is PNormDistance
+                and self.params_time_invariant())
+
     def get_params(self, t: int) -> dict:
         w = self._weights_for(t)
         f = self.factors if self.factors is not None else np.ones_like(w)

@@ -34,6 +34,12 @@ class ModelResult:
 class Model:
     """A stochastic forward model over batches of parameters."""
 
+    #: set True (with :meth:`low_fidelity`) to declare that the
+    #: low-fidelity variant emits the same summary-statistic layout (keys
+    #: and shapes) as the full model, so one distance and one observed
+    #: layout serve both stages of the fidelity cascade
+    screen_stats_compatible: bool = False
+
     def __init__(self, name: str = "model"):
         self.name = name
 
@@ -43,6 +49,17 @@ class Model:
     def sample(self, generator: torch.Generator, theta: torch.Tensor):
         """Raw model output for ``theta[N, D]``."""
         raise NotImplementedError
+
+    def low_fidelity(self) -> Optional["Model"]:
+        """A cheap surrogate of this model for the fidelity cascade's
+        screen (coarser steps, a shorter horizon), or None — the default,
+        which keeps a ``fidelity="screen"`` run on the exact unscreened
+        path.  The surrogate's statistics must have the full model's
+        layout (declare ``screen_stats_compatible``); their values need
+        only correlate with the full model's: the calibrator measures the
+        correlation every generation and disables the screen when it is
+        weak."""
+        return None
 
     def summary_statistics(self, raw) -> Dict[str, torch.Tensor]:
         """Reduce raw output to summary statistics (identity for dicts)."""

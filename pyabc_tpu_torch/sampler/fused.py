@@ -46,13 +46,29 @@ and the accepted count) per generation and stops the loop on its code.
 With ``summary_lanes=True`` (the lazy History) each generation's wire
 also carries the ``sm_*`` lanes of its posterior summary packet
 (``wire.store.summary_wire_lanes``), computed on the card, so the host
-can fetch those O(KB) and leave the population on the device.
+can fetch those O(KB) and leave the population on the device.  A block
+writes each generation's wire into slot buffers allocated once for the
+block (K slots; a one-dispatch run, one per generation it may write), so
+a generation's accept buffers are freed once the carry leaves them;
+``wire_stats=False`` leaves the statistics off the wire when no host
+reader needs them.
 
-Not ported (ROADMAP): the multi-fidelity cascade, telemetry lanes, the
-in-dispatch progress word, carry precision (its codec is the identity in
-float32), the pod constraint, lane surgery and the ``narrow_wire`` codec:
-a generation's output is float32 tensors (the model index int64) stacked
-over the block on the device.
+``carry_precision`` (``ops/precision.py``) narrows the carry's bulk lanes
+at rest: each generation decodes them to float32 for its refit and
+epsilon, drops the promotion before its rounds, and encodes the next
+carry on exit; at ``f32`` the codec is the identity.
+
+``fidelity_cfg`` switches the rounds to the multi-fidelity cascade
+(``RoundKernel.staged_generation_round``): the carry grows NaN-seeded
+calibration rings ``cal_lo``/``cal_full``, each generation calibrates its
+screen threshold from them before its first round
+(``fidelity.screen_threshold``), budgets its rounds against the
+full-fidelity slots, and pushes the last round's (low, full) pairs in at
+the front of the rings, cut to ``cal_rows``.
+
+Not ported (ROADMAP): telemetry lanes, the in-dispatch progress word, the
+pod constraint, lane surgery and the ``narrow_wire`` codec: a
+generation's output is float32 tensors (the model index int64).
 """
 
 from __future__ import annotations
@@ -65,8 +81,10 @@ import torch
 
 from ..autotune.tuner import EWMA_ALPHA
 from ..epsilon.temperature import acceptance_rate_solve
+from ..fidelity import screen_calibration
 from ..ops.choice import ordered_cumsum, systematic_weighted_choice
 from ..ops.kde_cuda import weighted_kde_logpdf_cuda
+from ..ops.precision import decode_carry, encode_carry
 from ..ops.quantile_sketch import sketch_weighted_quantile
 from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
@@ -93,6 +111,8 @@ _DEVICE_GRID = 1 << 14
 POP_LANES = ("m", "theta", "log_weight", "distance", "stats")
 #: the carry's record-ring lanes (stochastic triple)
 RING_LANES = ("rec_m", "rec_theta", "rec_dist", "rec_loggen")
+#: the carry's calibration-ring lanes (fidelity cascade)
+CAL_LANES = ("cal_lo", "cal_full")
 
 
 def kde_launches_per_gen(n_models: int, temperature: bool) -> int:
@@ -304,7 +324,9 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                   rate_pred_factor: float = 1.0,
                   adaptive_cfg: Optional[dict] = None,
                   stoch_cfg: Optional[dict] = None,
-                  eps_sketch: bool = False, summary_lanes: bool = False):
+                  eps_sketch: bool = False, summary_lanes: bool = False,
+                  fidelity_cfg: Optional[dict] = None,
+                  carry_precision: str = "f32", wire_stats: bool = True):
     """The per-generation body behind :func:`build_fused_generations`.
 
     ``eps_mode`` is ``"constant"``, ``"quantile"`` or ``"temperature"``
@@ -315,20 +337,45 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
     refit.  ``raw_round(generator, params)`` is the sampler's deferred
     round at batch ``B``.
 
+    ``fidelity_cfg`` (``q``, ``margin``, ``min_corr``, ``min_pairs``,
+    ``cal_rows``, ``n_full``: the full-fidelity slots of one round)
+    requires ``raw_round`` to be the staged round, returning
+    ``(RoundResult, (plo, pfull, npass))``; it excludes ``adaptive_cfg``
+    and ``stoch_cfg``.  ``carry_precision`` is the carry's at-rest mode.
+
     Returns ``one_gen(carry, generator, final=False) -> (carry, wire,
     info)``: the next carry, the generation's population (``m``,
-    ``theta``, ``distance`` at acceptance, corrected ``log_weight``,
-    ``stats``) with ``count``, ``rounds`` and ``eps`` (and the ``sm_*``
-    summary lanes with ``summary_lanes``), and host facts (``rounds``,
-    ``host_reads``, ``grids_resolved`` — None without a grid —
-    ``kde_support``).  ``final`` pins the temperature to 1
-    (``Temperature``'s last-generation rule)."""
+    ``theta``, ``distance`` at acceptance, corrected ``log_weight``, and
+    ``stats`` with ``wire_stats``) with ``count``, ``rounds`` and ``eps``
+    (and the ``sm_*`` summary lanes with ``summary_lanes``), and host
+    facts (``rounds``, ``host_reads``, ``grids_resolved`` — None without
+    a grid — ``kde_support``, and with ``fidelity_cfg`` ``screen_pass``,
+    the round survivors, ``screen_tau``, the threshold, ``cal_pairs`` and
+    ``cal_corr``, the acceptable pairs and the correlation it was set
+    from, and ``round_cap``, the generation's round cap, as 0-d device
+    tensors, and ``max_rounds``, the ceiling of that cap).  ``final`` pins the
+    temperature to 1 (``Temperature``'s last-generation rule)."""
     M = kernel.M
     cap = n_target + B
     stoch = stoch_cfg is not None
     adaptive = adaptive_cfg is not None
+    fidelity = fidelity_cfg is not None
     if eps_mode == "temperature" and not stoch:
         raise ValueError("temperature eps_mode requires stoch_cfg")
+    if fidelity:
+        if adaptive or stoch:
+            raise ValueError("fidelity_cfg is mutually exclusive with "
+                             "adaptive_cfg/stoch_cfg")
+        fid_q = float(fidelity_cfg["q"])
+        fid_margin = float(fidelity_cfg["margin"])
+        fid_min_corr = float(fidelity_cfg["min_corr"])
+        fid_min_pairs = int(fidelity_cfg["min_pairs"])
+        fid_cal_rows = int(fidelity_cfg["cal_rows"])
+        # a screened round accepts at most its slots, so the round cap
+        # budgets against them (the carried rate is per proposal)
+        eff_B = min(B, max(int(fidelity_cfg["n_full"]), 1))
+    else:
+        eff_B = B
     if stoch:
         pdf_norm = float(stoch_cfg["pdf_norm"])
         target = float(stoch_cfg["target_rate"])
@@ -349,12 +396,16 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                                       device=obs_flat.device)
     capped = support_cap is not None and n_target > support_cap
 
-    def one_gen(carry: dict, generator: torch.Generator,
-                final: bool = False):
+    def schedule(carry: dict, generator: torch.Generator, final: bool):
+        """This generation's ``(params, eps, grids_resolved, screen)``
+        from the carried population, its bulk lanes promoted to float32
+        here: the promotion dies with this call, before the rounds
+        allocate.  ``screen``: the screen's calibration facts (None
+        without ``fidelity_cfg``)."""
+        carry = decode_carry(carry, carry_precision)
         m0, theta0, lw0 = carry["m"], carry["theta"], carry["log_weight"]
         dist0, count0, eps0 = (carry["distance"], carry["count"],
                                carry["eps"])
-        rate0, safety0 = carry["rate"], carry["safety"]
         dev = theta0.device
         n_rows = m0.shape[0]
         valid0 = torch.arange(n_rows, device=dev) < count0
@@ -426,24 +477,51 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             dparams = distance_params
         params = {"distance": dparams, "acceptor": acc_params,
                   "model_log_probs": model_log_probs, "transition": trans}
+        screen = None
+        if fidelity:
+            # this generation's screen threshold from the carried pairs
+            # against its epsilon: a NaN-seeded ring (a fresh carry) or a
+            # weakly correlated surrogate gives +inf, no screen
+            tau, n_acc, corr = screen_calibration(
+                carry["cal_lo"], carry["cal_full"], eps_t, q=fid_q,
+                margin=fid_margin, min_corr=fid_min_corr,
+                min_pairs=fid_min_pairs)
+            params["fidelity"] = {"tau": tau}
+            screen = {"screen_tau": tau, "cal_pairs": n_acc,
+                      "cal_corr": corr}
+        return params, eps_t, grids_resolved, screen
 
-        dyn_rounds = round_cap(rate0, safety0, n_target, B, max_rounds,
+    def one_gen(carry: dict, generator: torch.Generator,
+                final: bool = False):
+        params, eps_t, grids_resolved, screen = schedule(carry, generator,
+                                                         final)
+        trans = params["transition"]
+        rate0, safety0 = carry["rate"], carry["safety"]
+        m_dtype = carry["m"].dtype
+        dev = carry["log_weight"].device
+
+        dyn_rounds = round_cap(rate0, safety0, n_target, eff_B, max_rounds,
                                rate_pred_factor)
 
         # rejection rounds, compacted in (round, lane) order; row `cap`
         # takes every dropped write
         bufs = {
-            "m": torch.zeros(cap + 1, dtype=m0.dtype, device=dev),
+            "m": torch.zeros(cap + 1, dtype=m_dtype, device=dev),
             "theta": torch.zeros(cap + 1, d, device=dev),
             "distance": torch.full((cap + 1,), math.nan, device=dev),
             "log_weight": torch.full((cap + 1,), -math.inf, device=dev),
             "stats": torch.zeros(cap + 1, s, device=dev),
         }
         count = torch.zeros((), dtype=torch.int64, device=dev)
+        if fidelity:
+            npass = torch.zeros((), dtype=torch.int64, device=dev)
         rounds = 0
         reads = 0
         while True:
             rr = raw_round(generator, params)
+            if fidelity:
+                rr, pairs = rr
+                npass = npass + pairs[2].sum()
             acc = rr.accepted
             pos = count + torch.cumsum(acc.to(torch.int64), 0) - 1
             idx = torch.where(acc & (pos < cap), pos,
@@ -452,7 +530,7 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                 bufs[key][idx] = getattr(rr, key)
             count = torch.clamp(count + acc.sum(), max=cap)
             rounds += 1
-            # the last round's candidates feed the refit / the ring
+            # the last round's candidates feed the refit / the rings
             last = rr
             reads += 1
             if not bool((count < n_target) & (rounds < dyn_rounds)):
@@ -524,11 +602,19 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
         if stoch:
             new_carry.update(ring)
             new_carry["rec_loggen"] = log_den_q[n_target:]
+        if fidelity:
+            # the last round's pairs go in at the front, the oldest rows
+            # fall off: the next threshold sees the newest stage
+            for key, new in zip(CAL_LANES, pairs[:2]):
+                new_carry[key] = torch.cat(
+                    [new.to(torch.float32), carry[key]])[:fid_cal_rows]
         wire = {"m": m1, "theta": theta1, "distance": dist1,
-                "log_weight": lw1, "stats": stats1, "count": count,
+                "log_weight": lw1, "count": count,
                 "rounds": torch.full((), rounds, dtype=torch.int64,
                                      device=dev),
                 "eps": eps_t}
+        if wire_stats:
+            wire["stats"] = stats1
         if summary_lanes:
             valid1 = torch.arange(n_target, device=dev) < count
             wire.update(summary_wire_lanes(m1, theta1, dist1, lw1, valid1,
@@ -540,9 +626,39 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                                   else p["support"]).shape[0]),
                      "compressed": "c_support" in p}
                     for p in trans_used]}
-        return new_carry, wire, info
+        if fidelity:
+            info.update(screen, screen_pass=npass, round_cap=dyn_rounds,
+                        max_rounds=max_rounds)
+        return encode_carry(new_carry, carry_precision), wire, info
 
     return one_gen
+
+
+class _WireSlots:
+    """The wire slots of one block or run: each generation's wire is
+    copied into slot ``k`` of buffers allocated at the first write (the
+    JAX package's stacked block outputs), so no generation's accept
+    buffers outlive its carry."""
+
+    def __init__(self, slots: int):
+        self.slots = int(slots)
+        self.bufs: Optional[dict] = None
+        self.written = 0
+
+    def write(self, wire: dict):
+        if self.bufs is None:
+            self.bufs = {k: torch.empty((self.slots,) + tuple(v.shape),
+                                        dtype=v.dtype, device=v.device)
+                         for k, v in wire.items()}
+        for k, v in wire.items():
+            self.bufs[k][self.written].copy_(v)
+        self.written += 1
+
+    def stacked(self) -> Optional[dict]:
+        """The written slots (leading axis = generations), or None."""
+        if not self.written:
+            return None
+        return {k: v[:self.written] for k, v in self.bufs.items()}
 
 
 def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
@@ -555,7 +671,10 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
                             adaptive_cfg: Optional[dict] = None,
                             stoch_cfg: Optional[dict] = None,
                             eps_sketch: bool = False,
-                            summary_lanes: bool = False):
+                            summary_lanes: bool = False,
+                            fidelity_cfg: Optional[dict] = None,
+                            carry_precision: str = "f32",
+                            wire_stats: bool = True):
     """``fused(carry, generator, final_mask=None) -> (carry, wires,
     infos)`` for K generations.
 
@@ -568,9 +687,12 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
     size each generation's round cap below ``max_rounds``); an adaptive
     distance adds ``dist_w`` [s] (the raw inverse-scale weights), the
     stochastic triple the record ring ``rec_m``, ``rec_theta``,
-    ``rec_dist``, ``rec_loggen`` (R rows) for the temperature solve.
+    ``rec_dist``, ``rec_loggen`` (R rows) for the temperature solve, the
+    fidelity cascade the calibration rings ``cal_lo``, ``cal_full``
+    (``cal_rows`` rows, NaN = empty).  The carry enters and leaves at its
+    ``carry_precision``.
 
-    ``wires`` stacks the K generations' outputs on the device (leading
+    ``wires`` holds the K generations' outputs on the device (leading
     axis K); ``infos`` holds each generation's host facts, with its KDE
     launches (``kde_launches``).  ``final_mask`` [K] (stochastic triple)
     marks the run's last generation, whose temperature is 1.
@@ -578,19 +700,22 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
     its wire.
 
     Every carry and wire tensor a block returns is freshly allocated (the
-    rejection buffers are new per generation): no later block writes
-    into a tensor an in-flight fetch or the device store still holds."""
+    rejection buffers are new per generation, the wire slots per block):
+    no later block writes into a tensor an in-flight fetch or the device
+    store still holds."""
     one_gen = build_one_gen(
         kernel, bandwidth_selectors, scalings, dims, n_target, B,
         max_rounds, d, s, eps_mode, eps_alpha, eps_multiplier,
         eps_weighted, distance_params, raw_round, support_cap=support_cap,
         rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
         stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
-        summary_lanes=summary_lanes)
+        summary_lanes=summary_lanes, fidelity_cfg=fidelity_cfg,
+        carry_precision=carry_precision, wire_stats=wire_stats)
 
     def fused(carry: dict, generator: torch.Generator,
               final_mask: Optional[List[bool]] = None):
-        wires, infos = [], []
+        slots = _WireSlots(K)
+        infos = []
         for k in range(K):
             launches0 = weighted_kde_logpdf_cuda.launches
             carry, wire, info = one_gen(
@@ -599,11 +724,9 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
                 else False)
             info["kde_launches"] = (weighted_kde_logpdf_cuda.launches
                                     - launches0)
-            wires.append(wire)
+            slots.write(wire)
             infos.append(info)
-        stacked = {key: torch.stack([wr[key] for wr in wires])
-                   for key in wires[0]}
-        return carry, stacked, infos
+        return carry, slots.stacked(), infos
 
     return fused
 
@@ -683,7 +806,10 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                           adaptive_cfg: Optional[dict] = None,
                           stoch_cfg: Optional[dict] = None,
                           eps_sketch: bool = False,
-                          summary_lanes: bool = False):
+                          summary_lanes: bool = False,
+                          fidelity_cfg: Optional[dict] = None,
+                          carry_precision: str = "f32",
+                          wire_stats: bool = True):
     """``onedispatch(carry, generator, ctl) -> (carry, ctl_out, wires)``:
     the rest of a run (at most ``ctl["t_limit"]`` <= ``max_T``
     generations) from ``carry``, with the stop chain after every
@@ -710,9 +836,9 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
     and ``gens`` (each generation's host facts as in the fused engine,
     with ``count``, ``kde_launches`` and ``sample_s``, its seconds up to
     its control read; the undershot one last).
-    ``wires`` stacks the written generations' outputs (leading axis
-    ``t``; with ``summary_lanes`` their ``sm_*`` lanes too), or is None
-    when none was written."""
+    ``wires`` holds the written generations' outputs (leading axis ``t``;
+    with ``summary_lanes`` their ``sm_*`` lanes too) in ``t_limit`` slots
+    allocated at the first write, or is None when none was written."""
     if max_T < 1:
         raise ValueError("max_T must be >= 1")
     one_gen = build_one_gen(
@@ -721,7 +847,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
         eps_weighted, distance_params, raw_round, support_cap=support_cap,
         rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
         stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
-        summary_lanes=summary_lanes)
+        summary_lanes=summary_lanes, fidelity_cfg=fidelity_cfg,
+        carry_precision=carry_precision, wire_stats=wire_stats)
     stoch = stoch_cfg is not None
     temperature = eps_mode == "temperature"
 
@@ -730,7 +857,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
         final_rel = int(ctl["final_rel"])
         t, stop, stop_t, stop_count, rounds_tot = 0, STOP_NONE, -1, 0, 0
         control_s = 0.0
-        wires, gens = [], []
+        slots = _WireSlots(t_limit)
+        gens = []
         while stop == STOP_NONE and t < t_limit:
             for _ in range(K):
                 gen_mark = time.perf_counter()
@@ -760,15 +888,13 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                 if code == STOP_UNDERSHOOT:
                     break
                 carry = new_carry
-                wires.append(wire)
+                slots.write(wire)
                 t += 1
                 if stop != STOP_NONE or t >= t_limit:
                     break
         ctl_out = {"t": t, "stop": stop, "stop_t": stop_t,
                    "stop_count": stop_count, "rounds": rounds_tot,
                    "control_s": control_s, "gens": gens}
-        stacked = ({key: torch.stack([wr[key] for wr in wires])
-                    for key in wires[0]} if wires else None)
-        return carry, ctl_out, stacked
+        return carry, ctl_out, slots.stacked()
 
     return onedispatch

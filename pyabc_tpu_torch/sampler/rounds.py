@@ -1,8 +1,8 @@
 """Per-generation candidate rounds.
 
-Port of ``RoundKernel`` from ``pyabc_tpu/sampler/rounds.py`` (the prior
-round, the generation round and the proposal density; the staged
-multi-fidelity round comes later).  One round proposes B candidates,
+Port of ``RoundKernel`` from ``pyabc_tpu/sampler/rounds.py``: the prior
+round, the generation round, the staged multi-fidelity round and the
+proposal density.  One round proposes B candidates,
 simulates every model on the whole batch and selects by model index
 (an ``IntegratedModel`` gets the round's epsilon and may reject
 candidates early), computes distances, accepts, and forms the log
@@ -19,6 +19,12 @@ Each round also marks the candidates that count as records (``valid``:
 inside the prior support) and their generating proposal's log density
 (``log_proposal``: the prior at t = 0, NaN where the density is
 deferred).
+
+Draw order of one round from the run's generator: the proposal (model
+source, jump, each model's transition draw), the simulations, then the
+acceptor's uniforms.  The staged round draws the proposal exactly as the
+generation round does, then the low-fidelity simulations on all B rows,
+the full-fidelity simulations on the slots, then the accept uniforms.
 """
 
 from __future__ import annotations
@@ -31,6 +37,8 @@ import torch
 
 from ..acceptor import Acceptor
 from ..distance.base import Distance
+from ..fidelity import compact_survivors, scatter_back, screen_mask
+from ..fidelity.config import FidelityConfig
 from ..model import IntegratedModel, Model
 from ..ops.choice import fast_weighted_choice
 from ..random_variables import Distribution, ModelPerturbationKernel
@@ -99,6 +107,29 @@ class RoundKernel:
                 s_j = self.spec.flatten(model.simulate(generator, theta_j))
             stats = torch.where(sel[:, None], s_j, stats)
         return stats, early
+
+    def low_models(self):
+        """Each model's low-fidelity variant (``Model.low_fidelity``),
+        built once; a None entry is a model with no surrogate (the
+        orchestrator's eligibility keeps such a run unscreened)."""
+        cached = getattr(self, "_low_models", None)
+        if cached is None:
+            cached = self._low_models = [model.low_fidelity()
+                                         for model in self.models]
+        return cached
+
+    def _simulate_all_low(self, generator, theta: torch.Tensor,
+                          m: torch.Tensor) -> torch.Tensor:
+        """:meth:`_simulate_all` with each model's low-fidelity variant,
+        which keeps the statistic layout (``screen_stats_compatible``);
+        no early-reject channel: the screen is the early rejection."""
+        stats = torch.zeros(theta.shape[0], self.spec.total_size,
+                            dtype=torch.float32, device=theta.device)
+        for j, model in enumerate(self.low_models()):
+            s_j = self.spec.flatten(model.simulate(
+                generator, theta[:, :self.priors[j].dim]))
+            stats = torch.where((m == j)[:, None], s_j, stats)
+        return stats
 
     def _evaluate(self, generator, theta, m, params, all_accepted=False):
         """Simulate + distance + accept: ``(stats, distance, accepted,
@@ -202,3 +233,70 @@ class RoundKernel:
 
     # read by the sampler (through the bound method) to decide deferral
     generation_round.supports_deferred_proposal = True
+
+    # ---- staged (multi-fidelity) generation round ------------------------
+
+    def staged_generation_round(self, generator, params: dict, B: int,
+                                full_fraction: float = 0.5,
+                                with_proposal: bool = True):
+        """Two stages: the cheap low-fidelity screen, then full fidelity
+        on the survivors only.
+
+        The proposal is :meth:`_propose`'s, as in
+        :meth:`generation_round`; then every candidate runs its model's
+        ``low_fidelity()`` variant, its distance is screened against
+        ``params["fidelity"]["tau"]`` (``fidelity.screen_threshold``,
+        computed by the block before the rounds), the first ``n_full =
+        ceil(B * full_fraction)`` survivors are compacted into slots,
+        simulated at full fidelity and put through the real accept test,
+        and the results scatter back to batch shape: a screened-out row
+        carries ``distance=+inf``, ``log_weight=-inf``, ``accepted=False``.
+
+        Returns ``(RoundResult, (plo[n_full], pfull[n_full], npass[1]))``:
+        the round's paired (low, full) distances (NaN in unused slots), the
+        next generation's calibration samples, and the survivor count
+        (int64).  No op reads the card."""
+        m, theta, log_prior, valid = self._propose(generator, params, B)
+
+        # low-fidelity stage on the whole batch
+        stats_lo = self._simulate_all_low(generator, theta, m)
+        d_lo = self.distance.compute(stats_lo, self.obs_flat,
+                                     params["distance"])
+        survive = screen_mask(d_lo, params["fidelity"]["tau"], valid)
+
+        # the survivors' slots, simulated at full fidelity
+        n_full = FidelityConfig.static_n_full(B, full_fraction)
+        idx, slot_ok, idx_c = compact_survivors(survive, n_full)
+        theta_f, m_f = theta[idx_c], m[idx_c]
+        eps = params.get("acceptor", {}).get("eps", math.inf)
+        stats_f, early_f = self._simulate_all(generator, theta_f, m_f, eps)
+        d_f = self.distance.compute(stats_f, self.obs_flat,
+                                    params["distance"])
+        acc_f, acc_w_f = self.acceptor.accept(generator, d_f,
+                                              params["acceptor"])
+        accepted_f = acc_f & ~early_f & torch.isfinite(d_f) & slot_ok
+
+        # the generation round's weight, on the slots
+        lw_f = log_prior[idx_c] + torch.log(torch.clamp(acc_w_f, min=1e-38))
+        if with_proposal:
+            log_denom_f = self.proposal_log_density(m_f, theta_f, params)
+            lw_f = lw_f - log_denom_f
+            log_proposal = scatter_back(idx, log_denom_f, B, math.nan)
+        else:
+            log_proposal = torch.full((B,), math.nan, device=theta.device)
+        lw_f = torch.where(accepted_f, lw_f, torch.full_like(lw_f,
+                                                             -math.inf))
+
+        nan = torch.full_like(d_f, math.nan)
+        pairs = (torch.where(slot_ok, d_lo[idx_c], nan),
+                 torch.where(slot_ok, d_f, nan), survive.sum()[None])
+        rr = RoundResult(
+            m=m, theta=theta,
+            distance=scatter_back(idx, d_f, B, math.inf),
+            accepted=scatter_back(idx, accepted_f, B, False),
+            log_weight=scatter_back(idx, lw_f, B, -math.inf),
+            stats=scatter_back(idx, stats_f, B, 0.0), valid=valid,
+            log_proposal=log_proposal)
+        return rr, pairs
+
+    staged_generation_round.supports_deferred_proposal = True

@@ -99,11 +99,14 @@ class VectorizedSampler(Sampler):
         self._tuner.observe_timing(compute_s, overlap_s)
 
     @staticmethod
-    def raw_round(round_fn, B: int):
+    def raw_round(round_fn, B: int, **round_kwargs):
         """The deferred round of ``round_fn`` at batch ``B``: ``(generator,
         params) -> RoundResult`` with partial weights (the proposal
-        density is left to the caller, once per generation)."""
-        return lambda gen, p: round_fn(gen, p, B, with_proposal=False)
+        density is left to the caller, once per generation);
+        ``round_kwargs`` go to every call (the staged round's
+        ``full_fraction``)."""
+        return lambda gen, p: round_fn(gen, p, B, with_proposal=False,
+                                       **round_kwargs)
 
     def _round_to_valid_batch(self, b: float) -> int:
         return int(np.clip(_pow2_at_least(b), self.min_batch_size,

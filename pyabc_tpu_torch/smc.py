@@ -67,9 +67,26 @@ row; History hydrates a population when it is read, and ``done()``
 writes every resident one, so the database holds the eager bits.
 ``"eager"`` fetches and writes every population as it comes.
 
-Not ported yet (ROADMAP): the multi-fidelity components, checkpoints,
-the spill journal, and the JAX package's fallback to the sequential
-loop after a failed pipelined dispatch (here it raises).
+``fidelity="screen"`` (or a :class:`~.fidelity.FidelityConfig`) runs the
+device engines' rounds as the multi-fidelity cascade when the
+configuration is screen-eligible (``_fidelity_eligible``): each round
+simulates every candidate's cheap surrogate, screens it against a
+threshold calibrated on the card from the previous generation's paired
+distances, and simulates only the survivors at full fidelity.  An
+ineligible configuration runs the exact unscreened engine.
+
+Before a device engine runs, the capacity model (:mod:`.capacity`) plans
+its memory against ``$PYABC_TPU_HBM_BUDGET`` (or the card's memory less
+``$PYABC_TPU_HBM_HEADROOM``): it may narrow the at-rest carry
+(``$PYABC_TPU_CARRY_PRECISION=auto``, :mod:`.ops.precision`), shrink the
+batch, K or the dispatch's generations, or raise a
+:class:`~.capacity.CapacityError` with its ledger; the plan is
+``timeline.capacity``.  ``$PYABC_TPU_JOINT_AUTOTUNE=1`` chooses each
+fused block's (K, round cap, batch) jointly (:mod:`.autotune.occupancy`).
+
+Not ported yet (ROADMAP): checkpoints, the spill journal, telemetry
+lanes, and the JAX package's fallback to the sequential loop after a
+failed pipelined dispatch (here it raises).
 """
 
 from __future__ import annotations
@@ -86,13 +103,17 @@ import numpy as np
 import torch
 
 from .acceptor import Acceptor, StochasticAcceptor, UniformAcceptor
+from .autotune import occupancy as _occupancy
+from .capacity import model as _capacity
 from .convert import to_numpy, to_torch
 from .device import make_generator, resolve_device
 from .distance import Distance, PNormDistance, StochasticKernel
 from .distance.kernel import SCALE_LIN
 from .epsilon import (ConstantEpsilon, Epsilon, MedianEpsilon,
                       TemperatureBase)
+from .fidelity import FidelityConfig
 from .model import Model, SimpleModel
+from .ops import precision as _precision
 from .ops.kde_cuda import weighted_kde_logpdf_cuda
 from .population import Population
 from .populationstrategy import ConstantPopulationSize, PopulationStrategy
@@ -119,6 +140,12 @@ logger = logging.getLogger("ABC")
 _ADAPTATION_FAILURES = (ValueError, ArithmeticError, np.linalg.LinAlgError,
                         torch.linalg.LinAlgError)
 
+#: with "1", a one-dispatch call on the card measures its peak device
+#: memory (``timeline.capacity["measured_bytes"]``), as it does under an
+#: explicit ``PYABC_TPU_HBM_BUDGET``; the auto-detected budget alone
+#: measures nothing
+CAPACITY_MEASURE_ENV = "PYABC_TPU_CAPACITY_MEASURE"
+
 STOP_EPS = "Stopping: minimum epsilon reached"
 STOP_SINGLE_MODEL = "Stopping: single model alive"
 STOP_ACC_RATE = "Stopping: acceptance rate too low"
@@ -130,6 +157,15 @@ STOP_REASONS = {_fused.STOP_EPS: STOP_EPS,
                 _fused.STOP_SINGLE_MODEL: STOP_SINGLE_MODEL,
                 _fused.STOP_ACC_RATE: STOP_ACC_RATE,
                 _fused.STOP_BUDGET: STOP_BUDGET}
+
+
+class Timeline(list):
+    """``ABCSMC.timeline``: one row per generation, and ``capacity``, the
+    last capacity plan (engine, precision, batch, K, max_T, predicted
+    bytes, budget, note; ``measured_bytes`` after a measured dispatch),
+    None before the first device engine."""
+
+    capacity: Optional[dict] = None
 
 
 def _pdf_support_rows(params: dict) -> dict:
@@ -168,6 +204,7 @@ class ABCSMC:
                  ingest_mode: str = "auto",
                  ingest_depth: int = 2,
                  history_mode: Optional[str] = None,
+                 fidelity=None,
                  seed: int = 0,
                  device=None):
         if not isinstance(models, (list, tuple)):
@@ -261,6 +298,23 @@ class ABCSMC:
         #: DeviceRunStore and appends summary rows; "eager" writes every
         #: population as it comes
         self.history_mode = history_mode
+        #: the multi-fidelity cascade: None ("off", the default) or the
+        #: resolved FidelityConfig, used where ``_fidelity_eligible``;
+        #: ``$PYABC_TPU_FIDELITY=off`` turns a request off
+        self.fidelity = FidelityConfig.resolve(fidelity)
+        #: the carry's at-rest precision ($PYABC_TPU_CARRY_PRECISION):
+        #: "auto" is resolved by the first capacity plan and then kept
+        cp = _precision.resolve_carry_precision()
+        self._carry_mode: Optional[str] = None if cp == "auto" else cp
+        self._carry_auto = cp == "auto"
+        #: joint (K, max_T, rung) tuning of fused blocks, opt-in
+        #: ($PYABC_TPU_JOINT_AUTOTUNE=1): a changed shape draws the run's
+        #: generator differently, so the default keeps the static shape
+        self._occupancy: Optional[_occupancy.OccupancyTuner] = None
+        if os.environ.get(_occupancy.JOINT_AUTOTUNE_ENV,
+                          "0") in ("1", "true", "yes"):
+            self._occupancy = _occupancy.OccupancyTuner(
+                k_max=max(self.fuse_generations, 1))
         self._store: Optional[_wire_store.DeviceRunStore] = None
         #: per-generation transfer-ledger deltas (wire/transfer.py), by t
         self.generation_transfer: Dict[int, dict] = {}
@@ -302,12 +356,20 @@ class ABCSMC:
         #: the card; None on the CPU); fused, pipelined and one-dispatch
         #: rows also carry rounds, host_reads (values the host read in the
         #: generation) and grids_resolved (None without a grid-compressed
-        #: support)
-        self.timeline: List[dict] = []
+        #: support), and screened rows sims_low (low-fidelity simulations:
+        #: rounds x B), sims_full (full-fidelity slots: rounds x n_full),
+        #: screen_pass (candidates that survived the screen), screen_tau
+        #: (the threshold; +inf: no screen), cal_pairs and cal_corr (the
+        #: acceptable calibration pairs and the correlation it was set
+        #: from), round_cap and max_rounds (the generation's round cap
+        #: and its ceiling)
+        self.timeline: Timeline = Timeline()
         #: one entry per fused block run: t (its first generation), K,
         #: written (generations kept; fewer than K after an undershoot or
         #: a stop), batch, rounds (of every generation it ran, discarded
-        #: ones included), host_reads, kde_launches, wall_s, stop
+        #: ones included), host_reads, kde_launches, wall_s, stop; a
+        #: screened block also round_caps (each generation's) and
+        #: max_rounds
         self.blocks: List[dict] = []
         self._refit_s = 0.0
         #: host seconds of the last population-size adaptation
@@ -606,6 +668,47 @@ class ABCSMC:
                 and getattr(self.eps, "device_stop_ok", False)
                 and self._fused_eligible())
 
+    def _fidelity_eligible(self) -> bool:
+        """Run the device engines' rounds as the fidelity cascade?  Opt-in
+        (``fidelity=``) on top of the device chain, with the screen's own
+        capability flags: the distance and the acceptor declare
+        ``device_screen_ok``, every model ships a ``low_fidelity()`` that
+        is ``screen_stats_compatible``, and neither the adaptive nor the
+        stochastic chain is on (their per-generation scale or temperature
+        is what a screen must not perturb).  An ineligible configuration
+        runs the exact unscreened engine."""
+        if self.fidelity is None:
+            return False
+        mode = self._block_mode()
+        if mode["adaptive"] or mode["stoch"]:
+            return False
+        if not getattr(self.distance_function, "device_screen_ok", False):
+            return False
+        if not getattr(self.acceptor, "device_screen_ok", False):
+            return False
+        for m in self.models:
+            if m.low_fidelity() is None:
+                return False
+            if not getattr(m, "screen_stats_compatible", False):
+                return False
+        return self._device_chain_eligible()
+
+    def _fidelity_block_cfg(self, B: int) -> dict:
+        """The ``fidelity_cfg`` of the block builders at batch ``B``
+        (``n_full``: a round's full-fidelity slots)."""
+        fid = self.fidelity
+        return {"q": fid.false_reject_q, "margin": fid.margin,
+                "min_corr": fid.min_corr, "min_pairs": fid.min_pairs,
+                "cal_rows": fid.cal_rows, "n_full": fid.n_full(B)}
+
+    def _fidelity_nan_seed(self, rows: int):
+        """Fresh, all-NaN calibration rings: a fresh run, a resumed one,
+        or any carry whose rings do not match the configuration starts
+        here, and ``fidelity.screen_threshold`` maps them to +inf — the
+        first screened generation runs unscreened."""
+        return (torch.full((rows,), math.nan, device=self.device),
+                torch.full((rows,), math.nan, device=self.device))
+
     def _note_sequential_gen_s(self, wall_s: float):
         """A sequential generation's seconds: the engine probe's
         baseline."""
@@ -662,16 +765,30 @@ class ABCSMC:
         """A block generation's round ceiling: 16, doubled up to 64 while
         the rate estimate (with a 4x margin for the in-block decay)
         predicts more; clamped below by ``min_acceptance_rate``'s budget,
-        past which the sequential loop would have stopped anyway."""
-        hi = 16
+        past which the sequential loop would have stopped anyway.
+
+        A screened block budgets against its full-fidelity slots, not the
+        batch: a round accepts at most ``n_full`` candidates (at worst the
+        self-disabled screen, where every valid candidate competes for
+        them), so its ceiling starts at ``16·r`` and grows to ``64·r``,
+        ``r = B / n_full``: the full-fidelity simulations an unscreened
+        block's ceiling allows.  The JAX package scales only the 64; with
+        16 rounds a screened block of a tightening schedule undershoots
+        once the in-block rate has fallen past the 4x margin (the SIR
+        screen at pop 5e4, batch 2^18: at t = 3 of a block from t = 1)."""
+        hi, hi_cap, B_eff = 16, 64, B
+        if self._fidelity_eligible():
+            B_eff = self.fidelity.n_full(B)
+            r = max(1, int(round(B / max(B_eff, 1))))
+            hi, hi_cap = 16 * r, 64 * r
         if rate_est is not None and rate_est > 0:
             need = int(np.ceil(
-                n / (max(float(rate_est), 1e-6) * B) * 4.0)) + 1
-            while hi < need and hi < 64:
+                n / (max(float(rate_est), 1e-6) * B_eff) * 4.0)) + 1
+            while hi < need and hi < hi_cap:
                 hi *= 2
         if self.min_acceptance_rate > 0:
             return int(np.clip(
-                np.ceil(n / (self.min_acceptance_rate * B)), 1, hi))
+                np.ceil(n / (self.min_acceptance_rate * B_eff)), 1, hi))
         return hi
 
     def _seed_block_carry(self, t: int, carry: dict, B: int,
@@ -684,6 +801,9 @@ class ABCSMC:
         mode = self._block_mode()
         eps_mode = self._eps_device_config()[0]
         dev = self.device
+        # a previous block's carry rests at the carry precision: the seed
+        # is built in float32 and narrowed again on exit
+        carry = _precision.decode_carry(carry, self._carry_precision())
         n = carry["theta"].shape[0]
 
         def scalar(v):
@@ -739,14 +859,24 @@ class ABCSMC:
                                               device=dev)
                 out["rec_dist"] = torch.full((R,), math.nan, device=dev)
                 out["rec_loggen"] = torch.zeros(R, device=dev)
-        return out
+        if self._fidelity_eligible():
+            rows = self.fidelity.cal_rows
+            if all(k in carry and carry[k].shape[0] == rows
+                   for k in _fused.CAL_LANES):
+                out.update({k: carry[k] for k in _fused.CAL_LANES})
+            else:
+                out["cal_lo"], out["cal_full"] = self._fidelity_nan_seed(rows)
+        return _precision.encode_carry(out, self._carry_precision())
 
     def _get_block_fn(self, t: int, n: int, B: int, K: int,
-                      summary: bool = False):
+                      summary: bool = False,
+                      max_rounds: Optional[int] = None):
         """The K-generation block of this configuration (``summary``: with
-        the ``sm_*`` summary lanes, for the lazy History)."""
+        the ``sm_*`` summary lanes, for the lazy History; ``max_rounds``:
+        the occupancy tuner's round cap)."""
         return self._get_engine_fn(_fused.build_fused_generations, t, n, B,
-                                   K=K, summary_lanes=summary)
+                                   max_rounds=max_rounds, K=K,
+                                   summary_lanes=summary)
 
     def _get_run_fn(self, t: int, n: int, B: int, K: int, max_T: int,
                     summary: bool = False):
@@ -758,16 +888,23 @@ class ABCSMC:
                                and self.M > 1), summary_lanes=summary)
 
     def _get_engine_fn(self, build: Callable, t: int, n: int, B: int,
-                       **static):
+                       max_rounds: Optional[int] = None, **static):
         """``build``'s engine for this configuration with the arguments a
         fused block and a one-dispatch run share, plus ``static`` (built
-        once per shape and schedule; a small dict cache)."""
+        once per shape, schedule, fidelity configuration and carry
+        precision; a small dict cache)."""
         samp = self.sampler
         d, s_width = self.dim, self.spec.total_size
         eps_mode, alpha, mult, weighted, eps_sketch = \
             self._eps_device_config()
-        max_rounds = self._block_max_rounds(n, B, rate_est=samp.rate_est)
+        if max_rounds is None:
+            max_rounds = self._block_max_rounds(n, B,
+                                                rate_est=samp.rate_est)
         mode = self._block_mode()
+        fid_on = self._fidelity_eligible()
+        fid_key = self.fidelity.digest_key() if fid_on else None
+        carry_prec = self._carry_precision()
+        wire_stats = bool(samp.fetch_stats)
         sup_cap = self.fused_support_cap
         record_rows = self._block_record_rows(B) if mode["stoch"] else 0
         pdf_norm = 0.0
@@ -780,7 +917,8 @@ class ABCSMC:
         key = (build.__name__, tuple(sorted(static.items())),
                self._kernel._uid, B, n, d, s_width, eps_mode, alpha, mult,
                weighted, eps_sketch, max_rounds, sup_cap, mode["adaptive"],
-               mode["stoch"], record_rows, pdf_norm)
+               mode["stoch"], record_rows, pdf_norm, fid_key, carry_prec,
+               wire_stats)
         fn = self._fused_cache.get(key)
         if fn is not None:
             return fn
@@ -800,6 +938,14 @@ class ABCSMC:
                              self.eps.schemes[0].target_rate),
                          "lin_scale": self.acceptor.kernel_scale == SCALE_LIN,
                          "record_rows": record_rows}
+        round_fn = self._kernel.generation_round
+        fidelity_cfg = None
+        round_kwargs = {}
+        if fid_on:
+            # the staged screen-then-verify round
+            round_fn = self._kernel.staged_generation_round
+            round_kwargs = {"full_fraction": self.fidelity.full_fraction}
+            fidelity_cfg = self._fidelity_block_cfg(B)
         fn = build(
             kernel=self._kernel,
             bandwidth_selectors=[tr.bandwidth_selector
@@ -812,23 +958,92 @@ class ABCSMC:
             # an adaptive distance's weights ride the carry
             distance_params=(None if mode["adaptive"] else to_torch(
                 self.distance_function.get_params(t), self.device)),
-            raw_round=samp.raw_round(self._kernel.generation_round, B),
+            raw_round=samp.raw_round(round_fn, B, **round_kwargs),
             support_cap=sup_cap,
             # a quantile schedule tightens ε every generation: the carried
             # rate over-predicts by about alpha
             rate_pred_factor=alpha if eps_mode == "quantile" else 1.0,
             adaptive_cfg=adaptive_cfg, stoch_cfg=stoch_cfg,
-            eps_sketch=eps_sketch, **static)
+            eps_sketch=eps_sketch, fidelity_cfg=fidelity_cfg,
+            carry_precision=carry_prec, wire_stats=wire_stats, **static)
         self._fused_cache[key] = fn
         while len(self._fused_cache) > 4:
             self._fused_cache.pop(next(iter(self._fused_cache)))
         return fn
 
-    def _host_wire(self, wires: dict) -> dict:
-        """The lanes of a device engine's wire that leave the card: the
-        stats only when a host reader needs them (``fetch_stats``)."""
-        return {k: v for k, v in wires.items()
-                if k != "stats" or self.sampler.fetch_stats}
+    # ---- capacity planning (capacity/model.py) --------------------------
+
+    def _carry_precision(self) -> str:
+        """The concrete at-rest carry mode of the engines built now: an
+        unresolved ``auto`` reads as f32 until the first capacity plan
+        pins it, and stays pinned so every block of a run shares one
+        carry layout."""
+        return self._carry_mode or "f32"
+
+    def _capacity_kwargs(self, engine: str, n: int, B: int) -> dict:
+        """The ledger's lanes of this configuration at batch ``B``."""
+        mode = self._block_mode()
+        return dict(
+            population=n, param_dim=self.dim,
+            stat_dim=self.spec.total_size, engine=engine,
+            wire_stats=bool(self.sampler.fetch_stats), models=self.M,
+            support_cap=self.fused_support_cap,
+            record_rows=(self._block_record_rows(B) if mode["stoch"]
+                         else 0),
+            cal_rows=(self.fidelity.cal_rows if self._fidelity_eligible()
+                      else 0),
+            # the lazy store's generations resident when the engine starts
+            # (the engine's own land in its wire slots)
+            store_gens=(len(self._store.resident_ts()) if self._lazy_active
+                        else 0))
+
+    def _capacity_feasible(self, engine: str, n: int):
+        """``feasible(K, max_T, B) -> bool`` over the capacity model for
+        the occupancy tuner, or None without a budget."""
+        budget = _capacity.resolved_budget_bytes(self.device)
+        if budget <= 0:
+            return None
+        prec = self._carry_precision()
+
+        def feasible(K: int, max_T: int, B: int) -> bool:
+            return _capacity.predict_peak_bytes(
+                batch=B, K=K, max_T=max_T, carry_precision=prec,
+                **self._capacity_kwargs(engine, n, B)) <= budget
+
+        return feasible
+
+    def _capacity_consult(self, engine: str, n: int, B: int, K: int,
+                          max_T: int, **lanes) -> _capacity.CapacityPlan:
+        """Plan a device engine's memory before it runs: resolve an
+        ``auto`` carry precision, shrink (B, K, max_T) to the budget where
+        needed, record the plan in ``timeline.capacity``, or raise
+        :class:`~.capacity.CapacityError` with the full ledger.  Without a
+        budget the plan comes back unconstrained and nothing changes.
+        ``lanes`` adds ledger lanes (a one-dispatch run's
+        ``wire_slots``)."""
+        prec = ("auto" if (self._carry_auto and self._carry_mode is None)
+                else self._carry_precision())
+        plan = _capacity.plan(
+            batch=B, K=K, max_T=max_T, carry_precision=prec,
+            round_to_batch=self.sampler._round_to_valid_batch,
+            device=self.device, **self._capacity_kwargs(engine, n, B),
+            **lanes)
+        if self._carry_auto and self._carry_mode is None:
+            self._carry_mode = plan.carry_precision
+        self.timeline.capacity = {
+            "engine": engine, "precision": plan.carry_precision,
+            "batch": plan.batch, "K": plan.K, "max_T": plan.max_T,
+            "devices": plan.devices,
+            "predicted_bytes": plan.predicted_bytes,
+            "budget_bytes": plan.budget_bytes, "note": plan.note,
+            "ledger": dict(plan.ledger)}
+        if plan.note == "clamped to fit budget":
+            logger.info(
+                "Capacity: clamped to fit a budget of %.1f MB -> batch=%d "
+                "K=%d max_T=%d carry_precision=%s (predicted %.1f MB)",
+                plan.budget_bytes / 2 ** 20, plan.batch, plan.K,
+                plan.max_T, plan.carry_precision, plan.predicted_mb)
+        return plan
 
     def _lazy_gen_fetch(self, t0: int):
         """A :class:`GenStream` fetch for the lazy History: deposit
@@ -902,7 +1117,7 @@ class ABCSMC:
             self.eps.temperatures[t_k] = eps
         logger.info("t: %d, eps: %.8g (%s), acceptance rate: %.4g, ESS: "
                     "%.4g, evals: %d", t_k, eps, path, acc_rate, ess, evals)
-        return pop, alive, {
+        row = {
             "t": t_k, "path": path, "eps": eps, "n": n, "accepted": count,
             "evaluations": evals, "acceptance_rate": acc_rate, "ess": ess,
             "batch": B, "rounds": rounds, "host_reads": info["host_reads"],
@@ -910,6 +1125,18 @@ class ABCSMC:
             "kde_launches": info["kde_launches"],
             "kde_support": info["kde_support"], "records": 0,
             "record_batches": 0, "refit_s": 0.0}
+        if "screen_pass" in info:
+            # the cascade's simulations: every candidate at low fidelity,
+            # every slot at full fidelity
+            row.update({"sims_low": evals,
+                        "sims_full": rounds * self.fidelity.n_full(B),
+                        "screen_pass": int(info["screen_pass"]),
+                        "screen_tau": float(info["screen_tau"]),
+                        "cal_pairs": int(info["cal_pairs"]),
+                        "cal_corr": float(info["cal_corr"]),
+                        "round_cap": int(info["round_cap"]),
+                        "max_rounds": info["max_rounds"]})
+        return pop, alive, row
 
     def _stop_after(self, eps: float, alive: int, acc_rate: float,
                     sims: int, max_total_nr_simulations) -> Optional[str]:
@@ -968,13 +1195,34 @@ class ABCSMC:
         if carry["theta"].shape[0] != n:
             return 0, 0, None
         B = samp.choose_batch(n)
+        occ_max_rounds = None
+        if self._occupancy is not None:
+            # K, the round cap and the batch chosen together, inside the
+            # capacity model's feasible set when a budget is active
+            K_j, max_T_j, B_j = self._occupancy.propose(
+                n, max(float(samp.rate_est or 0.0), 1e-6), B,
+                samp._round_to_valid_batch,
+                feasible=self._capacity_feasible("fused", n))
+            K = max(1, min(int(K_j), self.fuse_generations))
+            B = int(B_j)
+            occ_max_rounds = int(max_T_j)
+        plan = self._capacity_consult(
+            "fused", n, B, K,
+            occ_max_rounds or self._block_max_rounds(
+                n, B, rate_est=samp.rate_est))
+        if plan.note == "clamped to fit budget":
+            B = int(plan.batch)
+            K = max(1, min(int(plan.K), K))
+            if occ_max_rounds is not None:
+                occ_max_rounds = int(plan.max_T)
         mode = self._block_mode()
         carry_in = self._seed_block_carry(t, carry, B, samp.rate_est,
                                           samp.safety())
         if carry_in is None:
             return 0, 0, None
         lazy = self._lazy_active
-        fn = self._get_block_fn(t, n, B, K, summary=lazy)
+        fn = self._get_block_fn(t, n, B, K, summary=lazy,
+                                max_rounds=occ_max_rounds)
         on_card = self.device.type == "cuda"
 
         t0 = time.perf_counter()
@@ -984,7 +1232,7 @@ class ABCSMC:
             self._final_mask(t, K) if mode["stoch"] else None)
         dispatch_s = time.perf_counter() - t0
         engine = StreamingIngest(depth=self.ingest_depth)
-        stream = GenStream(engine, self._host_wire(wires), K, n,
+        stream = GenStream(engine, wires, K, n,
                            label=f"fused@t={t}",
                            fetch=self._lazy_gen_fetch(t) if lazy else None)
         written = 0
@@ -1031,11 +1279,19 @@ class ABCSMC:
         self.blocks.append({
             "t": t, "K": K, "written": written, "batch": B,
             "rounds": [info["rounds"] for info in infos],
+            # a screened block's caps: which one ended a short generation
+            **({"round_caps": [int(info["round_cap"]) for info in infos],
+                "max_rounds": infos[0]["max_rounds"]}
+               if "round_cap" in infos[0] else {}),
             "host_reads": sum(info["host_reads"] for info in infos),
             "kde_launches": sum(info["kde_launches"] for info in infos),
             "wall_s": block_s, "stop": stop_reason})
         if not written:
             return 0, sims_added, None
+        if self._occupancy is not None:
+            self._occupancy.observe_block(
+                K, B, [info["rounds"] for info in infos[:written]], block_s,
+                written)
         at_scale = n > self.PROBE_MIN_POP
         if at_scale and self._engine_choice is None:
             self._decide_engine(block_s / written)
@@ -1065,8 +1321,10 @@ class ABCSMC:
         sequential generation."""
         prep = Sample()
         if carry is not None:
+            # the carry rests narrowed; the host continuation reads float32
             self._fused_carry = carry
-            prep.device_population = carry
+            prep.device_population = _precision.decode_carry(
+                carry, self._carry_precision())
             if self._block_mode()["adaptive"]:
                 # the in-engine refit's weights for t: update() then keeps
                 # them and the ε update sees distances under them
@@ -1095,14 +1353,25 @@ class ABCSMC:
             return 0, 0, None
         B = samp.choose_batch(n)
         max_T = self.onedispatch_max_t
+
+        def generations_left(cap: int) -> int:
+            return (int(np.clip(t_max - t, 1, cap)) if np.isfinite(t_max)
+                    else cap)
+
+        # the dispatch allocates a wire slot per generation it may write
+        plan = self._capacity_consult("onedispatch", n, B, K, max_T,
+                                      wire_slots=generations_left(max_T))
+        if plan.note == "clamped to fit budget":
+            B = int(plan.batch)
+            K = max(1, min(int(plan.K), K))
+            max_T = int(plan.max_T)
         carry_in = self._seed_block_carry(t, carry, B, samp.rate_est,
                                           samp.safety())
         if carry_in is None:
             return 0, 0, None
         lazy = self._lazy_active
         i32max = int(np.iinfo(np.int32).max)
-        t_limit = (int(np.clip(t_max - t, 1, max_T))
-                   if np.isfinite(t_max) else max_T)
+        t_limit = generations_left(max_T)
         # integer-exact budget: total_sims + rounds * B >= max_total
         # <=> rounds >= ceil((max_total - total_sims) / B)
         budget_rounds = (int(np.clip(np.ceil(
@@ -1115,11 +1384,25 @@ class ABCSMC:
                              if np.isfinite(t_max) else i32max)}
         fn = self._get_run_fn(t, n, B, K, max_T, summary=lazy)
         on_card = self.device.type == "cuda"
+        # the measured side of the capacity model, on request (an explicit
+        # budget or the measure switch): the card's peak allocation over
+        # the dispatch, with everything resident before it
+        measure = on_card and (
+            bool(os.environ.get(_capacity.HBM_BUDGET_ENV, "").strip())
+            or os.environ.get(CAPACITY_MEASURE_ENV, "0")
+            in ("1", "true", "yes"))
+        if measure:
+            torch.cuda.synchronize(self.device)
+            torch.cuda.reset_peak_memory_stats(self.device)
 
         t0 = time.perf_counter()
         tr0 = transfer.snapshot()
         carry_out, ctl_out, wires = fn(carry_in, self.generator, ctl)
         dispatch_s = time.perf_counter() - t0
+        if measure:
+            torch.cuda.synchronize(self.device)
+            self.timeline.capacity["measured_bytes"] = int(
+                torch.cuda.max_memory_allocated(self.device))
         self.run_dispatches += 1
         self.control_roundtrip_s += ctl_out["control_s"]
         gens = ctl_out["gens"]
@@ -1129,7 +1412,7 @@ class ABCSMC:
         pop_k = None
         if ctl_out["t"]:
             engine = StreamingIngest(depth=self.ingest_depth)
-            stream = GenStream(engine, self._host_wire(wires), ctl_out["t"],
+            stream = GenStream(engine, wires, ctl_out["t"],
                                n, label=f"onedispatch@t={t}",
                                fetch=(self._lazy_gen_fetch(t) if lazy
                                       else None))
@@ -1259,6 +1542,12 @@ class ABCSMC:
                 return False
             B = samp._round_to_valid_batch(
                 n / max(st["rate_disp"], 1e-6) * st["safety_disp"])
+            plan = self._capacity_consult(
+                "fused", n, B, K,
+                self._block_max_rounds(n, B, rate_est=samp.rate_est))
+            if plan.note == "clamped to fit budget":
+                B = int(plan.batch)
+                K = max(1, min(int(plan.K), K))
             carry_in = self._seed_block_carry(t_d, carry, B, st["rate_disp"],
                                               st["safety_disp"])
             if carry_in is None:
@@ -1269,7 +1558,7 @@ class ABCSMC:
             carry_out, wires, infos = fn(
                 carry_in, self.generator,
                 self._final_mask(t_d, K) if mode["stoch"] else None)
-            stream = GenStream(ingest, self._host_wire(wires), K, n,
+            stream = GenStream(ingest, wires, K, n,
                                label=f"block@t={t_d}",
                                fetch=(self._lazy_gen_fetch(t_d) if lazy
                                       else None))
@@ -1395,7 +1684,9 @@ class ABCSMC:
                 samp.nr_evaluations_ += sims
             if rows:
                 complete = len(rows) == blk["K"]
-                st["last_dp"] = blk["carry_out"] if complete else None
+                st["last_dp"] = (_precision.decode_carry(
+                    blk["carry_out"], self._carry_precision())
+                    if complete else None)
                 if complete and mode["adaptive"]:
                     # pre-seed the host weight schedule with the in-block
                     # refit for t0 + K: a later sequential generation

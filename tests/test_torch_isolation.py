@@ -46,7 +46,11 @@ def test_port_files_exist():
                 "external/__init__.py", "external/base.py",
                 "transition/local_transition.py", "transition/randomwalk.py",
                 "transition/model_selection.py",
-                "transition/predict_population_size.py"):
+                "transition/predict_population_size.py",
+                "ops/precision.py", "capacity/__init__.py",
+                "capacity/model.py", "autotune/occupancy.py",
+                "fidelity/__init__.py", "fidelity/config.py",
+                "fidelity/calibrate.py", "fidelity/screen.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 
