@@ -177,7 +177,41 @@ Phases, each printed as one JSON line and each fatal on failure:
    quantum on its last population on the card; it reports the
    prediction's error in percent.
 
-Every phase before these pins ``history_mode="eager"``, and every run at
+12. ``telemetry1e6`` / ``chaos1e6`` / ``recover1e6`` / ``cudafaults`` —
+   the run infrastructure.  ``telemetry1e6`` runs ``onedispatch1e6``'s
+   configuration with lanes off, with lanes on and a trace, the fused
+   twin with lanes on, and lanes off again: populations bit-identical,
+   host reads = rounds + 1, ``tl_sims`` = rounds · B on every device row,
+   the phase attribution summing to the wall within 1e-9, the progress
+   word naming the last generation with its ε and count, the trace's
+   ``run``/``calibrate``/dispatch/ingest/append spans, the registry's
+   d2h bytes equal to the ledger's, and the lanes and the generator's
+   state save/restore free of host syncs.  ``chaos1e6`` runs the
+   pipelined defaults at pop 1e6 (ε 0.2, 9 generations) clean and under
+   (a) one dispatch fault (bit-identical, fired once), (b) a fetch and an
+   append fault (retries, full rows), (c) three faults on the third block
+   dispatch's attempts (found in a probe run): ``RetryExhausted``, the
+   sequential engine finishes the run, a flight dump, the durable prefix
+   bit-identical and p(B) within 2·max(2.5e-3, 2.5/√pop) of the clean
+   run's; and (d) ``run.drain@2`` on the one-dispatch engine against its
+   clean twin (the latch, the JAX package's paths, the same prefix and
+   p(B) gates).  ``recover1e6`` kills (-9) a child running ``run_gate``'s
+   configuration with lazy rows and a one-generation ring at its second
+   materialize: the victim lives only in the journal, ``load`` replays it
+   and compacts the journal, and the resumed run passes ``run_gate``;
+   then a child on the sequential engine with a sub-checkpoint per call of
+   one round is SIGTERM'd at the second call of generation 1: ``Preempted``,
+   1 ≤ n < pop rows flushed, the resume splices them with their
+   evaluations counted once.  ``cudafaults`` (a) caps the process with
+   ``torch.cuda.set_per_process_memory_fraction`` between the sequential
+   engine's reserved peaks at batches 2^21 and 2^20 (the ledger's midpoint
+   where it separates them): the OOM is retried, the batch halved, the
+   generation restarted, the run completed; (b) a child whose model gathers
+   out of bounds inside a one-dispatch run: one attempt, sticky, no retry
+   or latch, a non-zero exit naming the device-side assert.  Every other
+   phase must leave the retry and degradation counters where they were.
+
+Every phase of items 4–8 pins ``history_mode="eager"``, and every run at
 pop 1e6 among them ``ingest_mode="sequential"``, so that each measures
 the engine it did before the pipeline and the lazy rows became the
 defaults; ``onedispatch1e6`` adds a third one-dispatch run with lazy rows
@@ -238,7 +272,8 @@ ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "fusedpetab1e5", "onedispatch1e6", "onedispatchpetab1e5",
               "pipelined1e6", "pipelinedsir1e6", "library", "stats1e5",
               "adaptivepop", "local1e4", "fidelitysir5e4", "fidelitylv5e4",
-              "capacity1e7", "kernels")
+              "capacity1e7", "telemetry1e6", "chaos1e6", "recover1e6",
+              "cudafaults", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat", "capacity1e8",
                 "capacityspread")
@@ -1046,11 +1081,13 @@ def _timed_run(torch, abc, gens: int) -> dict:
     at_done = {}
     flush = h.flush_lazy
 
-    def flush_recording():
-        at_done.update(h._conn.execute(
-            "SELECT t, lazy FROM populations WHERE abc_smc_id=? AND t>=0",
-            (h.id,)).fetchall())
-        flush()
+    def flush_recording(*args, **kwargs):
+        # done() flushes first; the run's exit-path persist flushes again
+        if not at_done:
+            at_done.update(h._conn.execute(
+                "SELECT t, lazy FROM populations WHERE abc_smc_id=? AND "
+                "t>=0", (h.id,)).fetchall())
+        flush(*args, **kwargs)
 
     h.flush_lazy = flush_recording
     tr0, eg0 = transfer.snapshot(), transfer.egress_breakdown()
@@ -2869,6 +2906,762 @@ def phase_capacity1e8(torch, state):
           "generations": [generation_row(r) for r in abc.timeline]})
 
 
+# ---------------------------------------------------------------- run
+# infrastructure: telemetry, chaos, recovery, real CUDA faults
+
+
+#: the resilience counters a phase with no fault plan must leave at 0
+CLEAN_COUNTERS = ("resilience_retries_total", "resilience_degrade_total")
+#: phases that install faults or provoke them on the card
+FAULT_PHASES = ("chaos1e6", "recover1e6", "cudafaults")
+
+
+def resilience_counts() -> dict:
+    from pyabc_tpu_torch.telemetry import REGISTRY
+    d = REGISTRY.to_dict()
+    return {k: d.get(k, 0) for k in CLEAN_COUNTERS}
+
+
+def latches(abc) -> dict:
+    return {"fused_off": abc._fault_fused_off,
+            "onedispatch_off": abc._fault_onedispatch_off,
+            "sequential_only": abc._fault_sequential_only}
+
+
+def telemetry_od_run(torch, run_mode: str, lanes: bool,
+                     trace_path=None) -> tuple:
+    """``onedispatch1e6``'s configuration with the lanes switched on or
+    off (and a trace sink): ``(abc, wall_s, K1 launches)``."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.telemetry import spans
+
+    models, priors, distance, observed, _ = make_two_gaussians_problem()
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=ONEDISPATCH_POP,
+        eps=pt.ConstantEpsilon(0.2),
+        sampler=pt.VectorizedSampler(min_batch_size=1 << 19,
+                                     max_batch_size=1 << 19,
+                                     max_rounds_per_call=16, device="cuda"),
+        stores_sum_stats=False, fuse_generations=FUSE_K, run_mode=run_mode,
+        ingest_mode="sequential", history_mode="eager", seed=0,
+        trace_path=trace_path, device="cuda")
+    abc.telemetry_lanes = lanes
+    abc.new("sqlite://", observed)
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        abc.run(max_nr_populations=ONEDISPATCH_GENS)
+    finally:
+        spans.TRACER.reset()
+    torch.cuda.synchronize()
+    return abc, time.perf_counter() - t0, weighted_kde_logpdf_cuda.launches
+
+
+def phase_telemetry1e6(torch, state):
+    import tempfile
+
+    from pyabc_tpu_torch.telemetry import REGISTRY, lanes
+    from pyabc_tpu_torch.wire import transfer
+
+    B = 1 << 19
+    # the lanes and the generator's state read nothing back to the host
+    r = torch.tensor(7, dtype=torch.int64, device="cuda")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        tl = lanes.phase_wire_lanes(r, B, lanes.phase_cost_model(
+            B=B, n_target=ONEDISPATCH_POP, d=1, s=1, M=2,
+            eps_mode="constant", support_rows=1 << 14, adaptive=False))
+        gen.set_state(gen.get_state())
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    no_sync_ok = int(tl["tl_sims"]) == 7 * B
+    with tempfile.TemporaryDirectory() as tmp:
+        trace = str(Path(tmp) / "trace.jsonl")
+        a_off, wall_off, launches_off = telemetry_od_run(
+            torch, "onedispatch", False)
+        a_on, wall_on, launches_on = telemetry_od_run(
+            torch, "onedispatch", True, trace_path=trace)
+        word = lanes.PROGRESS.read()
+        a_f, wall_f, launches_f = telemetry_od_run(torch, "auto", True)
+        # a second lanes-off run, after the lanes-on ones: the first run
+        # of a process pays its one-off costs
+        a_off2, wall_off2, _ = telemetry_od_run(torch, "onedispatch", False)
+        with open(trace) as f:
+            events = [json.loads(line) for line in f]
+    od = [r for r in a_on.timeline if r["path"] == "onedispatch"]
+    fused = [r for r in a_f.timeline if r["path"] == "fused"]
+    stage_last = a_on.timeline.to_rows()[-1]
+
+    def phases_sum_ok(rows):
+        return all(abs(sum(r["ph_" + p + "_s"] for p in lanes.PHASES)
+                       - r["wall_s"]) <= 1e-9 * r["wall_s"] for r in rows)
+
+    by_name = {}
+    for e in events:
+        by_name.setdefault(e["name"], set()).add(e["args"].get("gen"))
+    gens = set(range(ONEDISPATCH_GENS))
+    checks = {
+        "no_host_sync_in_lanes": no_sync_ok,
+        "bit_identical": all(population_difference(a.history,
+                                                   a_on.history) is None
+                             for a in (a_off, a_f, a_off2)),
+        "paths": ([r["path"] for r in a_on.timeline]
+                  == ["sequential"] + ["onedispatch"] * 8
+                  and [r["path"] for r in a_f.timeline]
+                  == ["sequential"] + ["fused"] * 8),
+        "host_reads": all(r["host_reads"] == r["rounds"] + 1
+                          + (r["grids_resolved"] is not None) for r in od),
+        "tl_sims": all(r["tl_sims"] == r["rounds"] * B for r in od + fused),
+        "phases_sum_to_wall": phases_sum_ok(od) and phases_sum_ok(fused),
+        "lanes_off_rows": all("tl_sims" not in r for r in a_off.timeline),
+        "progress_word": (word is not None and not word["active"]
+                          and word["gen"] == od[-1]["t"]
+                          and word["gens_done"] == len(od)
+                          and float(word["eps"]) == float(
+                              torch.tensor(od[-1]["eps"]).item())
+                          and word["accepted"] == stage_last["accepted"]),
+        "trace_spans": (
+            {"run", "calibrate"} <= set(by_name)
+            and by_name.get("onedispatch.dispatch") == {1}
+            and by_name.get("onedispatch.ingest") == gens - {0}
+            and by_name.get("gen.append") == gens),
+        "registry_d2h": (REGISTRY.to_dict()["wire_d2h_bytes_total"]
+                         == transfer.snapshot()["d2h_bytes"]),
+        "latches_clear": not any(latches(a_on).values())
+        and not any(latches(a_f).values()),
+    }
+    row = {"pop": ONEDISPATCH_POP, "gens": ONEDISPATCH_GENS,
+           "ok": all(checks.values()), "checks": checks,
+           "wall_s_lanes_off": [wall_off, wall_off2],
+           "wall_s_lanes_on": wall_on, "wall_s_fused_lanes_on": wall_f,
+           "lanes_cost_s_per_gen": (wall_on - wall_off2) / len(od),
+           "trace_events": len(events), "progress_word": word,
+           "phases_med": {k: v for k, v in a_on.timeline.summary().items()
+                          if k.startswith("ph_")},
+           "generations": [{**generation_row(r), "tl_sims": r.get("tl_sims"),
+                            **{k: r[k] for k in r if k.startswith("ph_")}}
+                           for r in a_on.timeline]}
+    launches = state.setdefault("launches", {})
+    launches["telemetry1e6_lanes_on"] = launches_on
+    launches["telemetry1e6_lanes_off"] = launches_off
+    launches["telemetry1e6_fused"] = launches_f
+    emit({"phase": "telemetry1e6", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"telemetry1e6 failed its checks: {checks}")
+
+
+def _pipelined_abc(torch):
+    import pyabc_tpu_torch as pt
+
+    abc, posterior_fn = _config2_abc(pt.ConstantEpsilon(0.2))
+    return abc
+
+
+def _chaos_run(torch, make, plan_text=None, probe=None) -> dict:
+    """One run of ``make()`` under a fault plan (None: clean), with the
+    plan's firings, the resilience counters' deltas, the K1 launches and
+    the wall."""
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.resilience import faults
+
+    abc = make(torch)
+    plan = faults.install(faults.FaultPlan.parse(plan_text)) \
+        if plan_text else None
+    if probe is not None:
+        probe(abc)
+    before = resilience_counts()
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    try:
+        abc.run(max_nr_populations=NORTHSTAR_GENS)
+    finally:
+        faults.uninstall()
+    torch.cuda.synchronize()
+    after = resilience_counts()
+    return {"abc": abc, "wall_s": time.perf_counter() - t0,
+            "kde_launches": weighted_kde_logpdf_cuda.launches,
+            "fired": ({f"{k[0]}:{k[1]}": v for k, v in plan.fired.items()}
+                      if plan else {}),
+            "counters": {k: after[k] - before[k] for k in after},
+            "latches": latches(abc),
+            "paths": [r["path"] for r in abc.timeline]}
+
+
+def _full_rows(abc, n) -> bool:
+    import numpy as np
+
+    h = abc.history
+    return all(len(h.get_population(t)) == n
+               and abs(float(np.sum(h.get_population(t).weight)) - 1.0)
+               < 1e-4 for t in range(h.max_t + 1)) and \
+        h.max_t + 1 == NORTHSTAR_GENS
+
+
+def _p_b(abc) -> float:
+    h = abc.history
+    return float(h.get_model_probabilities(h.max_t).get(1, 0.0))
+
+
+def _durable_prefix_equal(abc, clean, upto: int):
+    """None when generations 0..upto-1 equal the clean twin's bit for
+    bit, else the first difference."""
+    import numpy as np
+
+    for t in range(upto):
+        a, b = abc.history.get_population(t), clean.history.get_population(t)
+        for key in ("m", "theta", "distance", "weight"):
+            if not np.array_equal(np.asarray(getattr(a, key)),
+                                  np.asarray(getattr(b, key))):
+                return f"t={t} {key}"
+    return None
+
+
+def phase_chaos1e6(torch, state):
+    import os
+    import tempfile
+
+    from pyabc_tpu_torch.resilience import faults
+
+    n = PIPELINED_POP
+    tol_p = 2 * max(2.5e-3, 2.5 / n ** 0.5)
+    runs, checks = {}, {}
+    runs["clean"] = _chaos_run(torch, _pipelined_abc)
+    clean = runs["clean"]
+    checks["clean_counters_zero"] = (
+        not any(clean["counters"].values())
+        and not any(clean["latches"].values()))
+    checks["clean_paths"] = (clean["paths"][0] == "sequential"
+                             and "pipelined" in clean["paths"])
+
+    # (a) one transient dispatch fault: absorbed bit for bit
+    runs["a"] = _chaos_run(torch, _pipelined_abc,
+                           "device.dispatch@3:raise=ConnectionResetError")
+    a = runs["a"]
+    checks["a_fired_once"] = a["fired"] == {"device.dispatch:raise": 1}
+    checks["a_bit_identical"] = population_difference(
+        a["abc"].history, clean["abc"].history) is None
+    checks["a_retried_once"] = a["counters"] == {
+        "resilience_retries_total": 1, "resilience_degrade_total": 0}
+
+    # (b) a fetch fault and a History write fault
+    runs["b"] = _chaos_run(torch, _pipelined_abc,
+                           "wire.fetch@2:raise=ConnectionResetError;"
+                           "history.append@1:raise=ConnectionResetError")
+    b = runs["b"]
+    checks["b_fired"] = b["fired"] == {"wire.fetch:raise": 1,
+                                       "history.append:raise": 1}
+    checks["b_retries"] = b["counters"]["resilience_retries_total"] >= 2
+    checks["b_full_rows"] = _full_rows(b["abc"], n)
+
+    # (c) RetryExhausted in the pipelined engine: the three attempts of
+    # the third block dispatch fail; the visits are counted in a probe
+    block_visits = []
+
+    def count_block_visits(abc):
+        plan = faults.active_plan()
+        call = abc._retry.call
+
+        def recording(fn, site, *args, **kw):
+            block_visits.append(plan.visits(site) + 1)
+            return call(fn, site, *args, **kw)
+
+        abc._retry.call = recording
+
+    runs["probe"] = _chaos_run(torch, _pipelined_abc,
+                               "device.dispatch@1000000000:delay=0",
+                               probe=count_block_visits)
+    v = block_visits[2]
+    flight_dir = tempfile.mkdtemp()
+    saved = {k: os.environ.get(k) for k in ("PYABC_TPU_FLIGHT_DIR",
+                                            "PYABC_TPU_RETRIES")}
+    os.environ["PYABC_TPU_FLIGHT_DIR"] = flight_dir
+    os.environ["PYABC_TPU_RETRIES"] = "3"
+    try:
+        runs["c"] = _chaos_run(
+            torch, _pipelined_abc,
+            ";".join(f"device.dispatch@{v + i}:raise=ConnectionResetError"
+                     for i in range(3)))
+    finally:
+        _env(**saved)
+    c = runs["c"]
+    dumps = sorted(Path(flight_dir).glob("flight_*.json"))
+    reasons = [json.loads(p.read_text())["reason"] for p in dumps]
+    checks["c_fired"] = c["fired"] == {"device.dispatch:raise": 3}
+    checks["c_sequential_only"] = c["latches"]["sequential_only"]
+    checks["c_sequential_after"] = (
+        c["paths"][:2] == clean["paths"][:2]
+        and all(p == "sequential" for p in c["paths"][2:]))
+    checks["c_flight_dump"] = "RetryExhausted:device.dispatch" in reasons
+    checks["c_durable_prefix"] = _durable_prefix_equal(
+        c["abc"], clean["abc"], 2) is None
+    checks["c_full_rows"] = _full_rows(c["abc"], n)
+    checks["c_p_b"] = abs(_p_b(c["abc"]) - _p_b(clean["abc"])) < tol_p
+
+    # (d) a drain fault in the one-dispatch engine, against its clean twin
+    def od_abc(torch):
+        import pyabc_tpu_torch as pt
+        from pyabc_tpu_torch.models import make_two_gaussians_problem
+
+        models, priors, distance, observed, _ = make_two_gaussians_problem()
+        abc = pt.ABCSMC(
+            models, priors, distance, population_size=n,
+            eps=pt.ConstantEpsilon(0.2),
+            sampler=pt.VectorizedSampler(min_batch_size=1 << 19,
+                                         max_batch_size=1 << 19,
+                                         max_rounds_per_call=16,
+                                         device="cuda"),
+            stores_sum_stats=False, fuse_generations=FUSE_K,
+            run_mode="onedispatch", seed=0, device="cuda")
+        abc.new("sqlite://", observed)
+        return abc
+
+    runs["od_clean"] = _chaos_run(torch, od_abc)
+    runs["d"] = _chaos_run(torch, od_abc,
+                           "run.drain@2:raise=ConnectionResetError")
+    od_clean, d = runs["od_clean"], runs["d"]
+    checks["od_clean_counters_zero"] = (
+        not any(od_clean["counters"].values())
+        and not any(od_clean["latches"].values()))
+    checks["d_fired"] = d["fired"] == {"run.drain:raise": 1}
+    checks["d_latch"] = (d["latches"]["onedispatch_off"]
+                         and not d["abc"]._onedispatch_eligible())
+    checks["d_paths"] = (d["paths"][:2] == ["sequential", "onedispatch"]
+                         and "onedispatch" not in d["paths"][2:])
+    checks["d_durable_prefix"] = _durable_prefix_equal(
+        d["abc"], od_clean["abc"], 2) is None
+    checks["d_full_rows"] = _full_rows(d["abc"], n)
+    checks["d_p_b"] = abs(_p_b(d["abc"]) - _p_b(od_clean["abc"])) < tol_p
+    checks = {k: bool(v) for k, v in checks.items()}
+    row = {"pop": n, "gens": NORTHSTAR_GENS, "ok": all(checks.values()),
+           "checks": checks, "tol_p": tol_p,
+           "block_dispatch_visits": block_visits, "c_first_visit": v,
+           "flight_reasons": reasons, "retries_env": 3,
+           "p_b": {k: _p_b(r["abc"]) for k, r in runs.items()},
+           "runs": {k: {kk: r[kk] for kk in ("wall_s", "kde_launches",
+                                             "fired", "counters",
+                                             "latches", "paths")}
+                    for k, r in runs.items()}}
+    launches = state.setdefault("launches", {})
+    for k, r in runs.items():
+        launches[f"chaos1e6_{k}"] = r["kde_launches"]
+    emit({"phase": "chaos1e6", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"chaos1e6 failed its checks: {checks}")
+
+
+#: the child processes of ``recover1e6``: they import the port and
+#: nothing of JAX or of the JAX package
+_NO_JAX = """
+import sys
+for name in ("jax", "jaxlib", "pyabc_tpu"):
+    sys.modules[name] = None
+sys.path.insert(0, ROOT)
+import pyabc_tpu_torch as pt
+from pyabc_tpu_torch.models import make_two_gaussians_problem
+models, priors, distance, observed, posterior_fn = \\
+    make_two_gaussians_problem()
+"""
+
+#: (a) run_gate's configuration through the defaults (the pipeline, lazy
+#: rows) with a one-generation store ring: each generation's bytes are
+#: journaled when the next deposit evicts it, and the kill lands at the
+#: second materialize, while the victim's bytes are only a journal
+#: payload
+_KILL_CHILD = """
+from pyabc_tpu_torch.resilience import faults
+faults.install(faults.FaultPlan.parse("history.materialize@2:sigkill"))
+abc = pt.ABCSMC(models, priors, distance, population_size=POP,
+                eps=pt.MedianEpsilon(),
+                sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
+                                             max_rounds_per_call=16,
+                                             device="cuda"),
+                stores_sum_stats=False, seed=0, history_mode="lazy",
+                device="cuda")
+abc.new(DB, observed)
+abc.run(max_nr_populations=11)
+sys.exit(3)
+"""
+
+#: (b) the sequential engine with a sub-checkpoint after every call of
+#: one round of 2^19: the SIGTERM lands at the second call of generation
+#: 1, counted in a probe run of generation 0
+_TERM_CHILD = """
+from pyabc_tpu_torch.resilience import faults
+from pyabc_tpu_torch.resilience.checkpoint import Preempted
+
+
+def make_abc(path):
+    abc = pt.ABCSMC(models, priors, distance, population_size=POP,
+                    eps=pt.MedianEpsilon(),
+                    sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
+                                                 max_rounds_per_call=1,
+                                                 device="cuda"),
+                    stores_sum_stats=False, seed=0,
+                    ingest_mode="sequential", history_mode="eager",
+                    checkpoint_every_rounds=1, device="cuda")
+    abc.new(path, observed)
+    return abc
+
+
+probe = faults.install(faults.FaultPlan.parse("preempt@999999999:sigterm"))
+make_abc(DB + ".probe").run(max_nr_populations=1)
+v0 = probe.visits(faults.SITE_PREEMPT)
+faults.install(faults.FaultPlan.parse("preempt@%d:sigterm" % (v0 + 2)))
+try:
+    make_abc(DB).run(max_nr_populations=11)
+except Preempted:
+    sys.exit(17)
+sys.exit(3)
+"""
+
+
+def _child(root, body: str, db: str, env=None):
+    import os
+    import subprocess as sp
+
+    code = (f"ROOT = {str(root)!r}\nDB = {db!r}\n"
+            f"POP = {PIPELINED_POP}\n" + _NO_JAX + body)
+    full = dict(os.environ)
+    for k in ("PYABC_TPU_FAULTS", "PYABC_TPU_STORE_GENS"):
+        full.pop(k, None)
+    full.update(env or {})
+    t0 = time.perf_counter()
+    proc = sp.run([sys.executable, "-c", code], env=full,
+                  capture_output=True, text=True, timeout=600)
+    return proc, time.perf_counter() - t0
+
+
+def _gate_run_gate(abc, posterior_fn, n) -> dict:
+    import numpy as np
+
+    h = abc.history
+    t = h.max_t
+    p_b = float(h.get_model_probabilities(t).get(1, 0.0))
+    df, w = h.get_distribution(m=1, t=t)
+    mu = float(np.sum(df["mu"].to_numpy() * w))
+    tol_p = max(2.5e-3, 2.5 / n ** 0.5)
+    tol_mu = max(3e-3, 3.0 / n ** 0.5)
+    return {"p_model_b": p_b, "p_analytic": float(posterior_fn(1.0)),
+            "mu_b": mu, "tol_p": tol_p, "tol_mu": tol_mu,
+            "ok": abs(p_b - posterior_fn(1.0)) < tol_p
+            and abs(mu - 1.0) < tol_mu}
+
+
+def phase_recover1e6(torch, state):
+    import sqlite3
+    import tempfile
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.resilience import checkpoint as ckpt
+    from pyabc_tpu_torch.resilience.journal import SpillJournal
+    from pyabc_tpu_torch.telemetry import REGISTRY
+
+    root = Path(__file__).resolve().parent
+    n = PIPELINED_POP
+    checks = {}
+    row = {"pop": n}
+    with tempfile.TemporaryDirectory() as tmp:
+        # (a) kill -9 with a generation's bytes only in the journal
+        db = str(Path(tmp) / "kill.db")
+        proc, secs = _child(root, _KILL_CHILD, db,
+                            env={"PYABC_TPU_STORE_GENS": "1"})
+        row["a_child_rc"] = proc.returncode
+        row["a_child_s"] = secs
+        checks["a_killed"] = proc.returncode == -9
+        if proc.returncode != -9:
+            row["a_child_stderr"] = proc.stderr[-3000:]
+        j = SpillJournal(db + ".journal")
+        pending = sorted(j.pending())
+        j.close()
+        with sqlite3.connect(db) as conn:
+            flags = dict(conn.execute(
+                "SELECT t, lazy FROM populations WHERE t >= 0"))
+        lazy_ts = sorted(t for t, lz in flags.items() if lz)
+        victim = lazy_ts[0] if len(lazy_ts) == 1 else None
+        row.update({"a_rows_at_kill": flags, "a_pending": pending,
+                    "a_victim": victim})
+        checks["a_only_journal_copy"] = (
+            victim is not None and victim >= 1 and victim in pending
+            and all(not flags[t] for t in range(victim)))
+        models, priors, distance, observed, posterior_fn = \
+            make_two_gaussians_problem()
+        abc = pt.ABCSMC(models, priors, distance, population_size=n,
+                        eps=pt.MedianEpsilon(),
+                        sampler=pt.VectorizedSampler(
+                            max_batch_size=1 << 19, max_rounds_per_call=16,
+                            device="cuda"),
+                        stores_sum_stats=False, seed=1,
+                        history_mode="lazy", device="cuda")
+        before = REGISTRY.to_dict().get(
+            "resilience_journal_replayed_total", 0)
+        abc.load(db)
+        replayed = REGISTRY.to_dict().get(
+            "resilience_journal_replayed_total", 0) - before
+        j = SpillJournal(db + ".journal")
+        checks["a_replayed"] = (replayed == 1
+                                and abc.history.max_t == victim
+                                and j.pending() == {})
+        j.close()
+        with sqlite3.connect(db) as conn:
+            checks["a_no_lazy_left"] = conn.execute(
+                "SELECT COUNT(*) FROM populations WHERE lazy = 1"
+            ).fetchone()[0] == 0
+        t0 = time.perf_counter()
+        abc.run(max_nr_populations=10 - (victim or 0))
+        torch.cuda.synchronize()
+        row["a_resume_s"] = time.perf_counter() - t0
+        h = abc.history
+        checks["a_full_rows"] = (h.max_t == 10 and all(
+            len(h.get_population(t)) == n for t in range(11)))
+        gate = _gate_run_gate(abc, posterior_fn, n)
+        row["a_gate"] = gate
+        checks["a_run_gate"] = gate["ok"]
+        checks["a_resume_clean"] = not any(latches(abc).values())
+
+        # (b) SIGTERM mid-generation in the sequential engine
+        db = str(Path(tmp) / "term.db")
+        proc, secs = _child(root, _TERM_CHILD, db)
+        row["b_child_rc"] = proc.returncode
+        row["b_child_s"] = secs
+        checks["b_preempted"] = proc.returncode == 17
+        if proc.returncode != 17:
+            row["b_child_stderr"] = proc.stderr[-3000:]
+        hist = pt.History(db, abc_id=1)
+        ck = hist.load_sub_checkpoint(1)
+        checks["b_ledger"] = (hist.max_t == 0 and ck is not None
+                              and 1 <= ck["n_accepted"] < n)
+        row["b_ledger"] = (None if ck is None else
+                           {k: ck[k] for k in ("rounds", "n_accepted",
+                                               "nr_evaluations")})
+        hist.close()
+        ckpt.clear_preempt()
+        abc = pt.ABCSMC(models, priors, distance, population_size=n,
+                        eps=pt.MedianEpsilon(),
+                        sampler=pt.VectorizedSampler(
+                            max_batch_size=1 << 19, max_rounds_per_call=16,
+                            device="cuda"),
+                        stores_sum_stats=False, seed=1,
+                        ingest_mode="sequential", history_mode="eager",
+                        checkpoint_every_rounds=1, device="cuda")
+        abc.load(db)
+        # this process's own evaluations of generation 1 (its first
+        # sampler call), before the splice adds the flushed ones
+        own = []
+        sample_fn = abc.sampler.sample_until_n_accepted
+
+        def recording(*args, **kw):
+            out = sample_fn(*args, **kw)
+            own.append(out.nr_evaluations)
+            return out
+
+        abc.sampler.sample_until_n_accepted = recording
+        t0 = time.perf_counter()
+        abc.run(max_nr_populations=3)
+        torch.cuda.synchronize()
+        row["b_resume_s"] = time.perf_counter() - t0
+        h = abc.history
+        pops = h.get_all_populations()
+        samples_1 = int(pops[pops.t == 1].samples.iloc[0])
+        row.update({"b_samples_t1": samples_1, "b_own_evals_t1": own[0]})
+        checks["b_spliced"] = (
+            h.load_sub_checkpoint(1) is None and ck is not None
+            and samples_1 == ck["nr_evaluations"] + own[0])
+        checks["b_full_rows"] = (h.max_t == 3 and all(
+            len(h.get_population(t)) == n for t in range(4)))
+    checks = {k: bool(v) for k, v in checks.items()}
+    row.update({"ok": all(checks.values()), "checks": checks})
+    emit({"phase": "recover1e6", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"recover1e6 failed its checks: {checks}")
+
+
+#: cudafaults (a): config #2 at pop 1e6 on the sequential engine, batch
+#: between these rungs
+OOM_POP = 1_000_000
+OOM_TOP = 1 << 21
+OOM_GENS = 4
+
+#: cudafaults (b): a model whose eighth call (in the one-dispatch run,
+#: after calibration and generation 0) gathers out of bounds on the card
+_ASSERT_CHILD = """
+import json
+import torch
+from pyabc_tpu_torch.resilience import retry
+from pyabc_tpu_torch.telemetry import REGISTRY
+
+fn = models[1]._fn
+calls = {"n": 0}
+
+
+def bad(generator, theta):
+    calls["n"] += 1
+    out = fn(generator, theta)
+    if calls["n"] == 8:
+        idx = torch.arange(theta.shape[0], device=theta.device) \
+            + theta.shape[0]
+        out = {k: v[idx] for k, v in out.items()}
+    return out
+
+
+models[1]._fn = bad
+abc = pt.ABCSMC(models, priors, distance, population_size=100000,
+                eps=pt.ConstantEpsilon(0.2),
+                sampler=pt.VectorizedSampler(min_batch_size=1 << 18,
+                                             max_batch_size=1 << 18,
+                                             device="cuda"),
+                fuse_generations=4, run_mode="onedispatch",
+                history_mode="eager", ingest_mode="sequential", seed=0,
+                device="cuda")
+abc.new("sqlite://", observed)
+try:
+    abc.run(max_nr_populations=6)
+except Exception as err:
+    d = REGISTRY.to_dict()
+    print(json.dumps({
+        "error": f"{type(err).__name__}: {err}"[:300],
+        "transient": retry.is_transient(err),
+        "sticky": retry.is_sticky_cuda_error(err),
+        "attempts": abc._retry.last_attempts,
+        "sampler_attempts": abc.sampler._retry.last_attempts,
+        "retries": d.get("resilience_retries_total", 0),
+        "degrades": d.get("resilience_degrade_total", 0),
+        "latches": [abc._fault_fused_off, abc._fault_onedispatch_off,
+                    abc._fault_sequential_only],
+        "gens_durable": abc.history.max_t + 1}), flush=True)
+    raise
+sys.exit(3)
+"""
+
+
+def oom_abc(batch_min: int, batch_max: int):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+
+    models, priors, distance, observed, _ = make_two_gaussians_problem()
+    abc = pt.ABCSMC(models, priors, distance, population_size=OOM_POP,
+                    sampler=pt.VectorizedSampler(
+                        min_batch_size=batch_min, max_batch_size=batch_max,
+                        max_rounds_per_call=16, device="cuda"),
+                    stores_sum_stats=False, seed=0,
+                    ingest_mode="sequential", history_mode="eager",
+                    device="cuda")
+    abc.new("sqlite://", observed)
+    return abc
+
+
+def _reserved_peak(torch, batch: int) -> int:
+    """Peak reserved bytes of ``OOM_GENS`` sequential generations pinned
+    at ``batch`` (calibration included), from an empty cache."""
+    import gc
+
+    abc = oom_abc(batch, batch)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_reserved()
+    abc.run(max_nr_populations=OOM_GENS)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_reserved() - base
+    del abc
+    gc.collect()
+    torch.cuda.empty_cache()
+    return peak
+
+
+def phase_cudafaults(torch, state):
+    import gc
+
+    from pyabc_tpu_torch.capacity import model as capacity
+    from pyabc_tpu_torch.resilience import retry
+
+    checks, row = {}, {}
+    # (a) a real out-of-memory at the top batch rung
+    half = OOM_TOP // 2
+    led = {B: sum(capacity.ledger(
+        population=OOM_POP, param_dim=1, stat_dim=1, engine="sequential",
+        batch=B, wire_stats=False, models=2,
+        support_cap=1 << 14).values()) for B in (OOM_TOP, half)}
+    peak = {B: _reserved_peak(torch, B) for B in (OOM_TOP, half)}
+    mid_ledger = (led[OOM_TOP] + led[half]) // 2
+    # the ledger's midpoint where it separates the measured rungs, else
+    # the measured midpoint (reported)
+    if peak[half] < mid_ledger < peak[OOM_TOP]:
+        limit, source = mid_ledger, "ledger"
+    else:
+        limit, source = (peak[half] + peak[OOM_TOP]) // 2, "measured"
+    total = torch.cuda.get_device_properties(0).total_memory
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_reserved()
+    fraction = (base + limit) / total
+    row.update({"ledger_bytes": led, "reserved_peak_bytes": peak,
+                "limit_bytes": limit, "limit_source": source,
+                "fraction": fraction, "base_reserved": base})
+    abc = oom_abc(half, OOM_TOP)
+    before = resilience_counts()
+    torch.cuda.set_per_process_memory_fraction(fraction)
+    try:
+        t0 = time.perf_counter()
+        abc.run(max_nr_populations=OOM_GENS)
+        torch.cuda.synchronize()
+        row["a_wall_s"] = time.perf_counter() - t0
+    finally:
+        torch.cuda.set_per_process_memory_fraction(1.0)
+    after = resilience_counts()
+    d = {k: after[k] - before[k] for k in after}
+    h = abc.history
+    row.update({"a_counters": d, "a_batches": [r["batch"]
+                                               for r in abc.timeline],
+                "a_max_batch_after": abc.sampler.max_batch_size})
+    checks["a_oom_is_transient"] = retry.is_transient(
+        torch.cuda.OutOfMemoryError("CUDA out of memory."))
+    checks["a_retries_used_up"] = d["resilience_retries_total"] >= 3
+    checks["a_degraded"] = (d["resilience_degrade_total"] >= 1
+                            and abc.sampler.max_batch_size == half)
+    checks["a_completed"] = (h.max_t + 1 == OOM_GENS and all(
+        len(h.get_population(t)) == OOM_POP for t in range(OOM_GENS)))
+    # generations before the failing one ran at the top rung; the
+    # failing one restarted, and every one after it ran, at the next
+    batches = row["a_batches"]
+    k = batches.index(half) if half in batches else len(batches)
+    checks["a_restarted_at_next_rung"] = (
+        0 < len(batches) - k
+        and batches == [OOM_TOP] * k + [half] * (len(batches) - k))
+    del abc
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) a device-side assert in a child: fatal, one attempt, no fallback
+    import tempfile
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        proc, secs = _child(root, _ASSERT_CHILD, str(Path(tmp) / "x.db"))
+    report = None
+    for line in proc.stdout.splitlines():
+        if line.startswith("{"):
+            report = json.loads(line)
+    row.update({"b_child_rc": proc.returncode, "b_child_s": secs,
+                "b_report": report})
+    checks["b_exit_nonzero"] = proc.returncode not in (0, 3)
+    checks["b_named"] = "device-side assert" in proc.stderr
+    checks["b_fatal_one_attempt"] = (
+        report is not None and report["sticky"]
+        and not report["transient"] and report["retries"] == 0
+        and report["attempts"] == 1 and report["degrades"] == 0
+        and not any(report["latches"]))
+    checks = {k: bool(v) for k, v in checks.items()}
+    row.update({"ok": all(checks.values()), "checks": checks})
+    emit({"phase": "cudafaults", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"cudafaults failed its checks: {checks}")
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -2914,6 +3707,8 @@ PHASES = {"card": phase_card, "build": phase_build,
           "fidelitylv5e4": phase_fidelitylv5e4,
           "capacity1e7": phase_capacity1e7, "capacity1e8": phase_capacity1e8,
           "capacityspread": phase_capacityspread,
+          "telemetry1e6": phase_telemetry1e6, "chaos1e6": phase_chaos1e6,
+          "recover1e6": phase_recover1e6, "cudafaults": phase_cudafaults,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 
@@ -2944,8 +3739,18 @@ def main(argv=None) -> int:
         phases.insert(0, "card")
     for name in phases:
         t0 = time.perf_counter()
+        counts = resilience_counts()
         try:
             PHASES[name](torch, state)
+            if name not in FAULT_PHASES:
+                # no fault plan: no retry, no degradation, no fallback
+                # latch (every latch counts a degradation) carried it
+                moved = {k: v - counts[k]
+                         for k, v in resilience_counts().items()
+                         if v != counts[k]}
+                if moved:
+                    raise RuntimeError(
+                        f"phase {name} retried or degraded: {moved}")
         except Exception as exc:  # report the phase, then fail the run
             emit({"phase": name, "ok": False,
                   "error": f"{type(exc).__name__}: {exc}",

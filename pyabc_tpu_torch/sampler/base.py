@@ -26,7 +26,8 @@ tensors), and the temperature schemes read the ratio of the two.
 population wire (``pyabc_tpu/sampler/base.py:87``): it waits on the
 producer's CUDA event (booked to the ledger's ``compute_s``), copies on a
 stream of its own into pinned host memory (``d2h_s``), and books the
-bytes.  With ``defer_wire_fetch`` the sampler leaves a generation's
+bytes, under the shared retry policy.  :meth:`Sampler._dispatch` is the
+device-dispatch chokepoint, under the sampler's own policy.  With ``defer_wire_fetch`` the sampler leaves a generation's
 accepted rows on the device as the ``Sample``'s pending wire, for the
 orchestrator to hand to a streaming-ingest worker or the device store.
 """
@@ -41,6 +42,9 @@ import numpy as np
 import torch
 
 from ..population import Population
+from ..resilience import faults as _faults
+from ..resilience import retry as _retry
+from ..telemetry import spans
 from ..wire import transfer
 
 _copy_streams = threading.local()
@@ -103,34 +107,47 @@ def fetch_to_host(tree, ready: Optional["torch.cuda.Event"] = None):
     copied (the caller may reuse the tensors) and no ``compute_s`` is
     booked: the producer already ran, so there is no wait to charge, and
     the autotuner, which reads the overlap ratio only when ``compute_s``
-    > 0, sizes a CPU run's batches independently of thread timing."""
+    > 0, sizes a CPU run's batches independently of thread timing.
+
+    The d2h retry chokepoint (``pyabc_tpu/sampler/base.py:158``): every
+    attempt runs under the shared retry policy at the ``wire.fetch``
+    site, on sampler loops and ingest workers alike; a failed attempt
+    books no bytes (the ledger commits only on success)."""
     cuda = [t for t in _tensors(tree, []) if t.is_cuda]
-    if cuda:
-        t0 = time.perf_counter()
-        if ready is None:
-            ready = mark_ready(tree)
-        ready.synchronize()
-        transfer.record_compute(time.perf_counter() - t0)
-    with transfer.timed_d2h() as timer:
+    if cuda and ready is None:
+        ready = mark_ready(tree)
+
+    def _fetch():
         if cuda:
-            stream = _copy_stream(cuda[0].device)
+            t0 = time.perf_counter()
+            ready.synchronize()
+            transfer.record_compute(time.perf_counter() - t0)
+        with spans.span("wire.fetch") as sp, \
+                transfer.timed_d2h() as timer:
+            if cuda:
+                stream = _copy_stream(cuda[0].device)
 
-            def copy(t):
-                if not t.is_cuda:
-                    return t.detach().clone()
-                t.record_stream(stream)
-                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                host.copy_(t, non_blocking=True)
-                return host
+                def copy(t):
+                    if not t.is_cuda:
+                        return t.detach().clone()
+                    t.record_stream(stream)
+                    host = torch.empty(t.shape, dtype=t.dtype,
+                                       pin_memory=True)
+                    host.copy_(t, non_blocking=True)
+                    return host
 
-            with torch.cuda.stream(stream):
-                stream.wait_event(ready)
-                pinned = _map(tree, copy)
-            stream.synchronize()
-            out = _map(pinned, lambda t: t.numpy())
-        else:
-            out = _map(tree, lambda t: t.detach().numpy().copy())
-    return timer.commit(out)
+                with torch.cuda.stream(stream):
+                    stream.wait_event(ready)
+                    pinned = _map(tree, copy)
+                stream.synchronize()
+                out = _map(pinned, lambda t: t.numpy())
+            else:
+                out = _map(tree, lambda t: t.detach().numpy().copy())
+        out = timer.commit(out)
+        sp.set(nbytes=transfer.tree_nbytes(out))
+        return out
+
+    return _retry.shared_policy().call(_fetch, _faults.SITE_FETCH)
 
 
 class RoundResult:
@@ -250,6 +267,22 @@ class Sample:
         self._pending_rows = 0
         if out["m"].shape[0]:
             self._acc.append(out)
+
+    def splice_front(self, batch: dict, nr_evaluations: int):
+        """Prepend rows restored from a mid-generation sub-checkpoint
+        (resilience/checkpoint.py): the preempted process flushed them
+        in round order BEFORE any row of this sample was drawn, so front
+        insertion keeps the round-order truncation.  Evaluations add
+        exactly (the flushed rounds ran once, in the killed process), and
+        the raw log-weights normalize together in
+        :meth:`get_accepted_population`.  The device view covers only
+        this process's rows, so it is dropped: device consumers rebuild
+        from the host population."""
+        self.resolve_pending()
+        self._acc.insert(0, batch)
+        self.nr_evaluations += int(nr_evaluations)
+        self.raw_accepted += int(batch["m"].shape[0])
+        self.device_population = None
 
     def append_record_batch(self, rec: dict):
         """Ingest one record harvest (``rec_<key>`` tensors whose first
@@ -389,6 +422,20 @@ class Sampler:
         #: when nothing reads them there (no History blob, no refit over
         #: accepted stats) and they stay on the device
         self.fetch_stats = True
+        #: bounded-backoff retry policy every device dispatch of a
+        #: sampler loop routes through (:meth:`_dispatch`)
+        self._retry = _retry.RetryPolicy.from_env()
+        #: mid-generation sub-checkpoint sink, set by the sequential run
+        #: path for one generation (resilience/checkpoint.py); None = off
+        self.checkpointer = None
+
+    def _dispatch(self, fn, *args, rng=None, restore=None):
+        """THE device-dispatch chokepoint of a sampler loop: transient
+        failures retry with backoff, injected faults have one site
+        (``device.dispatch``), and ``rng``/``restore`` make a retry the
+        same dispatch (resilience/retry.py)."""
+        return self._retry.call(fn, _faults.SITE_DISPATCH, *args, rng=rng,
+                                restore=restore)
 
     def sample_until_n_accepted(self, n: int, round_fn, generator, params,
                                 max_eval: float = np.inf,

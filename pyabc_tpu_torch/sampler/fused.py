@@ -66,9 +66,13 @@ screen threshold from them before its first round
 full-fidelity slots, and pushes the last round's (low, full) pairs in at
 the front of the rings, cut to ``cal_rows``.
 
-Not ported (ROADMAP): telemetry lanes, the in-dispatch progress word, the
-pod constraint, lane surgery and the ``narrow_wire`` codec: a
-generation's output is float32 tensors (the model index int64).
+``telemetry_lanes`` adds each generation's ``tl_*`` lanes
+(``telemetry/lanes.py``) to its wire, and a one-dispatch run advances its
+progress word after each generation's control read.
+
+Not ported (ROADMAP): the pod constraint, lane surgery and the
+``narrow_wire`` codec: a generation's output is float32 tensors (the
+model index int64).
 """
 
 from __future__ import annotations
@@ -86,6 +90,8 @@ from ..ops.choice import ordered_cumsum, systematic_weighted_choice
 from ..ops.kde_cuda import weighted_kde_logpdf_cuda
 from ..ops.precision import decode_carry, encode_carry
 from ..ops.quantile_sketch import sketch_weighted_quantile
+from ..telemetry.lanes import (phase_cost_model, phase_wire_lanes,
+                               progress_update)
 from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
 from ..wire.store import summary_wire_lanes
@@ -326,7 +332,8 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                   stoch_cfg: Optional[dict] = None,
                   eps_sketch: bool = False, summary_lanes: bool = False,
                   fidelity_cfg: Optional[dict] = None,
-                  carry_precision: str = "f32", wire_stats: bool = True):
+                  carry_precision: str = "f32", wire_stats: bool = True,
+                  telemetry_lanes: bool = False):
     """The per-generation body behind :func:`build_fused_generations`.
 
     ``eps_mode`` is ``"constant"``, ``"quantile"`` or ``"temperature"``
@@ -353,8 +360,13 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
     the round survivors, ``screen_tau``, the threshold, ``cal_pairs`` and
     ``cal_corr``, the acceptable pairs and the correlation it was set
     from, and ``round_cap``, the generation's round cap, as 0-d device
-    tensors, and ``max_rounds``, the ceiling of that cap).  ``final`` pins the
-    temperature to 1 (``Temperature``'s last-generation rule)."""
+    tensors, and ``max_rounds``, the ceiling of that cap).  ``final`` pins
+    the temperature to 1 (``Temperature``'s last-generation rule).
+    ``telemetry_lanes`` adds the ``tl_*`` lanes (``telemetry.lanes.
+    phase_wire_lanes`` of the generation's ``rounds`` tensor, and
+    ``tl_screen_pass`` under the screen) to the wire: arithmetic on the
+    round counter, no draw and no host read, so the population is the
+    same bits with and without them."""
     M = kernel.M
     cap = n_target + B
     stoch = stoch_cfg is not None
@@ -395,6 +407,12 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             factors = torch.as_tensor(factors, dtype=torch.float32,
                                       device=obs_flat.device)
     capped = support_cap is not None and n_target > support_cap
+    tl_cost = None
+    if telemetry_lanes:
+        tl_cost = phase_cost_model(
+            B=B, n_target=n_target, d=d, s=s, M=M, eps_mode=eps_mode,
+            support_rows=(support_cap if capped else n_target),
+            adaptive=adaptive, fidelity=fidelity)
 
     def schedule(carry: dict, generator: torch.Generator, final: bool):
         """This generation's ``(params, eps, grids_resolved, screen)``
@@ -619,6 +637,10 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             valid1 = torch.arange(n_target, device=dev) < count
             wire.update(summary_wire_lanes(m1, theta1, dist1, lw1, valid1,
                                            M))
+        if telemetry_lanes:
+            wire.update(phase_wire_lanes(wire["rounds"], B, tl_cost))
+            if fidelity:
+                wire["tl_screen_pass"] = npass
         info = {"rounds": rounds, "host_reads": reads,
                 "grids_resolved": resolved,
                 "kde_support": [
@@ -674,7 +696,8 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
                             summary_lanes: bool = False,
                             fidelity_cfg: Optional[dict] = None,
                             carry_precision: str = "f32",
-                            wire_stats: bool = True):
+                            wire_stats: bool = True,
+                            telemetry_lanes: bool = False):
     """``fused(carry, generator, final_mask=None) -> (carry, wires,
     infos)`` for K generations.
 
@@ -697,7 +720,7 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
     launches (``kde_launches``).  ``final_mask`` [K] (stochastic triple)
     marks the run's last generation, whose temperature is 1.
     ``summary_lanes`` adds each generation's ``sm_*`` summary lanes to
-    its wire.
+    its wire, ``telemetry_lanes`` its ``tl_*`` lanes.
 
     Every carry and wire tensor a block returns is freshly allocated (the
     rejection buffers are new per generation, the wire slots per block):
@@ -710,7 +733,8 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
         rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
         stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
         summary_lanes=summary_lanes, fidelity_cfg=fidelity_cfg,
-        carry_precision=carry_precision, wire_stats=wire_stats)
+        carry_precision=carry_precision, wire_stats=wire_stats,
+        telemetry_lanes=telemetry_lanes)
 
     def fused(carry: dict, generator: torch.Generator,
               final_mask: Optional[List[bool]] = None):
@@ -809,7 +833,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                           summary_lanes: bool = False,
                           fidelity_cfg: Optional[dict] = None,
                           carry_precision: str = "f32",
-                          wire_stats: bool = True):
+                          wire_stats: bool = True,
+                          telemetry_lanes: bool = False):
     """``onedispatch(carry, generator, ctl) -> (carry, ctl_out, wires)``:
     the rest of a run (at most ``ctl["t_limit"]`` <= ``max_T``
     generations) from ``carry``, with the stop chain after every
@@ -819,16 +844,19 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
     a Python loop over K-generation blocks of :func:`build_one_gen`'s
     body, drawing from ``generator`` as consecutive
     :func:`build_fused_generations` blocks do.  After each generation the
-    host reads one packed tensor (:func:`stop_code` and the accepted
-    count) and the loop ends on a code other than ``STOP_NONE`` or at
+    host reads one packed tensor (:func:`stop_code`, the accepted count
+    and ε) and the loop ends on a code other than ``STOP_NONE`` or at
     ``t_limit``; a generation short of ``n_target`` (``STOP_UNDERSHOOT``)
     is not written and leaves the carry as it was.
 
     ``ctl``: ``min_eps``, ``min_rate``, ``budget_rounds`` (whole rounds
     left in the simulation budget), ``t_limit`` and ``final_rel`` (the
     relative index from which the temperature is pinned to 1, stochastic
-    triple).  ``carry`` is the fused engine's; the returned one is the
-    last written generation's.  ``ctl_out``: ``t`` (generations written),
+    triple), and optionally ``run_tag``: the progress word
+    (``telemetry.lanes.PROGRESS``) this call advances after each written
+    generation's control read, from the values that read returned.
+    ``carry`` is the fused engine's; the returned one is the last written
+    generation's.  ``ctl_out``: ``t`` (generations written),
     ``stop``, ``stop_t`` (relative index of the generation that set the
     code, -1 without one), ``stop_count`` (its accepted count),
     ``rounds`` (every round run, the undershot generation's included),
@@ -848,13 +876,15 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
         rate_pred_factor=rate_pred_factor, adaptive_cfg=adaptive_cfg,
         stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
         summary_lanes=summary_lanes, fidelity_cfg=fidelity_cfg,
-        carry_precision=carry_precision, wire_stats=wire_stats)
+        carry_precision=carry_precision, wire_stats=wire_stats,
+        telemetry_lanes=telemetry_lanes)
     stoch = stoch_cfg is not None
     temperature = eps_mode == "temperature"
 
     def onedispatch(carry: dict, generator: torch.Generator, ctl: dict):
         t_limit = min(int(ctl["t_limit"]), max_T)
         final_rel = int(ctl["final_rel"])
+        run_tag = ctl.get("run_tag")
         t, stop, stop_t, stop_count, rounds_tot = 0, STOP_NONE, -1, 0, 0
         control_s = 0.0
         slots = _WireSlots(t_limit)
@@ -873,11 +903,16 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                     new_carry["log_weight"], new_carry["m"], n_target, B,
                     ctl["min_eps"], ctl["min_rate"], ctl["budget_rounds"],
                     kernel.M, temperature, single_model_stop)
-                packed = torch.stack([code, wire["count"]])
+                # float64 holds the code, the count and the float32 ε
+                # exactly: one read
+                packed = torch.stack([code.to(torch.float64),
+                                      wire["count"].to(torch.float64),
+                                      wire["eps"].to(torch.float64)])
                 if packed.is_cuda:
                     torch.cuda.synchronize(packed.device)
                 mark = time.perf_counter()
-                code, count = packed.tolist()
+                code, count, eps_host = packed.tolist()
+                code, count = int(code), int(count)
                 control_s += time.perf_counter() - mark
                 info["host_reads"] += 1
                 info["count"] = count
@@ -890,6 +925,9 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                 carry = new_carry
                 slots.write(wire)
                 t += 1
+                if run_tag is not None:
+                    progress_update(t, eps_host, count, rounds_tot,
+                                    run_tag=run_tag)
                 if stop != STOP_NONE or t >= t_limit:
                     break
         ctl_out = {"t": t, "stop": stop, "stop_t": stop_t,

@@ -27,6 +27,18 @@ fetched: a device copy of them becomes the ``Sample``'s pending wire
 producer, and the caller hands it to a streaming-ingest worker or the
 device store.  The copy matters: the loop's buffers are rewound and
 refilled by the next generation while the wire may still be in flight.
+
+Every loop call is a dispatch under the sampler's retry policy
+(``Sampler._dispatch``, the ``device.dispatch`` site) with the
+generator's state and the accept cursor put back before a retry, so a
+call that failed after its rounds had drawn retries the same draws.
+Before each call the loop visits the ``preempt`` site; with a
+``checkpointer`` (``GenCheckpointer``, set by the orchestrator for one
+generation) it flushes the cumulative accepted rows at the configured
+cadence — one d2h copy under ``egress("checkpoint")`` — and raises
+``Preempted`` after a flush once a SIGTERM arrived.
+:meth:`VectorizedSampler.degrade_rung` halves the batch ceiling after a
+retry-exhausted dispatch (``pyabc_tpu/sampler/vectorized.py:250``).
 """
 
 from __future__ import annotations
@@ -39,6 +51,9 @@ import numpy as np
 from ..autotune import BatchAutotuner
 from ..convert import to_torch
 from ..device import resolve_device
+from ..resilience import faults as _faults
+from ..resilience import retry as _retry
+from ..wire import transfer
 from .base import Sample, Sampler, SamplingError, fetch_to_host, mark_ready
 from .device_loop import build_stateful_loop, harvest_rec
 
@@ -112,6 +127,23 @@ class VectorizedSampler(Sampler):
         return int(np.clip(_pow2_at_least(b), self.min_batch_size,
                            self.max_batch_size))
 
+    def degrade_rung(self) -> Optional[int]:
+        """Graceful degradation after a retry-exhausted dispatch failure
+        (resilience/retry.py): halve the batch ceiling one rung, so a
+        memory-pressure failure gets a strictly smaller round on the
+        restart.  Returns the new ceiling, or None when already at the
+        floor (the caller re-raises).  Loop states of the old rung age
+        out of the bounded state cache."""
+        if self.max_batch_size <= self.min_batch_size:
+            return None
+        self.max_batch_size = max(self.max_batch_size // 2,
+                                  self.min_batch_size)
+        _retry.record_degrade("batch_rung_drop")
+        logger.warning(
+            "degrading batch ceiling to %d after repeated dispatch "
+            "failure", self.max_batch_size)
+        return self.max_batch_size
+
     def sample_until_n_accepted(self, n, round_fn, generator, params,
                                 max_eval=np.inf, all_accepted=False,
                                 defer_wire_fetch: bool = False) -> Sample:
@@ -127,8 +159,9 @@ class VectorizedSampler(Sampler):
             zero_rounds = 0
             while sample.n_accepted < n:
                 before = sample.n_accepted
-                sample.append_round(round_fn(generator, params, B,
-                                             all_accepted=True))
+                sample.append_round(self._dispatch(
+                    lambda: round_fn(generator, params, B,
+                                     all_accepted=True), rng=generator))
                 zero_rounds = (zero_rounds + 1
                                if sample.n_accepted == before else 0)
                 if zero_rounds >= 3:
@@ -168,21 +201,56 @@ class VectorizedSampler(Sampler):
             raw, B, n, self.max_rounds_per_call, weight_correction=weight_fn,
             record_cap=record_cap)
         state = reset(cached) if cached is not None else start()
+        wire_keys = None
         while True:
-            state = step(generator, params, state)
+            # the preemption probe: a `preempt@K:sigterm` fault plan
+            # delivers a real SIGTERM here, deterministically
+            # mid-generation (resilience/faults.py)
+            _faults.fault_point(_faults.SITE_PREEMPT)
+            # a failed attempt wrote only rows past the cursor: putting
+            # the cursor and the generator back makes the retry the same
+            # call (resilience/retry.py)
+            cursor = {k: state[k] for k in ("count", "rounds", "rec_count")}
+            state = self._dispatch(step, generator, params, state,
+                                   rng=generator,
+                                   restore=lambda: state.update(cursor))
             if record_cap:
                 rec, state = harvest_rec(state)
                 rec["record_density_fn"] = record_density_fn
                 sample.append_record_batch(rec)
             count, rounds = int(state["count"]), state["rounds"]
             self._tuner.observe(count, max(rounds * B, 1), rounds=rounds)
+            ck = self.checkpointer
+            if ck is not None and count < n:
+                if ck.should_flush(rounds):
+                    if (ck.manifest_source is not None
+                            and not ck.raw_required()):
+                        # lazy-History steady state: a manifest-only
+                        # heartbeat, no d2h
+                        ck.flush_manifest(rounds=rounds,
+                                          nr_evaluations=rounds * B)
+                    else:
+                        # the CUMULATIVE accepted rows: finalize reads the
+                        # buffers without changing them, so the rounds
+                        # that follow go on from the same state
+                        view = self._dispatch(finalize, state, params)
+                        wire_keys = [k for k in view
+                                     if k != "stats" or self.fetch_stats]
+                        with transfer.egress("checkpoint"):
+                            out_ck = fetch_to_host(
+                                {k: view[k] for k in wire_keys})
+                        ck.flush(out_ck, rounds=rounds,
+                                 nr_evaluations=rounds * B)
+                # the ledger is durable: a preemption signal now exits
+                # cleanly (Preempted) instead of racing the kill timeout
+                ck.maybe_raise_preempted()
             if count >= n:
                 break
             if rounds * B >= max_eval:
                 logger.warning("max_eval=%s reached with %d/%d accepted",
                                max_eval, count, n)
                 break
-        view = finalize(state, params)
+        view = self._dispatch(finalize, state, params)
         wire_keys = [k for k in view if k != "stats" or self.fetch_stats]
         if defer_wire_fetch and not record_cap:
             view = {k: v.clone() for k, v in view.items()}

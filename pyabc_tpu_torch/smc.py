@@ -84,9 +84,24 @@ batch, K or the dispatch's generations, or raise a
 ``timeline.capacity``.  ``$PYABC_TPU_JOINT_AUTOTUNE=1`` chooses each
 fused block's (K, round cap, batch) jointly (:mod:`.autotune.occupancy`).
 
-Not ported yet (ROADMAP): checkpoints, the spill journal, telemetry
-lanes, and the JAX package's fallback to the sequential loop after a
-failed pipelined dispatch (here it raises).
+Run infrastructure (:mod:`.telemetry`, :mod:`.resilience`): ``run()``
+is one ``run`` span with the JAX package's spans inside it (tracing on
+with ``trace_path=`` or ``$PYABC_TPU_TRACE``), each generation is a row
+of :class:`~.telemetry.GenerationTimeline` and a
+``metrics.record_generation`` call, the fused and one-dispatch engines
+carry ``tl_*`` telemetry lanes (``$PYABC_TPU_TELEMETRY_LANES``, default
+on) whose work units attribute each row's wall to phases, and a crash
+dumps the flight recorder and anchors the lazy tail.  Every dispatch runs
+under a retry policy with the run's generator put back before a retry
+(the same draws); a retry-exhausted dispatch degrades as in the JAX
+package: the sequential engine halves the batch ceiling
+(``degrade_rung``) and restarts the generation, a fused or one-dispatch
+engine latches itself off for the run, and the pipelined engine falls
+back to the sequential loop.  ``checkpoint_every_rounds`` (or
+``$PYABC_TPU_CKPT_ROUNDS``) flushes a sequential generation's accepted
+rows to History at that cadence and on SIGTERM, and a resumed run splices
+them back.  A lazy History write-aheads a spill journal that ``load``
+replays after a kill.
 """
 
 from __future__ import annotations
@@ -118,12 +133,22 @@ from .ops.kde_cuda import weighted_kde_logpdf_cuda
 from .population import Population
 from .populationstrategy import ConstantPopulationSize, PopulationStrategy
 from .random_variables import Distribution, ModelPerturbationKernel
+from .resilience import checkpoint as _ckpt
+from .resilience import faults as _faults
+from .resilience import retry as _retry
+from .resilience.journal import IntegrityError
 from .sampler import fused as _fused
 from .sampler.base import Sample, Sampler, fetch_to_host
 from .sampler.rounds import RoundKernel
 from .sampler.vectorized import VectorizedSampler, _pow2_at_least
 from .storage.history import PRE_TIME, History
 from .sumstat import SumStatSpec
+from .telemetry import flight as _flight
+from .telemetry import lanes as _lanes
+from .telemetry import metrics as _metrics
+from .telemetry import profile_generation
+from .telemetry import spans as _spans
+from .telemetry.timeline import GenerationTimeline
 from .transition import MultivariateNormalTransition, Transition
 from .transition.multivariatenormal import _COMPRESS_MIN_N
 from .weighted_statistics import effective_sample_size
@@ -157,15 +182,6 @@ STOP_REASONS = {_fused.STOP_EPS: STOP_EPS,
                 _fused.STOP_SINGLE_MODEL: STOP_SINGLE_MODEL,
                 _fused.STOP_ACC_RATE: STOP_ACC_RATE,
                 _fused.STOP_BUDGET: STOP_BUDGET}
-
-
-class Timeline(list):
-    """``ABCSMC.timeline``: one row per generation, and ``capacity``, the
-    last capacity plan (engine, precision, batch, K, max_T, predicted
-    bytes, budget, note; ``measured_bytes`` after a measured dispatch),
-    None before the first device engine."""
-
-    capacity: Optional[dict] = None
 
 
 def _pdf_support_rows(params: dict) -> dict:
@@ -205,6 +221,8 @@ class ABCSMC:
                  ingest_depth: int = 2,
                  history_mode: Optional[str] = None,
                  fidelity=None,
+                 checkpoint_every_rounds: Optional[int] = None,
+                 trace_path: Optional[str] = None,
                  seed: int = 0,
                  device=None):
         if not isinstance(models, (list, tuple)):
@@ -316,6 +334,27 @@ class ABCSMC:
             self._occupancy = _occupancy.OccupancyTuner(
                 k_max=max(self.fuse_generations, 1))
         self._store: Optional[_wire_store.DeviceRunStore] = None
+        #: Chrome-trace JSONL sink of this run's spans (None: the
+        #: ``$PYABC_TPU_TRACE`` variable, else tracing off)
+        self.trace_path = trace_path
+        #: ``tl_*`` telemetry lanes (and the progress word) in the fused
+        #: and one-dispatch engines ($PYABC_TPU_TELEMETRY_LANES, default
+        #: on); the populations are the same bits either way
+        self.telemetry_lanes = _lanes.lanes_enabled()
+        #: sub-checkpoint cadence of a sequential generation in device
+        #: rounds, checked after each sampler call (0: off; None:
+        #: $PYABC_TPU_CKPT_ROUNDS)
+        self.checkpoint_every_rounds = (
+            _ckpt.default_every_rounds() if checkpoint_every_rounds is None
+            else max(int(checkpoint_every_rounds), 0))
+        #: the retry policy of the engines' dispatches ($PYABC_TPU_RETRIES,
+        #: $PYABC_TPU_RETRY_BASE_S)
+        self._retry = _retry.RetryPolicy.from_env()
+        #: degradation latches: set after a retry-exhausted fused block,
+        #: a failed one-dispatch run or drain, a failed pipelined dispatch
+        self._fault_fused_off = False
+        self._fault_onedispatch_off = False
+        self._fault_sequential_only = False
         #: per-generation transfer-ledger deltas (wire/transfer.py), by t
         self.generation_transfer: Dict[int, dict] = {}
         #: per run(): one-dispatch calls made, and the seconds of their
@@ -362,8 +401,12 @@ class ABCSMC:
         #: (the threshold; +inf: no screen), cal_pairs and cal_corr (the
         #: acceptable calibration pairs and the correlation it was set
         #: from), round_cap and max_rounds (the generation's round cap
-        #: and its ceiling)
-        self.timeline: Timeline = Timeline()
+        #: and its ceiling); rows of a device engine with telemetry lanes
+        #: also tl_sims (the lane's simulations, rounds x B) and
+        #: ph_<phase>_s (telemetry.lanes.attribute_phases of the row's
+        #: wall).  ``timeline.to_rows()`` / ``summary()`` read the
+        #: JAX package's stage table of the same generations
+        self.timeline = GenerationTimeline()
         #: one entry per fused block run: t (its first generation), K,
         #: written (generations kept; fewer than K after an undershoot or
         #: a stop), batch, rounds (of every generation it ran, discarded
@@ -429,9 +472,10 @@ class ABCSMC:
                                stores_sum_stats=self.stores_sum_stats)
         self.x_0 = self._coerce_stats(self.history.observed_sum_stat())
         self._bind()
-        # summary rows whose device store died with an earlier process
-        # cannot be hydrated: max_t anchors on the last durable generation
-        self.history.purge_stale_lazy()
+        # replay what a killed lazy run left in its spill journal, then
+        # purge the summary rows nothing can hydrate: max_t anchors on
+        # the last durable generation
+        self.history.recover_lazy()
         return self.history
 
     def _bind(self):
@@ -475,6 +519,8 @@ class ABCSMC:
         ``ingest_mode="sequential"`` or a one-dispatch run; with an
         eligible device chain always for "overlap", from
         ``OVERLAP_MIN_POP`` for "auto"."""
+        if self._fault_sequential_only:
+            return False  # degraded after a pipelined dispatch failure
         if self.run_mode == "onedispatch" or self.ingest_mode == "sequential":
             return False
         if not self._device_chain_eligible():
@@ -651,8 +697,8 @@ class ABCSMC:
     def _fused_eligible(self) -> bool:
         """Run ``fuse_generations`` generations per block?  Needs K >= 2,
         the device chain, and — above PROBE_MIN_POP — no measured loss of
-        the fused engine."""
-        if self.fuse_generations < 2:
+        the fused engine, and no retry-exhausted block this run."""
+        if self._fault_fused_off or self.fuse_generations < 2:
             return False
         if (self.population_strategy(0) > self.PROBE_MIN_POP
                 and self._engine_choice == "sequential"):
@@ -663,8 +709,10 @@ class ABCSMC:
         """Run the rest of the run as one dispatch with the stop chain on
         the device?  Opt-in (``run_mode="onedispatch"``) on top of the
         fused engine's conditions, and the epsilon's stop test must be
-        exact on the device (``device_stop_ok``)."""
+        exact on the device (``device_stop_ok``); a failed one-dispatch
+        run or drain latches it off for the run."""
         return (self.run_mode == "onedispatch"
+                and not self._fault_onedispatch_off
                 and getattr(self.eps, "device_stop_ok", False)
                 and self._fused_eligible())
 
@@ -860,6 +908,11 @@ class ABCSMC:
                 out["rec_dist"] = torch.full((R,), math.nan, device=dev)
                 out["rec_loggen"] = torch.zeros(R, device=dev)
         if self._fidelity_eligible():
+            # the calibration-assembly fault site: a kill here dies with
+            # the previous generations durable; the restart seeds NaN
+            # rings and its first screened generation self-disables
+            _faults.fault_point(_faults.SITE_FIDELITY_CALIBRATE,
+                                data={"t": t})
             rows = self.fidelity.cal_rows
             if all(k in carry and carry[k].shape[0] == rows
                    for k in _fused.CAL_LANES):
@@ -905,6 +958,7 @@ class ABCSMC:
         fid_key = self.fidelity.digest_key() if fid_on else None
         carry_prec = self._carry_precision()
         wire_stats = bool(samp.fetch_stats)
+        lanes_on = bool(self.telemetry_lanes)
         sup_cap = self.fused_support_cap
         record_rows = self._block_record_rows(B) if mode["stoch"] else 0
         pdf_norm = 0.0
@@ -918,7 +972,7 @@ class ABCSMC:
                self._kernel._uid, B, n, d, s_width, eps_mode, alpha, mult,
                weighted, eps_sketch, max_rounds, sup_cap, mode["adaptive"],
                mode["stoch"], record_rows, pdf_norm, fid_key, carry_prec,
-               wire_stats)
+               wire_stats, lanes_on)
         fn = self._fused_cache.get(key)
         if fn is not None:
             return fn
@@ -965,7 +1019,8 @@ class ABCSMC:
             rate_pred_factor=alpha if eps_mode == "quantile" else 1.0,
             adaptive_cfg=adaptive_cfg, stoch_cfg=stoch_cfg,
             eps_sketch=eps_sketch, fidelity_cfg=fidelity_cfg,
-            carry_precision=carry_prec, wire_stats=wire_stats, **static)
+            carry_precision=carry_prec, wire_stats=wire_stats,
+            telemetry_lanes=lanes_on, **static)
         self._fused_cache[key] = fn
         while len(self._fused_cache) > 4:
             self._fused_cache.pop(next(iter(self._fused_cache)))
@@ -1102,14 +1157,18 @@ class ABCSMC:
                else float(eps_raw))
         acc_rate = count / max(evals, 1)
         names = [m.name for m in self.models]
-        if lazy:
-            self.history.append_population_lazy(
-                t_k, eps, evals, summary=payload, model_names=names,
-                param_names=self._param_names(), stat_spec=self.spec.shapes)
-        else:
-            self.history.append_population(
-                t_k, eps, pop, evals, names, self._param_names(),
-                stat_spec=self.spec.shapes)
+        append_mark = time.perf_counter()
+        with _spans.span("gen.append", gen=t_k):
+            if lazy:
+                self.history.append_population_lazy(
+                    t_k, eps, evals, summary=payload, model_names=names,
+                    param_names=self._param_names(),
+                    stat_spec=self.spec.shapes)
+            else:
+                self.history.append_population(
+                    t_k, eps, pop, evals, names, self._param_names(),
+                    stat_spec=self.spec.shapes)
+        append_s = time.perf_counter() - append_mark
         # the engine's ε/T is the durable schedule entry
         if eps_mode == "quantile":
             self.eps._look_up[t_k] = eps
@@ -1124,7 +1183,7 @@ class ABCSMC:
             "grids_resolved": info["grids_resolved"],
             "kde_launches": info["kde_launches"],
             "kde_support": info["kde_support"], "records": 0,
-            "record_batches": 0, "refit_s": 0.0}
+            "record_batches": 0, "refit_s": 0.0, "append_s": append_s}
         if "screen_pass" in info:
             # the cascade's simulations: every candidate at low fidelity,
             # every slot at full fidelity
@@ -1156,24 +1215,63 @@ class ABCSMC:
             return STOP_BUDGET
         return None
 
-    def _record(self, row: dict, tr: Optional[dict] = None):
-        """Append a timeline row with its wire-ledger share ``tr``."""
+    def _record(self, row: dict, tr: Optional[dict] = None,
+                accepted: Optional[int] = None,
+                lanes: Optional[dict] = None):
+        """Append a timeline row with its wire-ledger share ``tr``; book
+        the generation's stage row (``timeline.record``) and its
+        registry counters (``metrics.record_generation``).  ``lanes``:
+        the generation's fetched ``tl_*`` lanes, whose work units
+        attribute the row's wall to phases (``ph_<phase>_s``)."""
         tr = tr or {}
         row.update({"compute_s": tr.get("compute_s", 0.0),
                     "d2h_s": tr.get("d2h_s", 0.0),
                     "overlap_s": tr.get("overlap_s", 0.0),
                     "history_mode": ("lazy" if self._lazy_active
                                      else "eager")})
+        phases = None
+        if lanes and "tl_phase" in lanes:
+            phases = _lanes.attribute_phases(lanes["tl_phase"],
+                                             row["wall_s"])
+            row.update({f"ph_{k}_s": v for k, v in phases.items()})
+            row["tl_sims"] = int(lanes["tl_sims"])
         self.generation_transfer[row["t"]] = tr
         self.timeline.append(row)
+        compute = row["compute_s"]
+        fetch = tr.get("fetch_s", 0.0)
+        decode = tr.get("decode_s", 0.0)
+        if accepted is None:
+            accepted = int(round(row["acceptance_rate"]
+                                 * row["evaluations"]))
+        self.timeline.record(
+            row["t"], path=row["path"], wall_s=row["wall_s"],
+            stages={"adapt": row.get("adapt_s", 0.0) + row["refit_s"],
+                    "dispatch": max(0.0, row.get("sample_s", 0.0)
+                                    - compute - fetch - decode),
+                    "compute": compute, "fetch": fetch, "decode": decode,
+                    "append": row.get("append_s", 0.0)},
+            eps=row["eps"], accepted=accepted, total=row["evaluations"],
+            overlap_s=row["overlap_s"], engine=row.get("engine"),
+            phases=phases)
+        fid = {}
+        if "sims_low" in row:
+            fid = {"sims_low": row["sims_low"],
+                   "sims_full": row["sims_full"],
+                   "screen_pass": row["screen_pass"]}
+        _metrics.record_generation(
+            row["evaluations"], accepted, row["acceptance_rate"],
+            rounds=row.get("rounds"), wall_s=row["wall_s"], **fid)
 
-    def _observe_device_rows(self, rows: List[dict], tr: dict):
+    def _observe_device_rows(self, rows: List[dict], tr: dict,
+                             lanes: Optional[List[dict]] = None):
         """Time-stamped rows of a device engine into the timeline and the
-        autotuner, each with its share of the ledger delta ``tr``."""
+        autotuner, each with its share of the ledger delta ``tr`` and its
+        telemetry lanes."""
         share = {k: v / len(rows) for k, v in tr.items()}
-        for row in rows:
+        for i, row in enumerate(rows):
             accepted = row.pop("accepted")
-            self._record(row, share)
+            self._record(row, share, accepted=accepted,
+                         lanes=lanes[i] if lanes else None)
             self.sampler.observe_generation(
                 accepted, row["evaluations"], rounds=row["rounds"],
                 compute_s=share["compute_s"], overlap_s=share["overlap_s"])
@@ -1227,9 +1325,22 @@ class ABCSMC:
 
         t0 = time.perf_counter()
         tr0 = transfer.snapshot()
-        carry_out, wires, infos = fn(
-            carry_in, self.generator,
-            self._final_mask(t, K) if mode["stoch"] else None)
+        try:
+            with profile_generation(t), \
+                    _spans.span("fused.dispatch", gen=t, k=K):
+                carry_out, wires, infos = self._retry.call(
+                    fn, _faults.SITE_DISPATCH, carry_in, self.generator,
+                    self._final_mask(t, K) if mode["stoch"] else None,
+                    rng=self.generator)
+        except _retry.RetryExhausted as err:
+            # the block's inputs are untouched (it allocates its own
+            # buffers): the sequential engine redoes t from host state
+            logger.warning(
+                "fused block dispatch failed after retries (%s): "
+                "disabling generation fusion for this run", err)
+            self._fault_fused_off = True
+            _retry.record_degrade("fused_off")
+            return 0, 0, None
         dispatch_s = time.perf_counter() - t0
         engine = StreamingIngest(depth=self.ingest_depth)
         stream = GenStream(engine, wires, K, n,
@@ -1239,13 +1350,15 @@ class ABCSMC:
         stop_reason = None
         rounds_seen = 0
         rows = []
+        lanes = []
         pop_k = None
         try:
             for k in range(K):
                 t_k = t + k
                 if t_k >= t_max:
                     break
-                payload, count_k, rounds_k, eps_raw = stream.result()
+                with _spans.span("fused.ingest", gen=t_k):
+                    payload, count_k, rounds_k, eps_raw = stream.result()
                 rounds_seen += rounds_k
                 if count_k < n:
                     logger.info("fused block undershot at t=%d (%d/%d "
@@ -1259,6 +1372,7 @@ class ABCSMC:
                     break
                 pop_k, alive, row = got
                 rows.append(row)
+                lanes.append(stream.lanes)
                 written += 1
                 stop_reason = self._stop_after(
                     row["eps"], alive, row["acceptance_rate"],
@@ -1302,7 +1416,7 @@ class ABCSMC:
                         "wall_s": block_s / written,
                         "sample_s": dispatch_s / written,
                         "peak_mem_gb": peak})
-        self._observe_device_rows(rows, transfer.delta(tr0))
+        self._observe_device_rows(rows, transfer.delta(tr0), lanes)
         if stop_reason is None and t + written < t_max:
             if pop_k is None:
                 # lazy: the host continuation needs the last generation's
@@ -1395,9 +1509,34 @@ class ABCSMC:
             torch.cuda.synchronize(self.device)
             torch.cuda.reset_peak_memory_stats(self.device)
 
+        lanes_on = bool(self.telemetry_lanes)
+        run_tag = None
+        if lanes_on:
+            # this call's progress word, advanced after each written
+            # generation's control read
+            run_tag = _lanes.PROGRESS.begin(
+                t0=t, t_limit=t_limit,
+                run_id=getattr(self.history, "id", None))
+            ctl["run_tag"] = run_tag
+
         t0 = time.perf_counter()
         tr0 = transfer.snapshot()
-        carry_out, ctl_out, wires = fn(carry_in, self.generator, ctl)
+        try:
+            with profile_generation(t), \
+                    _spans.span("onedispatch.dispatch", gen=t,
+                                max_t=t_limit):
+                carry_out, ctl_out, wires = self._retry.call(
+                    fn, _faults.SITE_DISPATCH, carry_in, self.generator,
+                    ctl, rng=self.generator)
+        except _retry.RetryExhausted as err:
+            logger.warning(
+                "one-dispatch run failed after retries (%s): degrading "
+                "to the per-block paths for this run", err)
+            self._fault_onedispatch_off = True
+            _retry.record_degrade("onedispatch_off")
+            if lanes_on:
+                _lanes.PROGRESS.finish(run_tag)
+            return 0, 0, None
         dispatch_s = time.perf_counter() - t0
         if measure:
             torch.cuda.synchronize(self.device)
@@ -1409,28 +1548,54 @@ class ABCSMC:
         stop_code = ctl_out["stop"]
         written = 0
         rows = []
+        lanes = []
         pop_k = None
-        if ctl_out["t"]:
-            engine = StreamingIngest(depth=self.ingest_depth)
-            stream = GenStream(engine, wires, ctl_out["t"],
-                               n, label=f"onedispatch@t={t}",
-                               fetch=(self._lazy_gen_fetch(t) if lazy
-                                      else None))
-            try:
-                for k in range(ctl_out["t"]):
-                    payload, count_k, rounds_k, eps_raw = stream.result()
-                    got = self._append_device_generation(
-                        t + k, payload, count_k, rounds_k, eps_raw, B, n,
-                        gens[k], "onedispatch", lazy)
-                    if got is None:
-                        break
-                    pop_k, _, row = got
-                    rows.append({**row, "engine": "onedispatch",
-                                 "sample_s": gens[k]["sample_s"]})
-                    written += 1
-            finally:
-                stream.abandon()
-                engine.close()
+        drain_error = None
+        interrupted = None
+        try:
+            if ctl_out["t"]:
+                engine = StreamingIngest(depth=self.ingest_depth)
+                stream = GenStream(engine, wires, ctl_out["t"],
+                                   n, label=f"onedispatch@t={t}",
+                                   fetch=(self._lazy_gen_fetch(t) if lazy
+                                          else None))
+                try:
+                    for k in range(ctl_out["t"]):
+                        if _ckpt.preempt_requested():
+                            interrupted = ("Stopping: preemption requested "
+                                           "(SIGTERM)")
+                            break
+                        _faults.fault_point(_faults.SITE_DRAIN,
+                                            data={"t": t + k})
+                        with _spans.span("onedispatch.ingest", gen=t + k):
+                            payload, count_k, rounds_k, eps_raw = \
+                                stream.result()
+                        got = self._append_device_generation(
+                            t + k, payload, count_k, rounds_k, eps_raw, B,
+                            n, gens[k], "onedispatch", lazy)
+                        if got is None:
+                            break
+                        pop_k, _, row = got
+                        rows.append({**row, "engine": "onedispatch",
+                                     "sample_s": gens[k]["sample_s"]})
+                        lanes.append(stream.lanes)
+                        written += 1
+                finally:
+                    stream.abandon()
+                    engine.close()
+        except Exception as err:  # noqa: BLE001 — degrade, don't die
+            if _retry.is_sticky_cuda_error(err):
+                raise  # the context is gone: no engine can go on
+            drain_error = err
+        finally:
+            if lanes_on:
+                _lanes.PROGRESS.finish(run_tag)
+        if drain_error is not None:
+            logger.warning(
+                "one-dispatch drain failed at t=%d (%s): degrading to the "
+                "per-block paths for this run", t + written, drain_error)
+            self._fault_onedispatch_off = True
+            _retry.record_degrade("onedispatch_off")
         if lazy:
             self._store.drop_from(t + written)
         # every generation the dispatch ran counts against the budget,
@@ -1438,8 +1603,11 @@ class ABCSMC:
         sims_added = ctl_out["rounds"] * B
         samp.nr_evaluations_ += sims_added
         stop_reason = None
-        clean = written == ctl_out["t"]
-        if clean and stop_code == _fused.STOP_UNDERSHOOT:
+        clean = (written == ctl_out["t"] and drain_error is None
+                 and interrupted is None)
+        if interrupted is not None:
+            stop_reason = interrupted
+        elif clean and stop_code == _fused.STOP_UNDERSHOOT:
             logger.info("one-dispatch run undershot at t=%d (%d/%d "
                         "accepted): falling back to the sequential path",
                         t + ctl_out["stop_t"], ctl_out["stop_count"], n)
@@ -1454,7 +1622,7 @@ class ABCSMC:
         for row in rows:
             row.update({"wall_s": row["sample_s"] + host_s,
                         "peak_mem_gb": peak})
-        self._observe_device_rows(rows, transfer.delta(tr0))
+        self._observe_device_rows(rows, transfer.delta(tr0), lanes)
         if stop_reason is None and t + written < t_max:
             if pop_k is None:
                 pop_k = self.history.hydrate_population(t + written - 1)
@@ -1555,9 +1723,14 @@ class ABCSMC:
                 return False
             fn = self._get_block_fn(t_d, n, B, K, summary=lazy)
             mark = time.perf_counter()
-            carry_out, wires, infos = fn(
-                carry_in, self.generator,
-                self._final_mask(t_d, K) if mode["stoch"] else None)
+            # RetryExhausted propagates to run(), which falls back to the
+            # sequential loop from the History frontier
+            with profile_generation(t_d), \
+                    _spans.span("pipeline.dispatch", gen=t_d, k=K):
+                carry_out, wires, infos = self._retry.call(
+                    fn, _faults.SITE_DISPATCH, carry_in, self.generator,
+                    self._final_mask(t_d, K) if mode["stoch"] else None,
+                    rng=self.generator)
             stream = GenStream(ingest, wires, K, n,
                                label=f"block@t={t_d}",
                                fetch=(self._lazy_gen_fetch(t_d) if lazy
@@ -1601,9 +1774,9 @@ class ABCSMC:
             logger.info("t: %d, eps: %.8g", t, current_eps)
             launches0 = weighted_kde_logpdf_cuda.launches
             mark = time.perf_counter()
-            sample = samp.sample_until_n_accepted(
-                n, round_fn, self.generator, params, max_eval=max_eval,
-                defer_wire_fetch=True)
+            with profile_generation(t), _spans.span("gen.sample", gen=t):
+                sample = self._sample_generation(
+                    n, round_fn, params, max_eval, defer=True)
             if sample.n_accepted < n:
                 st["stop"] = ("Stopping: acceptance rate fell below "
                               "min_acceptance_rate (%d/%d accepted)"
@@ -1645,13 +1818,15 @@ class ABCSMC:
 
         def harvest_block(blk: dict) -> List[dict]:
             rows = []
+            blk["lanes"] = []
             rounds_seen = 0
             base_sims = st["total_sims"]
             try:
                 for k in range(blk["K"]):
                     t_k = blk["t0"] + k
-                    payload, count_k, rounds_k, eps_raw = \
-                        blk["stream"].result()
+                    with _spans.span("pipeline.harvest", gen=t_k, k=k):
+                        payload, count_k, rounds_k, eps_raw = \
+                            blk["stream"].result()
                     rounds_seen += rounds_k
                     if count_k < blk["n"]:
                         logger.info("pipelined block undershot at t=%d "
@@ -1667,6 +1842,7 @@ class ABCSMC:
                         break
                     pop_k, alive, row = got
                     rows.append(row)
+                    blk["lanes"].append(blk["stream"].lanes)
                     st["t"] = t_k + 1
                     st["last_pop"] = pop_k
                     st["stop"] = self._stop_after(
@@ -1699,7 +1875,8 @@ class ABCSMC:
         def harvest_sequential(blk: dict) -> List[dict]:
             row = blk["row"]
             if blk["kind"] == "seq":
-                gens, _, _, _ = blk["ticket"].result()
+                with _spans.span("pipeline.harvest", gen=row["t"], k=1):
+                    gens, _, _, _ = blk["ticket"].result()
                 pop = batch_to_population(gens[0])
                 if pop is None:
                     logger.warning("pipelined sequential generation at t=%d "
@@ -1708,9 +1885,12 @@ class ABCSMC:
                     return []
             else:
                 pop = blk["pop"]
-            self.history.append_population(
-                row["t"], row["eps"], pop, row["evaluations"], names,
-                self._param_names(), stat_spec=self.spec.shapes)
+            append_mark = time.perf_counter()
+            with _spans.span("gen.append", gen=row["t"]):
+                self.history.append_population(
+                    row["t"], row["eps"], pop, row["evaluations"], names,
+                    self._param_names(), stat_spec=self.spec.shapes)
+            row["append_s"] = time.perf_counter() - append_mark
             row["ess"] = float(effective_sample_size(pop.weight))
             logger.info("t: %d, acceptance rate: %.4g, ESS: %.4g, evals: %d",
                         row["t"], row["acceptance_rate"], row["ess"],
@@ -1752,7 +1932,7 @@ class ABCSMC:
                     if blk["kind"] == "block":
                         row["sample_s"] = blk["dispatch_s"] / len(rows)
                 if blk["kind"] == "block":
-                    self._observe_device_rows(rows, tr)
+                    self._observe_device_rows(rows, tr, blk["lanes"])
                 else:
                     # the sampler observed its own rate
                     self._record(rows[0], tr)
@@ -1866,6 +2046,20 @@ class ABCSMC:
 
     # ---- the master loop -------------------------------------------------
 
+    def _configure_telemetry(self):
+        """Arm the span tracer for this run: an explicit ``trace_path``
+        wins, else ``$PYABC_TPU_TRACE`` (no-op when neither is set — the
+        tracer stays a one-boolean no-op).  The flight recorder is
+        pointed at this run's identity and timeline so a dump from any
+        trigger site carries the run context."""
+        if self.trace_path:
+            _spans.TRACER.configure(trace_path=self.trace_path)
+        else:
+            _spans.TRACER.configure_from_env()
+        _flight.RECORDER.set_timeline(self.timeline)
+        if self.history is not None:
+            _flight.RECORDER.set_run_id(getattr(self.history, "id", None))
+
     def run(self, minimum_epsilon: float = 0.0,
             max_nr_populations: Union[int, float] = np.inf,
             min_acceptance_rate: float = 0.0,
@@ -1873,20 +2067,54 @@ class ABCSMC:
             ) -> History:
         if self.history is None:
             raise RuntimeError("call new(db, observed) or load(db) first")
+        self._configure_telemetry()
+        # the run span covers everything (calibration included); flushed
+        # in the finally so a crashed run still leaves a loadable trace
+        run_span = _spans.span("run", path=self.ingest_mode)
+        try:
+            with run_span:
+                return self._run_master(
+                    minimum_epsilon, max_nr_populations,
+                    min_acceptance_rate, max_total_nr_simulations)
+        except BaseException as err:
+            # crash evidence before unwind (RetryExhausted already dumped
+            # at its raise site; this adds the run-level context)
+            _flight.RECORDER.dump(reason=type(err).__name__)
+            raise
+        finally:
+            if self._lazy_active:
+                # error-unwind safety net: anchor resident summary rows
+                # newest-first (no-op after a clean done())
+                try:
+                    self.history.persist_lazy_tail()
+                except Exception:
+                    logger.exception("lazy-tail persist at run exit "
+                                     "failed")
+            _spans.TRACER.flush()
+            if len(self.timeline):
+                logger.debug("generation timeline:\n%s",
+                             self.timeline.render_ascii())
+
+    def _run_master(self, minimum_epsilon, max_nr_populations,
+                    min_acceptance_rate, max_total_nr_simulations
+                    ) -> History:
         self.max_nr_populations = max_nr_populations
         self.minimum_epsilon = minimum_epsilon
         self.min_acceptance_rate = min_acceptance_rate
         self.stop_reason = None
+        self.timeline.stop_reason = None
+        self.timeline.history_mode = self.history_mode
         self.run_dispatches = 0
         self.control_roundtrip_s = 0.0
 
         t0 = self.history.max_t + 1
-        self._fit_transitions(t0)
-        self._adapt_population_size(t0)
-        if t0 == 0:
-            self._calibrate(t0)
-        else:
-            self._initialize_from_history(t0)
+        with _spans.span("calibrate", gen=t0):
+            self._fit_transitions(t0)
+            self._adapt_population_size(t0)
+            if t0 == 0:
+                self._calibrate(t0)
+            else:
+                self._initialize_from_history(t0)
         # fresh feature requests each run: a previous run's components
         # must not leave stale record flags on a reused sampler
         self.sampler.record_rejected = False
@@ -1906,7 +2134,29 @@ class ABCSMC:
         t_max = (t0 + max_nr_populations
                  if np.isfinite(max_nr_populations) else np.inf)
         if self._overlap_enabled():
-            self._run_pipelined(t0, t_max, max_total_nr_simulations)
+            try:
+                self._run_pipelined(t0, t_max, max_total_nr_simulations)
+            except _retry.RetryExhausted as err:
+                # everything durable is per generation: drop to the
+                # sequential loop and resume from the History frontier
+                logger.warning(
+                    "pipelined dispatch failed after retries (%s): "
+                    "falling back to the sequential ingest path", err)
+                self._fault_sequential_only = True
+                _retry.record_degrade("sequential_only")
+                self._fused_carry = None
+                if self._lazy_active:
+                    # summary rows whose generations the failed pipeline
+                    # still held are anchored before the restart reads
+                    # max_t
+                    self.history.flush_lazy()
+                # the restart runs what is left of this run's generations
+                # (the JAX package's restart asks for all of them again)
+                left = max_nr_populations - (self.history.max_t + 1 - t0)
+                return self._run_master(
+                    minimum_epsilon, left, min_acceptance_rate,
+                    max_total_nr_simulations)
+            self.timeline.stop_reason = self.stop_reason
             self.history.done()
             return self.history
         total_sims = 0
@@ -1920,7 +2170,18 @@ class ABCSMC:
         # the lazy History's sequential deposit needs the rows on the
         # card; an adaptive refit reads them on the host
         defer = self._lazy_active and not self._distance_is_adaptive()
+        ckpt_every = self.checkpoint_every_rounds
+        if ckpt_every:
+            # SIGTERM -> flag; the sampler flushes its ledger at the next
+            # call boundary and raises Preempted
+            _ckpt.install_signal_handlers()
         while t < t_max:
+            if _ckpt.preempt_requested():
+                # the signal arrived between generations: nothing is in
+                # flight and the History frontier is durable
+                self.stop_reason = "Stopping: preemption requested (SIGTERM)"
+                logger.info(self.stop_reason)
+                break
             # one dispatch for the rest of the run: the device checks the
             # stop chain itself and t_limit clips the dispatch
             if (self._onedispatch_eligible()
@@ -1981,10 +2242,37 @@ class ABCSMC:
                         np.maximum(probs, 1e-300)).astype(np.float32)
                 params["transition"] = self._trans_params
             logger.info("t: %d, eps: %.8g", t, current_eps)
+            # resume splice: rows a preempted process flushed for THIS
+            # generation (only at the resume frontier)
+            splice = (self._load_splice(t, current_eps)
+                      if ckpt_every and t == t0 else None)
+            n_req = n - (splice["n_accepted"] if splice else 0)
             sample_mark = time.perf_counter()
-            sample = self.sampler.sample_until_n_accepted(
-                n, round_fn, self.generator, params, max_eval=max_eval,
-                defer_wire_fetch=defer)
+            if ckpt_every:
+                ck = _ckpt.GenCheckpointer(self.history, t, ckpt_every,
+                                           eps=current_eps)
+                if splice:
+                    ck.set_base(splice["batch"], splice["nr_evaluations"])
+                if self._lazy_active:
+                    # steady-state flushes are manifest-only rows; the raw
+                    # rows ship on a preemption or with a splice base
+                    ck.manifest_source = self._store.manifest
+                self.sampler.checkpointer = ck
+            try:
+                with profile_generation(t), _spans.span("gen.sample", gen=t):
+                    if n_req > 0:
+                        sample = self._sample_generation(
+                            n_req, round_fn, params, max_eval,
+                            defer=defer and splice is None)
+                    else:
+                        sample = Sample()  # the splice covers n already
+            finally:
+                self.sampler.checkpointer = None
+            if splice is not None:
+                # both halves are draws from the same proposal at the same
+                # eps; the weights normalize once over the joined rows
+                sample.splice_front(splice["batch"],
+                                    splice["nr_evaluations"])
             sample_s = time.perf_counter() - sample_mark
             if sample.n_accepted < n:
                 self.stop_reason = (
@@ -1995,28 +2283,42 @@ class ABCSMC:
                 break
             total_sims += sample.nr_evaluations
             acceptance_rate = sample.acceptance_rate
-            if self._lazy_active and sample.pending_wire is not None:
-                # the rows stay on the card and a summary row is appended;
-                # the host adaptation still needs them: hydrate (the eager
-                # decode; the durable blobs are written on the way)
-                self._store.deposit(
-                    t, sample.take_pending_wire(), n=n,
-                    count=sample.n_accepted, eps=current_eps, norm="sample",
-                    ready=sample.pending_ready)
-                self.history.append_population_lazy(
-                    t, current_eps, sample.nr_evaluations,
-                    summary=_wire_store.summarize_device_population(
-                        sample.device_population, self.M),
-                    model_names=model_names,
-                    param_names=self._param_names(),
-                    stat_spec=self.spec.shapes)
-                population = self.history.hydrate_population(t)
-            else:
-                population = sample.get_accepted_population(n)
-                self.history.append_population(
-                    t, current_eps, population, sample.nr_evaluations,
-                    model_names, self._param_names(),
-                    stat_spec=self.spec.shapes)
+            append_mark = time.perf_counter()
+            lazy_gen = self._lazy_active and sample.pending_wire is not None
+            with _spans.span("gen.append", gen=t):
+                if lazy_gen:
+                    # the rows stay on the card and a summary row is
+                    # appended
+                    self._store.deposit(
+                        t, sample.take_pending_wire(), n=n,
+                        count=sample.n_accepted, eps=current_eps,
+                        norm="sample", ready=sample.pending_ready)
+                    self.history.append_population_lazy(
+                        t, current_eps, sample.nr_evaluations,
+                        summary=_wire_store.summarize_device_population(
+                            sample.device_population, self.M),
+                        model_names=model_names,
+                        param_names=self._param_names(),
+                        stat_spec=self.spec.shapes)
+                else:
+                    population = sample.get_accepted_population(n)
+                    self.history.append_population(
+                        t, current_eps, population, sample.nr_evaluations,
+                        model_names, self._param_names(),
+                        stat_spec=self.spec.shapes)
+            append_s = time.perf_counter() - append_mark
+            if lazy_gen:
+                # the host adaptation still needs the rows: hydrate (the
+                # eager decode; the durable blobs are written on the way)
+                try:
+                    with _spans.span("gen.hydrate", gen=t):
+                        population = self.history.hydrate_population(t)
+                except IntegrityError:
+                    # the recovery ladder is exhausted: degrade to eager
+                    # mode and redo this generation
+                    self._degrade_lazy(t)
+                    defer = False
+                    continue
             ess = float(effective_sample_size(population.weight))
             now = time.perf_counter()
             tr_t = transfer.delta(tr_mark)
@@ -2039,8 +2341,10 @@ class ABCSMC:
                 "record_batches": sample.n_record_batches,
                 "refit_s": self._refit_s,
                 "adapt_s": self._adapt_s,
+                "append_s": append_s,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
-                                / 1e9 if on_card else None)}, tr_t)
+                                / 1e9 if on_card else None)}, tr_t,
+                accepted=sample.raw_accepted)
             # the sampler observed its rate per call; the ledger's
             # compute / overlap split is seen only here
             observe_timing = getattr(self.sampler, "observe_timing", None)
@@ -2056,7 +2360,7 @@ class ABCSMC:
                 torch.cuda.reset_peak_memory_stats(self.device)
             if self._fused_eligible():
                 # this generation's accepted rows stay on the device as
-                # the next fused block's carry
+                # the next fused block's carry (None after a splice)
                 self._fused_carry = sample.device_population
             logger.info("t: %d, acceptance rate: %.4g, ESS: %.4g, evals: %d",
                         t, acceptance_rate, ess, sample.nr_evaluations)
@@ -2079,11 +2383,86 @@ class ABCSMC:
                 break
             if t + 1 >= t_max:
                 break
-            self._prepare_next_iteration(t + 1, sample, population,
-                                         acceptance_rate)
+            with _spans.span("gen.adapt", gen=t + 1):
+                self._prepare_next_iteration(t + 1, sample, population,
+                                             acceptance_rate)
             t += 1
+        self.timeline.stop_reason = self.stop_reason
         self.history.done()
         return self.history
+
+    #: generation restarts allowed under graceful degradation before a
+    #: retry-exhausted dispatch failure is considered fatal
+    _MAX_GEN_RESTARTS = 2
+
+    def _sample_generation(self, n_req: int, round_fn, params, max_eval,
+                           defer: bool = False) -> Sample:
+        """One generation's sampling with graceful degradation: a
+        retry-exhausted dispatch drops the sampler one batch rung
+        (``degrade_rung``) and restarts the generation from the
+        generator's current state — a strictly smaller round for a
+        memory-pressure failure.  At the rung floor (or after
+        ``_MAX_GEN_RESTARTS`` restarts) the error propagates.  An
+        abandoned attempt's evaluations are not counted."""
+        restarts = 0
+        while True:
+            try:
+                return self.sampler.sample_until_n_accepted(
+                    n_req, round_fn, self.generator, params,
+                    max_eval=max_eval, defer_wire_fetch=defer)
+            except _retry.RetryExhausted as err:
+                degrade = getattr(self.sampler, "degrade_rung", None)
+                if degrade is None or restarts >= self._MAX_GEN_RESTARTS:
+                    raise
+                new_cap = degrade()
+                if new_cap is None:
+                    raise  # already at the floor
+                restarts += 1
+                logger.warning(
+                    "generation dispatch failed after retries (%s): "
+                    "restarting with batch ceiling %d (restart %d/%d)",
+                    err, new_cap, restarts, self._MAX_GEN_RESTARTS)
+
+    def _load_splice(self, t: int, current_eps: float):
+        """The sub-checkpoint ledger a preempted process flushed for
+        generation ``t``, validated: the splice is only exact when this
+        process derived the SAME eps (the schedule is deterministic from
+        the last durable generation); a stale ledger is discarded."""
+        row = self.history.load_sub_checkpoint(t)
+        if row is None:
+            return None
+        eps_ck = row.get("eps")
+        if eps_ck is not None and not np.isclose(
+                float(eps_ck), float(current_eps), rtol=1e-6, atol=1e-12):
+            logger.warning(
+                "discarding the sub-checkpoint for t=%d: its eps %.8g "
+                "does not match the derived schedule (%.8g)",
+                t, eps_ck, current_eps)
+            self.history.clear_sub_checkpoint(t)
+            return None
+        logger.info(
+            "resuming generation %d from a sub-checkpoint: %d accepted "
+            "rows (%d rounds, %d evaluations) survived the preemption",
+            t, row["n_accepted"], row["rounds"], row["nr_evaluations"])
+        return row
+
+    def _degrade_lazy(self, t: int):
+        """The last rung of the hydration recovery ladder: drop lazy mode
+        for the rest of the run (the store's other generations are
+        anchored first) and delete generation ``t``'s summary row so the
+        loop redoes it eagerly."""
+        logger.warning("generation %d failed checksummed hydration beyond "
+                       "recovery: degrading to eager History", t)
+        _retry.record_degrade("lazy_to_eager")
+        try:
+            self.history.flush_lazy()
+        except IntegrityError:
+            logger.exception("anchoring the lazy store while degrading "
+                             "failed")
+        self.history.drop_generation(t)
+        self.history.detach_store()
+        self._store = None
+        self._fused_carry = None
 
     def _prepare_next_iteration(self, t: int, sample, population: Population,
                                 acceptance_rate: float):

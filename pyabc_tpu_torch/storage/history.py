@@ -19,6 +19,20 @@ the eager bits.  Generations the store's ring evicted are drained here,
 on this object's thread (sqlite connections are thread-affine; deposits
 come from ingest workers).  :meth:`done` materializes every resident
 generation, so a fresh ``History`` on the same file reads the same bits.
+
+Resilience (``pyabc_tpu/storage/history.py:131-256``, ``:419-520``,
+``:726-800``, ``:874-...``): every model row carries a ``digest`` column
+(the CRC32 of each blob; ``_unpack_checked`` raises ``IntegrityError``
+on a mismatch), and so does the ``sub_checkpoints`` table, the
+round-granular ledger a preempted generation resumes from
+(:meth:`save_sub_checkpoint`).  The durable writes run under the shared
+retry policy (``history.append`` site).  A lazy History arms a
+:class:`~pyabc_tpu_torch.resilience.journal.SpillJournal` under
+``<db>.journal``; a generation materializes down a ladder (the device
+copy, then the journal's copy) and is tombstoned in the journal after the
+commit; :meth:`persist_lazy_tail` anchors resident generations on a
+crash or a preemption (journal first, then materialize), and
+:meth:`recover_lazy` replays what a killed process left in the journal.
 """
 
 from __future__ import annotations
@@ -27,7 +41,10 @@ import datetime
 import io
 import json
 import logging
+import os
 import sqlite3
+import time
+import zlib
 from typing import Dict, List, Optional, Tuple
 
 import numpy as np
@@ -40,6 +57,18 @@ from .bytes_storage import from_bytes, to_bytes
 PRE_TIME = -1  # calibration-sample time index
 
 logger = logging.getLogger("ABC.History")
+
+#: preemption-barrier budget: persist_lazy_tail stops materializing after
+#: this many seconds (journal-first ordering means whatever was not
+#: materialized is still replayable)
+PREEMPT_DEADLINE_ENV = "PYABC_TPU_PREEMPT_DEADLINE_S"
+
+
+def _preempt_deadline_s() -> float:
+    try:
+        return float(os.environ.get(PREEMPT_DEADLINE_ENV, "30"))
+    except ValueError:
+        return 30.0
 
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS abc_smc (
@@ -74,6 +103,7 @@ CREATE TABLE IF NOT EXISTS model_populations (
     stats BLOB,
     param_names TEXT,
     stat_spec TEXT,
+    digest TEXT,
     PRIMARY KEY (abc_smc_id, t, m)
 );
 CREATE TABLE IF NOT EXISTS observed_data (
@@ -83,7 +113,30 @@ CREATE TABLE IF NOT EXISTS observed_data (
     tag TEXT DEFAULT 'npy',
     PRIMARY KEY (abc_smc_id, key)
 );
+CREATE TABLE IF NOT EXISTS sub_checkpoints (
+    abc_smc_id INTEGER,
+    t INTEGER,
+    rounds INTEGER,
+    n_accepted INTEGER,
+    nr_evaluations INTEGER,
+    eps REAL,
+    m BLOB,
+    theta BLOB,
+    distance BLOB,
+    log_weight BLOB,
+    stats BLOB,
+    created TEXT,
+    manifest TEXT,
+    digest TEXT,
+    PRIMARY KEY (abc_smc_id, t)
+);
 """
+
+
+def _blob_crc(blob: Optional[bytes]) -> Optional[int]:
+    if blob is None:
+        return None
+    return zlib.crc32(blob) & 0xFFFFFFFF
 
 
 def _pack(arr: np.ndarray) -> bytes:
@@ -110,22 +163,86 @@ class History:
         self.in_memory = db in ("sqlite://", ":memory:", "")
         self.db_path = ":memory:" if self.in_memory else db
         self._conn = sqlite3.connect(self.db_path, timeout=30.0)
+        if not self.in_memory:
+            # readers proceed while a generation's write is in flight,
+            # and the commit is one durable point
+            try:
+                self._conn.execute("PRAGMA journal_mode=WAL")
+            except sqlite3.OperationalError:
+                pass
         self._conn.executescript(_SCHEMA)
         self._migrate()
         self._conn.commit()
         self.id = abc_id
         #: the device store lazy generations live in (attach_store)
         self._store = None
+        #: the write-ahead SpillJournal, created on first use (lazy runs,
+        #: resume recovery), never for plain eager runs
+        self._journal = None
+        self._journal_armed = False
 
     def _migrate(self):
-        """Add the lazy-row columns to a database written without them."""
-        cols = {r[1] for r in self._conn.execute(
-            "PRAGMA table_info(populations)").fetchall()}
-        for col, kind in (("lazy", "INTEGER DEFAULT 0"), ("summary", "TEXT"),
-                          ("summary_grid", "BLOB")):
-            if col not in cols:
-                self._conn.execute(
-                    f"ALTER TABLE populations ADD COLUMN {col} {kind}")
+        """Add the newer columns to a database written without them."""
+        for table, adds in (
+                ("populations", (("lazy", "INTEGER DEFAULT 0"),
+                                 ("summary", "TEXT"),
+                                 ("summary_grid", "BLOB"))),
+                ("model_populations", (("digest", "TEXT"),)),
+                ("sub_checkpoints", (("manifest", "TEXT"),
+                                     ("digest", "TEXT")))):
+            cols = {r[1] for r in self._conn.execute(
+                f"PRAGMA table_info({table})").fetchall()}
+            for col, kind in adds:
+                if col not in cols:
+                    self._conn.execute(
+                        f"ALTER TABLE {table} ADD COLUMN {col} {kind}")
+
+    @property
+    def journal(self):
+        """The run's spill journal, created on first use (file-backed
+        DBs at ``<db>.journal``; in-memory DBs only under an explicit
+        ``$PYABC_TPU_JOURNAL_DIR``); None when journaling is off."""
+        if not self._journal_armed:
+            self._journal_armed = True
+            from ..resilience.journal import journal_for_history
+            self._journal = journal_for_history(self)
+        return self._journal
+
+    def _existing_journal(self):
+        """The journal only if it is armed already or its directory
+        exists on disk: resume recovery finds a previous process's
+        journal without creating directories for runs that never
+        journaled."""
+        if self._journal_armed:
+            return self._journal
+        from ..resilience.journal import journal_dir_for
+        d = journal_dir_for(self.db_path, self.in_memory)
+        if d and os.path.isdir(d):
+            return self.journal
+        return None
+
+    def _unpack_checked(self, blob, crc, *, t=-2, where="db.read"):
+        """``_unpack`` behind the stored-blob CRC: a flipped bit in the
+        database raises ``IntegrityError`` instead of decoding into a
+        silently wrong posterior."""
+        if blob is None:
+            return None
+        if crc is not None:
+            from ..resilience.journal import IntegrityError
+            from ..telemetry.metrics import REGISTRY
+            _help = "checksummed hydration; see resilience/journal.py"
+            REGISTRY.counter("store_integrity_checks_total", _help).inc()
+            if _blob_crc(blob) != int(crc):
+                REGISTRY.counter("store_integrity_failures_total",
+                                 _help).inc()
+                from ..telemetry.flight import RECORDER
+                RECORDER.note("integrity", t=int(t), where=where,
+                              detail="stored blob CRC mismatch")
+                raise IntegrityError(
+                    f"generation {t}: stored blob failed its CRC "
+                    f"({where}) — database bytes are corrupt",
+                    t=t, where=where)
+        return _unpack(blob)
 
     # ---- run registration ------------------------------------------------
 
@@ -170,10 +287,21 @@ class History:
                           population: Population, nr_simulations: int,
                           model_names: List[str],
                           param_names: Optional[List] = None,
-                          stat_spec: Optional[dict] = None,
-                          summary_json: Optional[str] = None):
-        """One INSERT per model; the commit is the durability point.
-        ``summary_json`` keeps a materialized lazy row's packet."""
+                          stat_spec: Optional[dict] = None):
+        """One INSERT OR REPLACE per model; the commit is the durability
+        point, so the write is idempotent and a transient sqlite failure
+        retries through the shared policy (``history.append`` site)."""
+        from ..resilience import faults as _faults
+        from ..resilience import retry as _retry
+        _retry.shared_policy().call(
+            self._append_population_once, _faults.SITE_APPEND,
+            t, current_epsilon, population, nr_simulations, model_names,
+            param_names, stat_spec)
+
+    def _append_population_once(self, t, current_epsilon, population,
+                                nr_simulations, model_names,
+                                param_names=None, stat_spec=None,
+                                summary_json=None):
         probs = population.get_model_probabilities(
             nr_models=len(model_names))
         self._conn.execute(
@@ -192,30 +320,133 @@ class History:
             if idx.size == 0:
                 continue
             names_m = param_names[m] if per_model else param_names
+            blobs = {"theta": _pack(population.theta[idx]),
+                     "weight": _pack(population.weight[idx]),
+                     "distance": _pack(population.distance[idx]),
+                     "stats": (_pack(stats[idx]) if stats is not None
+                               else None)}
+            digest = json.dumps({k: _blob_crc(v) for k, v in blobs.items()
+                                 if v is not None})
             self._conn.execute(
                 "INSERT OR REPLACE INTO model_populations (abc_smc_id, t,"
                 " m, name, p_model, n_particles, theta, weight, distance,"
-                " stats, param_names, stat_spec)"
-                " VALUES (?,?,?,?,?,?,?,?,?,?,?,?)",
+                " stats, param_names, stat_spec, digest)"
+                " VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)",
                 (self.id, t, m, model_names[m], float(probs[m]),
-                 int(idx.size), _pack(population.theta[idx]),
-                 _pack(population.weight[idx]),
-                 _pack(population.distance[idx]),
-                 _pack(stats[idx]) if stats is not None else None,
+                 int(idx.size), blobs["theta"], blobs["weight"],
+                 blobs["distance"], blobs["stats"],
                  json.dumps(list(names_m or [])),
                  json.dumps({k: list(v) for k, v in stat_spec.items()})
-                 if stat_spec else None))
+                 if stat_spec else None, digest))
+        # the generation is durable in the same transaction: its
+        # mid-generation ledger row is obsolete
+        self._conn.execute(
+            "DELETE FROM sub_checkpoints WHERE abc_smc_id=? AND t=?",
+            (self.id, t))
+        self._conn.commit()
+
+    # ---- mid-generation sub-checkpoints (resilience/checkpoint.py) -----
+
+    def save_sub_checkpoint(self, t: int, batch: Optional[Dict],
+                            rounds: int, nr_evaluations: int,
+                            eps: Optional[float] = None,
+                            manifest: Optional[dict] = None):
+        """REPLACE the round-granular accepted-particle ledger of
+        generation ``t``: the cumulative accepted rows through round
+        ``rounds`` (``batch``: host ``m``, ``theta``, ``distance``,
+        ``log_weight`` and optionally ``stats``).  One row per
+        generation; :meth:`append_population` deletes it once the whole
+        generation is durable.  In lazy mode steady-state flushes pass
+        ``batch=None`` and the device store's ``manifest``."""
+        from ..resilience import faults as _faults
+        from ..resilience import retry as _retry
+
+        def _write():
+            blobs = {k: (_pack(batch[k]) if batch is not None
+                         and batch.get(k) is not None else None)
+                     for k in ("m", "theta", "distance", "log_weight",
+                               "stats")}
+            digest = json.dumps({k: _blob_crc(v) for k, v in blobs.items()
+                                 if v is not None})
+            self._conn.execute(
+                "INSERT OR REPLACE INTO sub_checkpoints (abc_smc_id, t,"
+                " rounds, n_accepted, nr_evaluations, eps, m, theta,"
+                " distance, log_weight, stats, created, manifest,"
+                " digest) VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                (self.id, int(t), int(rounds),
+                 int(batch["m"].shape[0]) if batch is not None else 0,
+                 int(nr_evaluations),
+                 float(eps) if eps is not None else None,
+                 blobs["m"], blobs["theta"], blobs["distance"],
+                 blobs["log_weight"], blobs["stats"],
+                 datetime.datetime.now().isoformat(),
+                 json.dumps(manifest) if manifest is not None else None,
+                 digest))
+            self._conn.commit()
+
+        _retry.shared_policy().call(_write, _faults.SITE_APPEND)
+
+    def load_sub_checkpoint(self, t: int) -> Optional[Dict]:
+        """The flushed ledger of generation ``t``, or None (also for a
+        manifest-only row: nothing to splice).  Returns ``{rounds,
+        nr_evaluations, eps, n_accepted, batch}``, the batch ready for
+        ``Sample.splice_front``; every blob is CRC-checked."""
+        row = self._conn.execute(
+            "SELECT rounds, n_accepted, nr_evaluations, eps, m, theta,"
+            " distance, log_weight, stats, digest FROM sub_checkpoints"
+            " WHERE abc_smc_id=? AND t=?", (self.id, int(t))).fetchone()
+        if row is None or row[4] is None:
+            return None
+        crcs = json.loads(row[9]) if row[9] else {}
+        batch = {}
+        for i, k in enumerate(("m", "theta", "distance", "log_weight",
+                               "stats")):
+            if row[4 + i] is not None:
+                batch[k] = self._unpack_checked(
+                    row[4 + i], crcs.get(k), t=t, where="checkpoint.splice")
+        return {"rounds": int(row[0]), "n_accepted": int(row[1]),
+                "nr_evaluations": int(row[2]),
+                "eps": float(row[3]) if row[3] is not None else None,
+                "batch": batch}
+
+    def load_sub_checkpoint_manifest(self, t: int) -> Optional[dict]:
+        """The device-store manifest recorded with generation ``t``'s
+        ledger row (lazy mode), or None."""
+        row = self._conn.execute(
+            "SELECT manifest FROM sub_checkpoints WHERE abc_smc_id=?"
+            " AND t=?", (self.id, int(t))).fetchone()
+        if row is None or row[0] is None:
+            return None
+        return json.loads(row[0])
+
+    def clear_sub_checkpoint(self, t: int):
+        self._conn.execute(
+            "DELETE FROM sub_checkpoints WHERE abc_smc_id=? AND t=?",
+            (self.id, int(t)))
         self._conn.commit()
 
     # ---- lazy rows: device-resident generations ---------------------------
 
     def attach_store(self, store):
         self._store = store
+        # arm the durability contract: deposits and evictions write ahead
+        # into the journal this History tombstones after its commits
+        store.attach_journal(self.journal)
 
     def detach_store(self):
         """Later appends take the eager path; the store is no longer
         read."""
         self._store = None
+
+    def drop_generation(self, t: int):
+        """Delete generation ``t``'s rows (the degrade-to-eager rung
+        re-runs the generation; its summary row must not shadow the
+        eager re-append)."""
+        for table in ("populations", "model_populations"):
+            self._conn.execute(
+                f"DELETE FROM {table} WHERE abc_smc_id=? AND t=?",
+                (self.id, int(t)))
+        self._conn.commit()
 
     def append_population_lazy(self, t: int, current_epsilon: float,
                                nr_simulations: int, *, summary: dict,
@@ -224,7 +455,17 @@ class History:
                                stat_spec: Optional[dict] = None):
         """The summary row of a device-resident generation: the packet
         (``wire.store.summary_from_lanes``) and one blob-less row per
-        model with its count and mass."""
+        model with its count and mass, under the shared retry policy."""
+        from ..resilience import faults as _faults
+        from ..resilience import retry as _retry
+        _retry.shared_policy().call(
+            self._append_population_lazy_once, _faults.SITE_APPEND,
+            t, current_epsilon, nr_simulations, summary, model_names,
+            param_names, stat_spec)
+
+    def _append_population_lazy_once(self, t, current_epsilon,
+                                     nr_simulations, summary, model_names,
+                                     param_names, stat_spec):
         self._drain_spills()
         self._conn.execute(
             "INSERT OR REPLACE INTO populations (abc_smc_id, t, epsilon,"
@@ -251,6 +492,9 @@ class History:
                  json.dumps(list(names_m or [])),
                  json.dumps({k: list(v) for k, v in stat_spec.items()})
                  if stat_spec else None))
+        self._conn.execute(
+            "DELETE FROM sub_checkpoints WHERE abc_smc_id=? AND t=?",
+            (self.id, int(t)))
         self._conn.commit()
 
     def _lazy_flag(self, t: int) -> Optional[tuple]:
@@ -270,7 +514,8 @@ class History:
     def _materialize_pop(self, t: int, pop: Population, row: tuple):
         """Replace generation ``t``'s summary row with the eager write of
         ``pop``; names and spec come from the lazy model rows, the
-        packet stays."""
+        packet stays.  The commit is the durability point: only then
+        does the journal forget the generation."""
         names = self.model_names()
         rows = self._conn.execute(
             "SELECT m, param_names, stat_spec FROM model_populations"
@@ -279,29 +524,111 @@ class History:
         pn = {m: (json.loads(p) if p else []) for m, p, _ in rows}
         spec = next(({k: tuple(v) for k, v in json.loads(sp).items()}
                      for _, _, sp in rows if sp), None)
-        self.append_population(
+        self._append_population_once(
             int(t), row[1], pop, row[2], names,
             [pn.get(m, []) for m in range(len(names))], spec,
             summary_json=row[3])
+        self._journal_done(int(t))
+
+    def _journal_done(self, t: int):
+        journal = self._journal if self._journal_armed else None
+        if journal is not None and journal.has_payload(t):
+            journal.mark_materialized(t)
+
+    def _hydrate_checked(self, t: int, entry: dict):
+        """``hydrate_entry`` behind the recovery ladder.  On
+        ``IntegrityError``: (1) a corrupt journaled host copy is dropped
+        and the decode retried from the still-resident device wire; (2)
+        the journal's own copy of the generation is re-read; then the
+        error propagates."""
+        from ..resilience.journal import IntegrityError
+        from ..telemetry.metrics import REGISTRY
+        from ..wire.store import hydrate_entry
+        _help = "hydration recovery ladder; see resilience/journal.py"
+        try:
+            return hydrate_entry(entry)
+        except IntegrityError as first:
+            logger.warning("generation %d failed checksummed hydration "
+                           "(%s) — walking the recovery ladder", t, first)
+            if entry.get("host_wire") is not None \
+                    and entry.get("wire") is not None:
+                retry_entry = dict(entry)
+                retry_entry.pop("host_wire", None)
+                if retry_entry.get("digest"):
+                    retry_entry["digest"] = dict(retry_entry["digest"],
+                                                 crc=None)
+                try:
+                    pop = hydrate_entry(retry_entry)
+                    REGISTRY.counter("store_integrity_recovered_total",
+                                     _help).inc()
+                    return pop
+                except IntegrityError:
+                    pass
+            journal = self._journal if self._journal_armed else None
+            if journal is not None and journal.has_payload(t):
+                try:
+                    jentry = journal.pending().get(int(t))
+                    if jentry is not None:
+                        pop = hydrate_entry(jentry)
+                        REGISTRY.counter("store_integrity_recovered_total",
+                                         _help).inc()
+                        return pop
+                except IntegrityError:
+                    pass
+            raise
 
     def _drain_spills(self):
-        """Materialize the entries the store's ring evicted.  An entry
-        whose summary row is not appended yet (a worker deposited ahead of
-        the harvest) is requeued."""
-        from ..wire.store import hydrate_entry
+        """Materialize the entries the store's ring evicted, each under
+        its own retry (``history.materialize`` site): a failure requeues
+        THAT entry and the drain moves on.  An entry whose summary row is
+        not appended yet (a worker deposited ahead of the harvest) is
+        requeued too."""
         store = self._store
         if store is None:
             return
+        from ..resilience import faults as _faults
+        from ..resilience import retry as _retry
+        from ..resilience.journal import IntegrityError
         requeue = []
         for entry in store.take_spills():
-            row = self._lazy_flag(entry["t"])
+            t = entry["t"]
+            row = self._lazy_flag(t)
             if row is None:
                 requeue.append(entry)
-            elif row[0]:
-                pop = hydrate_entry(entry)
-                if pop is not None:
-                    self._materialize_pop(entry["t"], pop, row)
+                continue
+            if not row[0]:
+                self._journal_done(t)
+                continue  # stale spill: the row is durable already
+            try:
+                _retry.shared_policy().call(
+                    self._materialize_spill_once, _faults.SITE_MATERIALIZE,
+                    entry, row)
+            except (_retry.RetryExhausted, IntegrityError) as err:
+                logger.warning(
+                    "spill drain: generation %d not materialized (%s) — "
+                    "requeued for the next drain", t, err)
+                from ..telemetry.flight import RECORDER
+                RECORDER.note("spill_requeue", t=int(t),
+                              detail=type(err).__name__)
+                requeue.append(entry)
         store.requeue_spills(requeue)
+
+    def _materialize_spill_once(self, entry: dict, row: tuple):
+        pop = self._hydrate_checked(entry["t"], entry)
+        if pop is not None:
+            self._materialize_pop(entry["t"], pop, row)
+
+    def _store_hydrate(self, store, t: int):
+        """``store.hydrate`` with the recovery ladder behind it; an
+        unrecoverable mismatch propagates."""
+        from ..resilience.journal import IntegrityError
+        try:
+            return store.hydrate(t)
+        except IntegrityError:
+            entry = store.entry(t)
+            if entry is None:
+                raise
+            return self._hydrate_checked(t, entry)
 
     def _materialize(self, t: int) -> bool:
         """Give generation ``t``'s row its blobs.  True when the row
@@ -314,7 +641,7 @@ class History:
         store = self._store
         if store is None or not store.has(t):
             return False
-        pop = store.hydrate(t)
+        pop = self._store_hydrate(store, int(t))
         if pop is None:
             return False
         self._materialize_pop(t, pop, row)
@@ -331,7 +658,7 @@ class History:
         row = self._lazy_flag(t)
         if store is not None and store.has(t) and row is not None \
                 and row[0]:
-            pop = store.hydrate(t)
+            pop = self._store_hydrate(store, int(t))
             if pop is not None:
                 self._materialize_pop(t, pop, row)
                 store.drop(t)
@@ -339,15 +666,87 @@ class History:
         self._materialize(t)
         return self.get_population(t)
 
-    def flush_lazy(self):
-        """Materialize every resident generation and empty the store."""
+    def flush_lazy(self, newest_first: bool = False,
+                   deadline: Optional[float] = None):
+        """Materialize every resident generation and empty the store.
+        ``deadline`` (absolute ``time.monotonic``) bounds the flush: past
+        it the remaining generations stay resident and journaled instead
+        of being dropped.  A complete flush compacts the journal."""
         self._drain_spills()
         store = self._store
         if store is None:
             return
-        for t in store.resident_ts():
+        ts = store.resident_ts()
+        if newest_first:
+            ts = list(reversed(ts))
+        for i, t in enumerate(ts):
+            if deadline is not None and time.monotonic() >= deadline:
+                logger.warning(
+                    "lazy flush: deadline hit with %d generation(s) left "
+                    "un-materialized — their journal/device copies "
+                    "survive for recovery", len(ts) - i)
+                return
             self._materialize(t)
         store.clear()
+        journal = self._journal if self._journal_armed else None
+        if journal is not None:
+            journal.compact()
+
+    def persist_lazy_tail(self, deadline_s: Optional[float] = None):
+        """Exit-path durability anchor, in two bounded phases: journal
+        the bytes of every un-journaled resident generation, newest
+        first (``DeviceRunStore.journal_tail``), then materialize
+        best-effort, newest first.  The barrier is bounded by
+        ``deadline_s`` (default ``$PYABC_TPU_PREEMPT_DEADLINE_S`` = 30
+        s)."""
+        if deadline_s is None:
+            deadline_s = _preempt_deadline_s()
+        deadline = (time.monotonic() + float(deadline_s)
+                    if deadline_s and deadline_s > 0 else None)
+        store = self._store
+        if store is not None:
+            if store.journal is None and self.journal is not None:
+                store.attach_journal(self.journal)
+            store.journal_tail(deadline)
+        self.flush_lazy(newest_first=True, deadline=deadline)
+
+    def recover_lazy(self) -> dict:
+        """Startup recovery (``ABCSMC.load``): replay the previous
+        process's un-materialized journal payloads into durable blobs —
+        generations a crash stranded on the card are restored, not
+        discarded — then purge whatever is still summary-only.  Returns
+        ``{"recovered": n, "purged": m}``."""
+        from ..telemetry.metrics import REGISTRY
+        recovered = 0
+        journal = self._existing_journal()
+        if journal is not None:
+            for t, entry in sorted(journal.pending().items()):
+                row = self._lazy_flag(t)
+                if row is None or not row[0]:
+                    # nothing to fill: no summary row committed, or the
+                    # generation is durable already
+                    journal.mark_materialized(t)
+                    continue
+                try:
+                    pop = self._hydrate_checked(t, entry)
+                except Exception:
+                    logger.exception("journal replay: generation %d "
+                                     "undecodable — left for purge", t)
+                    continue
+                if pop is None:
+                    continue
+                self._materialize_pop(t, pop, row)
+                recovered += 1
+                REGISTRY.counter(
+                    "resilience_journal_replayed_total",
+                    "journal payloads replayed into durable blobs").inc()
+            journal.compact()
+        if recovered:
+            logger.warning("recovered %d generation(s) from the spill "
+                           "journal left by an interrupted lazy run",
+                           recovered)
+        purged = self.purge_stale_lazy()
+        return {"recovered": recovered, "purged": purged}
 
     def purge_stale_lazy(self) -> int:
         """Delete summary rows no store can hydrate any more (a lazy run
@@ -407,11 +806,14 @@ class History:
         t = self.max_t if t is None else t
         self._materialize(t)
         row = self._conn.execute(
-            "SELECT theta, weight, param_names FROM model_populations "
-            "WHERE abc_smc_id=? AND t=? AND m=?", (self.id, t, m)).fetchone()
+            "SELECT theta, weight, param_names, digest FROM "
+            "model_populations WHERE abc_smc_id=? AND t=? AND m=?",
+            (self.id, t, m)).fetchone()
         if row is None or row[0] is None:
             return pd.DataFrame(), np.zeros(0)
-        theta, w = _unpack(row[0]), _unpack(row[1])
+        crcs = json.loads(row[3]) if row[3] else {}
+        theta = self._unpack_checked(row[0], crcs.get("theta"), t=t)
+        w = self._unpack_checked(row[1], crcs.get("weight"), t=t)
         names = json.loads(row[2]) or [f"p{i}" for i in range(theta.shape[1])]
         return pd.DataFrame(theta[:, :len(names)], columns=names), w / w.sum()
 
@@ -427,30 +829,46 @@ class History:
         t = self.max_t if t is None else t
         self._materialize(t)
         rows = self._conn.execute(
-            "SELECT m, theta, weight, distance, stats FROM model_populations "
-            "WHERE abc_smc_id=? AND t=? ORDER BY m", (self.id, t)).fetchall()
+            "SELECT m, theta, weight, distance, stats, digest FROM "
+            "model_populations WHERE abc_smc_id=? AND t=? ORDER BY m",
+            (self.id, t)).fetchall()
         rows = [r for r in rows if r[1] is not None]
         if not rows:
             return Population(m=np.zeros(0, np.int32), theta=np.zeros((0, 0)),
                               weight=np.zeros(0), distance=np.zeros(0))
-        thetas = [_unpack(r[1]) for r in rows]
+
+        def unpack(r, i, key):
+            crcs = json.loads(r[5]) if r[5] else {}
+            return self._unpack_checked(r[i], crcs.get(key), t=t)
+
+        thetas = [unpack(r, 1, "theta") for r in rows]
         dim = max(th.shape[1] for th in thetas)
         thetas = [np.pad(th, ((0, 0), (0, dim - th.shape[1])))
                   for th in thetas]
-        stats = [_unpack(r[4]) for r in rows if r[4] is not None]
+        stats = [unpack(r, 4, "stats") for r in rows if r[4] is not None]
         return Population(
             m=np.concatenate([np.full(th.shape[0], r[0], np.int32)
                               for r, th in zip(rows, thetas)]),
             theta=np.concatenate(thetas),
-            weight=np.concatenate([_unpack(r[2]) for r in rows]),
-            distance=np.concatenate([_unpack(r[3]) for r in rows]),
+            weight=np.concatenate([unpack(r, 2, "weight") for r in rows]),
+            distance=np.concatenate([unpack(r, 3, "distance")
+                                     for r in rows]),
             sum_stats=({"__flat__": np.concatenate(stats)}
                        if len(stats) == len(rows) else {}))
 
+    def get_nr_particles_per_population(self) -> pd.Series:
+        rows = self._conn.execute(
+            "SELECT t, SUM(n_particles) FROM model_populations WHERE "
+            "abc_smc_id=? GROUP BY t ORDER BY t", (self.id,)).fetchall()
+        return pd.Series({t: n for t, n in rows})
+
     def done(self):
-        """End of a run: every resident generation gets its blobs."""
+        """End of a run: every resident generation gets its blobs (and
+        the journal compacts to empty)."""
         self.flush_lazy()
         self._conn.commit()
 
     def close(self):
+        if self._journal is not None:
+            self._journal.close()
         self._conn.close()

@@ -15,6 +15,8 @@ from __future__ import annotations
 import numpy as np
 
 from ..population import Population
+from ..telemetry.lanes import LANE_PREFIX
+from . import transfer
 
 #: per-generation scalar lanes of a wire (not population rows)
 SCALAR_KEYS = ("count", "rounds", "eps")
@@ -30,7 +32,8 @@ def split_gen_wire(out: dict, n: int):
     population lanes (``eps`` None without an eps lane).  ``n`` is the
     population size the rows were cut to on the device."""
     batch = {key: v for key, v in out.items()
-             if key not in SCALAR_KEYS and not key.startswith("sm_")}
+             if key not in SCALAR_KEYS
+             and not key.startswith(("sm_", LANE_PREFIX))}
     count = int(np.asarray(out["count"]))
     rounds = int(np.asarray(out["rounds"]))
     eps = (float(np.asarray(out["eps"], dtype=np.float64))
@@ -59,7 +62,20 @@ def split_single_wire(out: dict, n: int):
 
 def _fetch_gen(gen_wire: dict, n: int, ready):
     from ..sampler.base import fetch_to_host
-    return split_gen_wire(fetch_to_host(gen_wire, ready), n)
+    return split_gen_wire(fetch_to_host(
+        {k: v for k, v in gen_wire.items()
+         if not k.startswith(LANE_PREFIX)}, ready), n)
+
+
+def fetch_lanes(gen_wire: dict, ready) -> dict:
+    """One generation's ``tl_*`` telemetry lanes on the host, booked to
+    ``egress("telemetry")`` (empty without lanes: no fetch)."""
+    from ..sampler.base import fetch_to_host
+    lanes = {k: v for k, v in gen_wire.items() if k.startswith(LANE_PREFIX)}
+    if not lanes:
+        return {}
+    with transfer.egress("telemetry"):
+        return fetch_to_host(lanes, ready)
 
 
 class GenStream:
@@ -77,6 +93,9 @@ class GenStream:
     ``fetch(k, gen_wire, n, ready) -> (payload, count, rounds, eps)``
     replaces the default fetch-and-split (the lazy History deposits the
     generation in the device store and fetches only its summary lanes).
+    The generation's ``tl_*`` telemetry lanes are fetched in the same
+    ticket, under ``egress("telemetry")``; after :meth:`result` they are
+    :attr:`lanes` (empty without lanes).
     """
 
     def __init__(self, engine, wires: dict, K: int, n: int, label: str,
@@ -92,6 +111,8 @@ class GenStream:
         self._ready = mark_ready(wires)
         self._next = 0
         self._ticket = None
+        #: the telemetry lanes of the generation :meth:`result` returned
+        self.lanes: dict = {}
         self._submit()
 
     def _submit(self):
@@ -103,13 +124,13 @@ class GenStream:
         gw = slice_block_wire(self._wires, k)
         self._ticket = self._engine.submit(
             lambda f=self._fetch, k=k, gw=gw, n=self._n, r=self._ready:
-            f(k, gw, n, r), label=f"{self._label}+{k}")
+            (f(k, gw, n, r), fetch_lanes(gw, r)), label=f"{self._label}+{k}")
         self._next += 1
 
     def result(self):
         """The next generation's ``(payload, count, rounds, eps)``; queues
         the one after it."""
-        out = self._ticket.result()
+        out, self.lanes = self._ticket.result()
         self._submit()
         return out
 

@@ -25,9 +25,21 @@ drains on its own thread (sqlite connections are thread-affine, and
 deposits come from ingest workers): the store never touches the
 database.
 
-Not ported (ROADMAP): the spill journal, the deposit digest and its CRC
-check at hydration, the fault sites, and the opt-in
-``$PYABC_TPU_SUMMARY_GRID`` packet.
+Durability contract (``resilience/journal.py``): with a
+:class:`~pyabc_tpu_torch.resilience.journal.SpillJournal` attached,
+``deposit`` write-aheads an O(100 B) manifest record before
+acknowledging, and the moment a generation becomes *at risk* — evicted
+from the ring, or still resident during a preemption flush
+(:meth:`DeviceRunStore.journal_tail`) — its wire bytes are fetched once
+(a fetch that is complete before the record is framed and fsynced) and
+journaled BEFORE anything consumes them.  Every deposit also records a
+content digest (shape/dtype manifest at deposit, bytes CRC completed at
+first host contact) that :func:`entry_host_wire` verifies on every
+decode; a mismatch raises ``IntegrityError`` for the History's recovery
+ladder.  The ``store.deposit``, ``store.spill`` and ``store.hydrate``
+fault sites sit at those three points.
+
+Not ported: the opt-in ``$PYABC_TPU_SUMMARY_GRID`` packet.
 """
 
 from __future__ import annotations
@@ -134,22 +146,54 @@ def summarize_device_population(dp: dict, M: int) -> dict:
 # ---------------------------------------------------------------- decode
 
 def _population_wire(entry: dict) -> dict:
-    """The entry's lanes other than the summary's."""
+    """The entry's decodable lanes (the summary ``sm_*`` and telemetry
+    ``tl_*`` lanes carry no population bytes)."""
     return {k: v for k, v in entry["wire"].items()
-            if not k.startswith("sm_")}
+            if not k.startswith(("sm_", "tl_"))}
+
+
+def entry_host_wire(entry: dict) -> dict:
+    """Generation bytes on the host, fetched at most once per entry:
+    the journaled copy when the spill path already paid the d2h, else a
+    fetch under ``egress("history")`` that completes the entry's content
+    digest (CRC at first host contact).  The result passes the
+    ``store.hydrate`` fault site and is digest-verified — corruption
+    between fetch and decode raises ``IntegrityError``."""
+    from ..resilience import faults as _faults
+    from ..resilience.journal import crc_of, verify_wire
+    from ..sampler.base import fetch_to_host
+
+    out = entry.get("host_wire")
+    fresh = False
+    if out is None:
+        with transfer.egress("history"):
+            out = fetch_to_host(_population_wire(entry), entry.get("ready"))
+        digest = entry.get("digest")
+        if digest is not None and digest.get("crc") is None:
+            entry["digest"] = digest = dict(digest, crc=crc_of(out))
+            fresh = True
+    seen = _faults.fault_point(_faults.SITE_STORE_HYDRATE, data=out)
+    digest = entry.get("digest")
+    if fresh and seen is out:
+        # the CRC was just taken of these very arrays: a second pass
+        # over them checks nothing (the JAX package takes it anyway);
+        # the manifest is still checked, and bytes a fault plan swapped
+        # in get the full check
+        digest = dict(digest, crc=None)
+    verify_wire(seen, digest, t=entry.get("t", -2), where="store.hydrate")
+    return seen
 
 
 def hydrate_entry(entry: dict):
     """One deposited generation on the host, decoded as the eager path
     decodes it (the entry's ``norm``): a round-order
     :class:`~pyabc_tpu_torch.population.Population`, or None when its
-    weights are degenerate.  The fetch is booked to
-    ``egress("history")``."""
-    from ..sampler.base import Sample, fetch_to_host
+    weights are degenerate.  The bytes come from
+    :func:`entry_host_wire`."""
+    from ..sampler.base import Sample
     from .ingest import SCALAR_KEYS, batch_to_population, split_gen_wire
 
-    with transfer.egress("history"):
-        out = fetch_to_host(_population_wire(entry), entry.get("ready"))
+    out = entry_host_wire(entry)
     if entry["norm"] == "sample":
         batch = {k: v for k, v in out.items() if k not in SCALAR_KEYS}
         smp = Sample()
@@ -179,28 +223,127 @@ class DeviceRunStore:
         self.deposits = 0
         self.evictions = 0
         self.hydrations = 0
+        #: optional write-ahead SpillJournal (resilience/journal.py);
+        #: journal calls happen outside the store lock
+        self.journal = None
+
+    def attach_journal(self, journal):
+        """Arm the durability contract: deposits write-ahead manifest
+        records, evictions and preemption flushes journal the bytes
+        before they become the generation's only copy."""
+        self.journal = journal
 
     def deposit(self, t: int, wire: dict, *, n: int, count: int,
                 eps: Optional[float] = None, norm: str = "stream",
                 ready=None):
         """Park generation ``t``'s wire (``ready``: its producer's CUDA
-        event).  A repeat deposit of ``t`` replaces the entry."""
+        event).  A repeat deposit of ``t`` replaces the entry.  With a
+        journal the deposit is acknowledged only after its manifest
+        record is durable, and an entry the ring evicts has its bytes
+        journaled before it joins the spill queue."""
+        from ..resilience import faults as _faults
+        from ..resilience.journal import manifest_of
+
+        _faults.fault_point(_faults.SITE_STORE_DEPOSIT)
         wire = {k: v for k, v in wire.items() if k not in CONTROL_LANE_KEYS}
         entry = {"t": int(t), "wire": wire, "n": int(n), "count": int(count),
                  "eps": None if eps is None else float(eps),
                  "norm": str(norm), "ready": ready,
                  "nbytes": transfer.tree_nbytes(wire)}
+        entry["digest"] = {"crc": None,
+                           "manifest": manifest_of(_population_wire(entry))}
+        journal = self.journal
+        if journal is not None:
+            journal.append_manifest({
+                "t": entry["t"], "n": entry["n"], "count": entry["count"],
+                "eps": entry["eps"], "norm": entry["norm"],
+                "nbytes": entry["nbytes"], "digest": entry["digest"]})
+        evicted = []
         with self._lock:
             self._entries.pop(int(t), None)
             self._entries[int(t)] = entry
             self.deposits += 1
             while len(self._entries) > self.max_gens:
                 t_old, old = self._entries.popitem(last=False)
-                self._spills.append(old)
+                evicted.append(old)
                 self.evictions += 1
                 logger.info("device store: evicting gen %d to the spill "
                             "queue (%d resident)", t_old,
                             len(self._entries))
+        for old in evicted:
+            # outside the lock: the spill fetch and the fsync'd journal
+            # write must not serialize concurrent deposits
+            self._journal_spill(old)
+            with self._lock:
+                self._spills.append(old)
+
+    def _journal_spill(self, entry: dict) -> bool:
+        """Write an at-risk entry's bytes ahead (``store.spill`` site,
+        retried).  On success the entry carries ``host_wire`` and a
+        completed digest; on exhausted retries it stays a device-only
+        spill and the run continues."""
+        journal = self.journal
+        if journal is None or entry.get("host_wire") is not None:
+            return entry.get("host_wire") is not None
+        from ..resilience import faults as _faults
+        from ..resilience.retry import RetryExhausted, shared_policy
+        try:
+            shared_policy().call(self._spill_once, _faults.SITE_STORE_SPILL,
+                                 entry, journal)
+            return True
+        except RetryExhausted:
+            logger.exception(
+                "device store: could not journal spilled gen %d — it "
+                "remains device-only until materialization", entry["t"])
+            from ..telemetry.flight import RECORDER
+            RECORDER.note("spill_unjournaled", t=entry["t"])
+            return False
+
+    @staticmethod
+    def _spill_once(entry: dict, journal):
+        from ..sampler.base import fetch_to_host
+
+        # the fetch has completed (its copy stream synchronized) before
+        # the bytes are framed and fsynced
+        with transfer.egress("history"):
+            host_wire = fetch_to_host(_population_wire(entry),
+                                      entry.get("ready"))
+        entry["digest"] = journal.append_payload(
+            entry["t"], host_wire,
+            {"n": entry["n"], "count": entry["count"],
+             "eps": entry["eps"], "norm": entry["norm"]})
+        entry["host_wire"] = host_wire
+
+    def journal_tail(self, deadline: Optional[float] = None) -> int:
+        """Preemption barrier, phase 1: journal the bytes of every
+        un-journaled generation (resident ring + spill queue), NEWEST
+        first.  ``deadline`` is an absolute ``time.monotonic`` stop;
+        returns how many generations were journaled."""
+        import time as _time
+        if self.journal is None:
+            return 0
+        with self._lock:
+            candidates = sorted(
+                list(self._entries.values()) + list(self._spills),
+                key=lambda e: e["t"], reverse=True)
+        done = 0
+        for entry in candidates:
+            if deadline is not None and _time.monotonic() >= deadline:
+                logger.warning(
+                    "preemption barrier: deadline hit after journaling "
+                    "%d/%d generations", done, len(candidates))
+                break
+            if self.journal.has_payload(entry["t"]):
+                continue
+            if self._journal_spill(entry):
+                done += 1
+        return done
+
+    def entry(self, t: int) -> Optional[dict]:
+        """The live entry of generation ``t`` (shared, not a copy): the
+        History's recovery ladder re-decodes from it."""
+        with self._lock:
+            return self._entries.get(int(t))
 
     def has(self, t: int) -> bool:
         with self._lock:
@@ -267,8 +410,14 @@ class DeviceRunStore:
         """JSON-able snapshot: what is resident and what awaits a
         drain."""
         with self._lock:
-            return {
+            out = {
                 "max_gens": self.max_gens, "deposits": self.deposits,
                 "evictions": self.evictions,
                 "resident": [self.entry_meta(t) for t in self._entries],
                 "spill_pending": [e["t"] for e in self._spills]}
+        if self.journal is not None:
+            out["journaled"] = [
+                t for t in sorted({*[m["t"] for m in out["resident"]],
+                                   *out["spill_pending"]})
+                if self.journal.has_payload(t)]
+        return out

@@ -1,9 +1,10 @@
 """Host<->device transfer and overlap accounting: the wire's ledger.
 
 Port of the ledger half of ``pyabc_tpu/wire/transfer.py``.  Process-wide
-counters, under one lock, that the single device-to-host chokepoint
-(``sampler.base.fetch_to_host``) and the streaming-ingest engine
-increment, so that wire bytes and the time the host spends waiting on
+counters in the telemetry registry (``telemetry.metrics.REGISTRY``, the
+JAX package's ``wire_*`` names, under its lock) that the single
+device-to-host chokepoint (``sampler.base.fetch_to_host``) and the
+streaming-ingest engine increment, so that wire bytes and the time the host spends waiting on
 them are machine-visible per generation (``ABCSMC.generation_transfer``)
 and feed the batch autotuner's margin.
 
@@ -36,8 +37,7 @@ calling thread's :func:`egress` label (``population`` by default).
 
 The PTW1 blob codec (:func:`encode_array` / :func:`decode_array`) is
 here too, so that the port's History reads a database that ``pyabc_tpu``
-wrote; the port itself goes on writing plain ``.npy`` blobs.  Not
-ported: the telemetry registry the JAX package stores these counters in.
+wrote; the port itself goes on writing plain ``.npy`` blobs.
 """
 
 from __future__ import annotations
@@ -51,22 +51,39 @@ from contextlib import contextmanager
 
 import numpy as np
 
+from ..telemetry.metrics import REGISTRY
+
 #: ledger keys, in the order snapshots report them; ``d2h_s`` and
 #: ``fetch_s`` read the same counter
 _KEYS = ("d2h_bytes", "d2h_s", "d2h_calls", "h2d_bytes", "compute_s",
          "fetch_s", "decode_s", "overlap_s", "rewinds")
 _INT_KEYS = frozenset({"d2h_bytes", "d2h_calls", "h2d_bytes", "rewinds"})
-#: the counter behind each key
-_COUNTER = {k: ("fetch_s" if k == "d2h_s" else k) for k in _KEYS}
+#: the registry counter behind each key (the JAX package's names)
+_METRIC = {
+    "d2h_bytes": "wire_d2h_bytes_total",
+    "d2h_s": "wire_fetch_seconds_total",
+    "d2h_calls": "wire_d2h_calls_total",
+    "h2d_bytes": "wire_h2d_bytes_total",
+    "compute_s": "wire_compute_seconds_total",
+    "fetch_s": "wire_fetch_seconds_total",
+    "decode_s": "wire_decode_seconds_total",
+    "overlap_s": "wire_overlap_seconds_total",
+    "rewinds": "wire_rewinds_total",
+}
 
 #: d2h egress subsystems: every fetched byte is booked to one of them
 EGRESS_SUBSYSTEMS = ("population", "history", "checkpoint", "summary",
                      "control", "telemetry", "other")
 
-_lock = threading.Lock()
-_counters = {k: 0 for k in _COUNTER.values()}
-_egress_bytes = {name: 0 for name in EGRESS_SUBSYSTEMS}
+_HELP = "wire ledger; see wire/transfer.py"
+#: the registry lock — held by ``snapshot()`` reads and counter writes
+_lock = REGISTRY._lock
 _egress_tls = threading.local()
+
+
+def _c(name: str):
+    # create-or-return each call: survives REGISTRY.reset() in tests
+    return REGISTRY.counter(name, _HELP)
 
 
 def current_egress() -> str:
@@ -91,44 +108,45 @@ def egress(subsystem: str):
 def egress_breakdown() -> dict:
     """Cumulative d2h bytes per subsystem; sums to ``d2h_bytes``."""
     with _lock:
-        return dict(_egress_bytes)
-
-
-def _inc(key: str, value):
-    with _lock:
-        _counters[key] += value
+        return {name: int(_c(f"wire_egress_{name}_bytes_total").value)
+                for name in EGRESS_SUBSYSTEMS}
 
 
 def record_d2h(nbytes: int, seconds: float):
     with _lock:
-        _counters["d2h_bytes"] += int(nbytes)
-        _counters["fetch_s"] += float(seconds)
-        _counters["d2h_calls"] += 1
-        _egress_bytes[current_egress()] += int(nbytes)
+        _c("wire_d2h_bytes_total").inc(int(nbytes))
+        _c("wire_fetch_seconds_total").inc(float(seconds))
+        _c("wire_d2h_calls_total").inc()
+        _c(f"wire_egress_{current_egress()}_bytes_total").inc(int(nbytes))
 
 
 def record_h2d(nbytes: int):
-    _inc("h2d_bytes", int(nbytes))
+    _c("wire_h2d_bytes_total").inc(int(nbytes))
 
 
 def record_compute(seconds: float):
     """Charge a fetch's wait on its producer."""
-    _inc("compute_s", float(seconds))
+    _c("wire_compute_seconds_total").inc(float(seconds))
 
 
 def record_decode(seconds: float):
-    _inc("decode_s", float(seconds))
+    _c("wire_decode_seconds_total").inc(float(seconds))
 
 
 def record_overlap(seconds: float):
     """Credit fetch seconds a background worker spent while the caller
     thread was not waiting on them."""
-    _inc("overlap_s", float(seconds))
+    _c("wire_overlap_seconds_total").inc(float(seconds))
 
 
 def record_rewind(count: int = 1):
     """Count speculative generations a pipeline rewind discarded."""
-    _inc("rewinds", int(count))
+    _c("wire_rewinds_total").inc(int(count))
+
+
+def _read(key: str):
+    v = _c(_METRIC[key]).value
+    return int(v) if key in _INT_KEYS else float(v)
 
 
 def _derived(d: dict) -> dict:
@@ -139,8 +157,7 @@ def _derived(d: dict) -> dict:
 
 def snapshot() -> dict:
     with _lock:
-        return _derived({k: (int if k in _INT_KEYS else float)(
-            _counters[_COUNTER[k]]) for k in _KEYS})
+        return _derived({k: _read(k) for k in _KEYS})
 
 
 def delta(before: dict, after: dict = None) -> dict:

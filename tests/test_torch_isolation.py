@@ -50,7 +50,13 @@ def test_port_files_exist():
                 "ops/precision.py", "capacity/__init__.py",
                 "capacity/model.py", "autotune/occupancy.py",
                 "fidelity/__init__.py", "fidelity/config.py",
-                "fidelity/calibrate.py", "fidelity/screen.py"):
+                "fidelity/calibrate.py", "fidelity/screen.py",
+                "telemetry/__init__.py", "telemetry/metrics.py",
+                "telemetry/spans.py", "telemetry/timeline.py",
+                "telemetry/lanes.py", "telemetry/flight.py",
+                "resilience/__init__.py", "resilience/faults.py",
+                "resilience/retry.py", "resilience/checkpoint.py",
+                "resilience/journal.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 
