@@ -211,6 +211,43 @@ Phases, each printed as one JSON line and each fatal on failure:
    or latch, a non-zero exit naming the device-side assert.  Every other
    phase must leave the retry and degradation counters where they were.
 
+13. ``quickstart1e4`` / ``envknobs1e6`` / ``refexport1e5`` /
+   ``hostsamplers`` / ``aggregatedlv1e5`` — the reference-compatible
+   surface.  ``quickstart1e4`` runs the port README's quick start
+   (BASELINE config #1 at pop 1e4 through ``DefaultSampler()``,
+   ``show_progress=True``, 8 generations, ``minimum_epsilon=0.01``)
+   beside its twin without the bar: tests/test_e2e_slice.py's posterior
+   gate, the populations bit-identical, the same host reads (every
+   synchronizing call under ``torch.cuda.set_sync_debug_mode("warn")``,
+   per sampler call and in all), bar lines on stderr.  ``envknobs1e6``
+   runs ``onedispatch1e6``'s configuration for 17 generations with no
+   engine arguments under ``PYABC_TPU_RUN_MODE=onedispatch`` and
+   ``PYABC_TPU_ONEDISPATCH_MAX_T=8`` against the twin that passes them
+   (bit-identical, ceil(16 / 8) dispatches), then with lazy rows under ``PYABC_TPU_LAZY_FINAL_ONLY=1``
+   (of the one-dispatch generations only the last gets blobs; generation
+   0, hydrated during the run, has them already).  ``refexport1e5`` runs config
+   #2 at pop 1e5 for 4 generations with eager rows (no summary
+   statistics, as ``run_gate`` stores them), exports it with
+   ``to_reference_db`` (the layout of tests/test_reference_export.py, one
+   particle, parameter and sample row per particle) and reads it back
+   with ``History.from_reference_db``: θ, weights, distances, model
+   probabilities and ε equal bit for bit; it reports the export's and
+   import's seconds and rows.  ``hostsamplers`` runs config #2 through
+   ``ConcurrentFutureSampler`` and ``DaskDistributedSampler`` (over a
+   thread-pool client; 4 jobs, 1024 candidates a task) at pop 1000 for
+   11 generations, each against ``run_gate``'s tolerances at that pop and
+   again with the seed for 6 generations (bit-identical to the first
+   run's), and through
+   ``MappingSampler(map_=map)`` at pop 100 for 3 generations (max_t >= 1,
+   model probabilities summing to 1); in every run each generation t >= 1
+   launches K1 M × its tasks (a task's round evaluates the proposal
+   density in the round, once per model).  ``aggregatedlv1e5`` runs
+   ``lv1e5`` with ``AggregatedTransition({(0, 2): MVN, (2, 4): MVN})``:
+   ``lv1e5``'s gates, the sequential engine, and K1 launched twice per
+   generation t >= 1 (once per block), each at d = 2.  The SGE mapper
+   (``pyabc_tpu_torch.sge``) maps host functions in processes of their
+   own and is tested on the CPU only.
+
 Every phase of items 4–8 pins ``history_mode="eager"``, and every run at
 pop 1e6 among them ``ingest_mode="sequential"``, so that each measures
 the engine it did before the pipeline and the lazy rows became the
@@ -223,7 +260,9 @@ shape [records × support] from the ``petab1e5`` run's timeline, rows (h),
 ``pipelinedsir1e6``, row (k) the largest bootstrap density of
 ``adaptivepop``, row (l) the largest finalize of ``stats1e5``, rows (m),
 (n) and (o) the finalize of ``fidelitysir5e4``, ``fidelitylv5e4`` and
-``capacity1e7`` (stated default shapes without those runs).
+``capacity1e7``, row (p) one ``hostsamplers`` task's proposal density
+[1024 × support] and row (q) an ``aggregatedlv1e5`` block's finalize at
+d = 2 (stated default shapes without those runs).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -248,6 +287,9 @@ generations if the plan fits, else reports the ``CapacityError`` with its
 ledger.  ``capacityspread`` runs ``capacity1e7``'s configuration with no
 budget in float32 and bf16 at seeds 0-2 and reports the spread of the
 posterior means, at each run's last ε and at the smallest of them.
+``hostprof`` times a ``ConcurrentFutureSampler`` task's round and whole
+task with 1, 4 and again 1 job in flight (config #2, pop 1000, 8
+generations).
 
 The ``kernels`` summary line and the ``nvidia-smi`` name/power-limit
 line come just before the last line, which is ``{"ok": true, "device":
@@ -273,10 +315,11 @@ ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "pipelined1e6", "pipelinedsir1e6", "library", "stats1e5",
               "adaptivepop", "local1e4", "fidelitysir5e4", "fidelitylv5e4",
               "capacity1e7", "telemetry1e6", "chaos1e6", "recover1e6",
-              "cudafaults", "kernels")
+              "cudafaults", "quickstart1e4", "envknobs1e6", "refexport1e5",
+              "hostsamplers", "aggregatedlv1e5", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat", "capacity1e8",
-                "capacityspread")
+                "capacityspread", "hostprof")
 TOL_ABS = 1e-4
 TOL_REL = 1e-5
 #: largest [M, N] float32 block the library yardstick may materialize
@@ -530,6 +573,24 @@ def fidelity_capacity_cases(state) -> list:
     return out
 
 
+def host_aggregated_cases(state) -> list:
+    """Rows (p) and (q): one host-sampler task's in-round proposal
+    density (its candidates against a model's padded support, d = 1) and
+    an ``AggregatedTransition`` block's finalize on LV (the population
+    against the previous one on two of the four columns), from the
+    hostsamplers and aggregatedlv1e5 runs or at these stated defaults."""
+    out = []
+    for label, key, default in (
+            ("p hostsamplers task", "hostsampler_task_shape",
+             (1024, 1024, 1)),
+            ("q aggregatedlv1e5 block", "aggregated_block_shape",
+             (100_000, 100_000, 2))):
+        m, n, d = state.get(key, default)
+        source = "run" if key in state else "default"
+        out.append((f"{label} ({source})", m, n, d, {}))
+    return out
+
+
 def phase_kernels(torch, state):
     from pyabc_tpu_torch.ops import kde as kde_plain
     from pyabc_tpu_torch.ops import kde_cuda
@@ -541,7 +602,8 @@ def phase_kernels(torch, state):
     ok_all = True
     for label, m, n, d, kw in (KDE_CASES + [record_case(state)]
                                + fused_cases(state) + library_cases(state)
-                               + fidelity_capacity_cases(state)):
+                               + fidelity_capacity_cases(state)
+                               + host_aggregated_cases(state)):
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
@@ -909,15 +971,16 @@ def onedispatch_report(abc, rows, wall: float) -> dict:
                                             if od else None)}
 
 
-def population_difference(h_a, h_b):
+def population_difference(h_a, h_b, prefix: bool = False):
     """None when every generation's model index, parameters, distances
-    and weights are equal bit for bit in the two histories, else where
-    they first differ."""
+    and weights are equal bit for bit in the two histories (with
+    ``prefix``, every generation of the shorter one), else where they
+    first differ."""
     import numpy as np
 
-    if h_a.max_t != h_b.max_t:
+    if h_a.max_t != h_b.max_t and not prefix:
         return f"generations {h_a.max_t + 1} vs {h_b.max_t + 1}"
-    for t in range(h_a.max_t + 1):
+    for t in range(min(h_a.max_t, h_b.max_t) + 1):
         a, b = h_a.get_population(t), h_b.get_population(t)
         for key in ("m", "theta", "distance", "weight"):
             x, y = np.asarray(getattr(a, key)), np.asarray(getattr(b, key))
@@ -932,11 +995,12 @@ ONEDISPATCH_POP = 1_000_000
 ONEDISPATCH_GENS = 9
 
 
-def onedispatch_main_run(torch, run_mode: str,
-                         history_mode: str = "eager") -> tuple:
+def onedispatch_main_run(torch, run_mode, history_mode: str = "eager",
+                         gens: int = ONEDISPATCH_GENS, **kwargs) -> tuple:
     """``(abc, wall_s, K1 launches)`` of the ``bench_onedispatch``
     configuration through ``ABCSMC.run`` on the card (the fused twin on
-    the classic loop: pop 1e6 would pipeline it)."""
+    the classic loop: pop 1e6 would pipeline it); ``kwargs`` go to the
+    constructor."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import make_two_gaussians_problem
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
@@ -950,11 +1014,11 @@ def onedispatch_main_run(torch, run_mode: str,
                                      max_rounds_per_call=16, device="cuda"),
         stores_sum_stats=False, fuse_generations=FUSE_K, run_mode=run_mode,
         ingest_mode="sequential", history_mode=history_mode, seed=0,
-        device="cuda")
+        device="cuda", **kwargs)
     abc.new("sqlite://", observed)
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
-    abc.run(max_nr_populations=ONEDISPATCH_GENS)
+    abc.run(max_nr_populations=gens)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     return abc, wall, weighted_kde_logpdf_cuda.launches
@@ -1261,12 +1325,14 @@ def adaptive_abc(name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
 
 
 def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
-                 defaults: bool = False, transitions=None) -> dict:
+                 defaults: bool = False, transitions=None,
+                 kde_per_gen=None) -> dict:
     """One adaptive workload through ``ABCSMC.run`` on the card, with its
     per-generation timeline and the gates of the module docstring;
     ``defaults`` runs the constructor's defaults (pipelined at pop 1e6).
     With ``transitions`` (a LocalTransition) the proposal density is not
-    K1: its launch gate becomes none launched."""
+    K1: its launch gate becomes none launched, or, with ``kde_per_gen``,
+    exactly that many launches in every generation t >= 1."""
     import numpy as np
 
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
@@ -1296,7 +1362,9 @@ def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
         "eps": all(math.isfinite(r["eps"]) and r["eps"] > 0 for r in rows),
         "launches": (all(r["kde_launches"] >= 1 for r in rows
                          if r["t"] >= 1) if transitions is None
-                     else launches == 0),
+                     else launches == 0 if kde_per_gen is None
+                     else all(r["kde_launches"] == kde_per_gen
+                              for r in rows if r["t"] >= 1)),
         "history_rows": (list(abc.history.get_all_populations().t)
                          == [-1] + [r["t"] for r in rows]),
         "mean": bool(np.all(np.abs(mean - log_truth) <= 4 * std)),
@@ -1349,6 +1417,8 @@ def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
 def _phase_adaptive(torch, state, name: str):
     row = run_adaptive(torch, name)
     state.setdefault("launches", {})[name] = row["kde_launches"]
+    state[f"{name}_gen_launches"] = {g["t"]: g["kde_launches"]
+                                     for g in row["generations"]}
     emit({"phase": name, **row})
     if not row["ok"]:
         raise RuntimeError(f"{name} failed its checks: {row['checks']}")
@@ -3662,6 +3732,561 @@ def phase_cudafaults(torch, state):
         raise RuntimeError(f"cudafaults failed its checks: {checks}")
 
 
+# ------------------------------------------- the reference-compat surface
+
+#: the port README's quick start: BASELINE config #1 (y ~ N(mu, 1),
+#: mu ~ N(0, 1), y = 1 observed: posterior N(0.5, 0.5)) at pop 1e4
+QUICKSTART_POP = 10_000
+QUICKSTART_GENS = 8
+QUICKSTART_MIN_EPS = 0.01
+
+
+def quickstart_run(torch, show_progress: bool) -> dict:
+    """The quick start through ``DefaultSampler()`` on the card, with the
+    host reads of the run counted: every synchronizing CUDA call under
+    ``torch.cuda.set_sync_debug_mode("warn")`` (one warning each), per
+    sampler call and in all; the bar's stderr is captured."""
+    import contextlib
+    import io
+    import warnings
+
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    def model(generator, theta):
+        mu = theta[:, :1]
+        return {"y": mu + torch.randn(mu.shape, generator=generator,
+                                      device=mu.device)}
+
+    abc = pt.ABCSMC(pt.SimpleModel(model, name="gauss"),
+                    pt.Distribution(mu=pt.RV("norm", 0.0, 1.0)),
+                    pt.PNormDistance(p=2), population_size=QUICKSTART_POP,
+                    sampler=pt.DefaultSampler(),
+                    show_progress=show_progress, seed=1)
+    abc.new("sqlite://", {"y": 1.0})
+    per_call = []
+    sample = abc.sampler.sample_until_n_accepted
+    err = io.StringIO()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+
+        def counted(*args, **kwargs):
+            before = len(caught)
+            out = sample(*args, **kwargs)
+            per_call.append(len(caught) - before)
+            return out
+
+        abc.sampler.sample_until_n_accepted = counted
+        weighted_kde_logpdf_cuda.launches = 0
+        torch.cuda.set_sync_debug_mode("warn")
+        t0 = time.perf_counter()
+        try:
+            with contextlib.redirect_stderr(err):
+                h = abc.run(max_nr_populations=QUICKSTART_GENS,
+                            minimum_epsilon=QUICKSTART_MIN_EPS)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    syncs = sum("synchroniz" in str(w.message) for w in caught)
+    df, w = h.get_distribution(m=0)
+    mu = float(np.sum(df["mu"].to_numpy() * w))
+    var = float(np.sum(w * (df["mu"].to_numpy() - mu) ** 2))
+    return {"abc": abc, "wall_s": wall, "mean": mu, "var": var,
+            "max_t": h.max_t, "syncs": syncs, "syncs_per_call": per_call,
+            "kde_launches": weighted_kde_logpdf_cuda.launches,
+            "stderr": err.getvalue()}
+
+
+def phase_quickstart1e4(torch, state):
+    """The quick start with ``show_progress=True`` beside its twin
+    without the bar: tests/test_e2e_slice.py's posterior gate, the same
+    populations bit for bit, the same host reads, bar lines on stderr.
+    A first run without the bar takes the process's one-off set-up of
+    this shape (one more synchronizing call than a warm run), so the
+    twins compare warm."""
+    warm = quickstart_run(torch, False)
+    quiet = quickstart_run(torch, False)
+    shown = quickstart_run(torch, True)
+    a = shown["abc"]
+    difference = population_difference(a.history, quiet["abc"].history)
+    bar_lines = [line for line in shown["stderr"].splitlines()
+                 if line.startswith("sampling |")]
+    checks = {
+        "mean": abs(shown["mean"] - 0.5) < 0.15,
+        "var": 0.3 < shown["var"] < 0.9,
+        "max_t": shown["max_t"] >= 2,
+        "sampler": type(a.sampler).__name__ == "VectorizedSampler"
+        and a.sampler.device.type == "cuda",
+        "bit_identical": difference is None,
+        "host_reads": (shown["syncs"] == quiet["syncs"]
+                       and shown["syncs_per_call"]
+                       == quiet["syncs_per_call"]),
+        "bar_lines": (f"{QUICKSTART_POP}/{QUICKSTART_POP}"
+                      in shown["stderr"] and bool(bar_lines)
+                      and "sampling |" not in quiet["stderr"]),
+        "launches": all(r["kde_launches"] >= 1 for r in a.timeline
+                        if r["t"] >= 1),
+    }
+    state.setdefault("launches", {})["quickstart1e4"] = shown["kde_launches"]
+    row = {"pop": QUICKSTART_POP, "ok": all(checks.values()),
+           "checks": checks, "posterior_mean": shown["mean"],
+           "posterior_var": shown["var"], "gens_run": shown["max_t"] + 1,
+           "minimum_epsilon": QUICKSTART_MIN_EPS,
+           "final_eps": float(a.history.get_all_populations()
+                              .epsilon.iloc[-1]),
+           "stop_reason": a.stop_reason, "difference": difference,
+           "host_syncs": shown["syncs"], "host_syncs_quiet": quiet["syncs"],
+           "host_syncs_first_run": warm["syncs"],
+           "host_syncs_per_sampler_call": shown["syncs_per_call"],
+           "host_syncs_per_sampler_call_quiet": quiet["syncs_per_call"],
+           "host_syncs_per_sampler_call_first": warm["syncs_per_call"],
+           "bar_lines": len(bar_lines), "bar_last": (bar_lines or [""])[-1],
+           "kde_launches": shown["kde_launches"],
+           "wall_s": shown["wall_s"], "wall_s_quiet": quiet["wall_s"],
+           "generations": [generation_row(r) for r in a.timeline]}
+    emit({"phase": "quickstart1e4", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"quickstart1e4 failed its checks: {checks}")
+
+
+#: the one-dispatch window set through the environment, and a run long
+#: enough to need two dispatches of it.  A 4-generation window at batch
+#: 2^19 is refused on the card by the capacity plan's completability
+#: check (ceil(4 · 1e6 / 2^19) = 8 rounds > max_T = 4), as the JAX
+#: package's plan refuses it
+ENVKNOBS_MAX_T = 8
+ENVKNOBS_GENS = 17
+
+
+def _blob_rows(history) -> list:
+    """The generations t >= 0 whose model rows hold blobs."""
+    return sorted({t for (t,) in history._conn.execute(
+        "SELECT t FROM model_populations WHERE abc_smc_id=? AND t>=0 AND "
+        "theta IS NOT NULL", (history.id,))})
+
+
+def phase_envknobs1e6(torch, state):
+    """``onedispatch1e6``'s configuration for 17 generations with no
+    engine arguments under ``PYABC_TPU_RUN_MODE=onedispatch`` and
+    ``PYABC_TPU_ONEDISPATCH_MAX_T=8`` against the twin that passes them:
+    bit-identical, ceil(16 / 8) dispatches; then lazy rows under ``PYABC_TPU_LAZY_FINAL_ONLY=1``: of
+    the generations the store held at ``done``, only the last gets its
+    blobs (generation 0, hydrated during the run, has them already)."""
+    saved = _env(PYABC_TPU_RUN_MODE="onedispatch",
+                 PYABC_TPU_ONEDISPATCH_MAX_T=str(ENVKNOBS_MAX_T))
+    try:
+        a_env, wall_env, launches_env = onedispatch_main_run(
+            torch, None, gens=ENVKNOBS_GENS)
+    finally:
+        _env(**saved)
+    a_arg, wall_arg, _ = onedispatch_main_run(
+        torch, "onedispatch", gens=ENVKNOBS_GENS,
+        onedispatch_max_t=ENVKNOBS_MAX_T)
+    saved = _env(PYABC_TPU_LAZY_FINAL_ONLY="1")
+    try:
+        a_lazy, wall_lazy, launches_lazy = onedispatch_main_run(
+            torch, "onedispatch", "lazy")
+    finally:
+        _env(**saved)
+    after_t0 = ENVKNOBS_GENS - 1
+    expected = -(-after_t0 // ENVKNOBS_MAX_T)
+    difference = population_difference(a_env.history, a_arg.history)
+    paths = [r["path"] for r in a_env.timeline]
+    blob_rows = _blob_rows(a_lazy.history)
+    last_lazy = ONEDISPATCH_GENS - 1
+    checks = {
+        "mode": (a_env.run_mode, a_env.onedispatch_max_t)
+        == ("onedispatch", ENVKNOBS_MAX_T),
+        "dispatches": a_env.run_dispatches == a_arg.run_dispatches
+        == expected,
+        "paths": paths == ["sequential"] + ["onedispatch"] * after_t0
+        and paths == [r["path"] for r in a_arg.timeline],
+        "bit_identical": difference is None,
+        # generation 0 is written while the run goes (the sequential
+        # engine hydrates it for the host adaptation, as the JAX package
+        # does); of the generations left in the store only the last
+        "final_only": blob_rows == [0, last_lazy]
+        and a_lazy.history.max_t == last_lazy,
+        "lazy_summary_rows": all(
+            a_lazy.history.get_population_summary(t)
+            for t in range(a_lazy.history.max_t)),
+    }
+    launches = state.setdefault("launches", {})
+    launches["envknobs1e6"] = launches_env
+    launches["envknobs1e6_final_only"] = launches_lazy
+    row = {"pop": ONEDISPATCH_POP, "gens": ENVKNOBS_GENS,
+           "max_t": ENVKNOBS_MAX_T, "ok": all(checks.values()),
+           "checks": checks, "run_dispatches": a_env.run_dispatches,
+           "expected_dispatches": expected, "paths": paths,
+           "difference": difference, "blob_rows": blob_rows,
+           "wall_s": wall_env, "wall_s_args": wall_arg,
+           "wall_s_final_only": wall_lazy, "kde_launches": launches_env}
+    emit({"phase": "envknobs1e6", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"envknobs1e6 failed its checks: {checks}")
+
+
+REFEXPORT_POP = 100_000
+REFEXPORT_GENS = 4
+#: the layout tests/test_reference_export.py checks
+REFERENCE_TABLES = {
+    "abc_smc": {"id", "start_time", "end_time", "json_parameters",
+                "distance_function", "epsilon_function",
+                "population_strategy", "git_hash"},
+    "populations": {"id", "abc_smc_id", "t", "population_end_time",
+                    "nr_samples", "epsilon"},
+    "models": {"id", "population_id", "m", "name", "p_model"},
+    "particles": {"id", "model_id", "w"},
+    "parameters": {"id", "particle_id", "name", "value"},
+    "samples": {"id", "particle_id", "distance"},
+    "summary_statistics": {"id", "sample_id", "name", "value"},
+}
+
+
+def phase_refexport1e5(torch, state):
+    """Config #2 at pop 1e5, 4 generations, eager rows without summary
+    statistics (``run_gate``'s ``stores_sum_stats=False``), exported with
+    ``to_reference_db`` and read back with ``History.from_reference_db``:
+    the reference layout, and every generation's θ, weights, distances,
+    model probabilities and ε equal bit for bit."""
+    import sqlite3
+    import tempfile
+
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    models, priors, distance, observed, _ = make_two_gaussians_problem()
+    abc = pt.ABCSMC(models, priors, distance,
+                    population_size=REFEXPORT_POP, eps=pt.MedianEpsilon(),
+                    sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
+                                                 device="cuda"),
+                    stores_sum_stats=False, history_mode="eager", seed=0,
+                    device="cuda")
+    abc.new("sqlite://", observed)
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    h = abc.run(max_nr_populations=REFEXPORT_GENS)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    state.setdefault("launches", {})["refexport1e5"] = \
+        weighted_kde_logpdf_cuda.launches
+    checks = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        ref_db = str(Path(tmp) / "reference.db")
+        t0 = time.perf_counter()
+        abc_id = h.to_reference_db(ref_db)
+        export_s = time.perf_counter() - t0
+        conn = sqlite3.connect(ref_db)
+        try:
+            layout = {}
+            rows = {}
+            for table, cols in REFERENCE_TABLES.items():
+                layout[table] = {r[1] for r in conn.execute(
+                    f"PRAGMA table_info({table})")} == cols
+                rows[table] = conn.execute(
+                    f"SELECT COUNT(*) FROM {table}").fetchone()[0]
+        finally:
+            conn.close()
+        checks["layout"] = all(layout.values())
+        n_rows = REFEXPORT_POP * REFEXPORT_GENS
+        checks["rows"] = (rows["particles"] == n_rows + 1
+                          and rows["samples"] == n_rows + 1
+                          and rows["parameters"] == n_rows)
+        t0 = time.perf_counter()
+        back = pt.History.from_reference_db(
+            ref_db, db=str(Path(tmp) / "back.db"), abc_id=abc_id)
+        import_s = time.perf_counter() - t0
+        gens = h.get_all_populations()
+        gens = gens[gens.t >= 0]
+        got = back.get_all_populations()
+        checks["eps"] = (list(got.t) == list(gens.t) and np.array_equal(
+            got.epsilon.to_numpy(), gens.epsilon.to_numpy())
+            and list(got.samples) == list(gens.samples))
+        same = True
+        for t in range(h.max_t + 1):
+            same = same and np.array_equal(
+                back.get_model_probabilities(t).to_numpy(),
+                h.get_model_probabilities(t).to_numpy())
+            a, b = h.get_population(t), back.get_population(t)
+            # both group rows by model; the native rows are in round
+            # order within each model, and so are the imported ones
+            order = np.argsort(a.m, kind="stable")
+            for key in ("m", "theta", "weight", "distance"):
+                same = same and np.array_equal(
+                    np.asarray(getattr(a, key))[order],
+                    np.asarray(getattr(b, key)))
+        checks["round_trip"] = bool(same)
+        back.close()
+    row = {"pop": REFEXPORT_POP, "gens": REFEXPORT_GENS,
+           "ok": all(checks.values()), "checks": checks,
+           "export_s": export_s, "import_s": import_s, "run_s": run_s,
+           "rows": rows, "kde_launches":
+               state["launches"]["refexport1e5"]}
+    emit({"phase": "refexport1e5", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"refexport1e5 failed its checks: {checks}")
+
+
+HOST_POP = 1000
+HOST_GENS = 11
+HOST_BATCH = 1024
+#: the same-seed repeat runs the first generations again (t = 5 already
+#: has ~50 tasks in flight four at a time; t = 10 alone ~1 900)
+HOST_REPEAT_GENS = 6
+MAPPING_POP = 100
+MAPPING_GENS = 3
+
+
+class ThreadPoolClient:
+    """A ``distributed.Client`` stand-in over a thread pool (the
+    submit/ncores/close surface ``DaskDistributedSampler`` uses)."""
+
+    def __init__(self, n_workers: int = 4):
+        from concurrent.futures import ThreadPoolExecutor
+        self._pool = ThreadPoolExecutor(max_workers=n_workers)
+        self._n = n_workers
+
+    def submit(self, fn, *args, pure=None):
+        return self._pool.submit(fn, *args)
+
+    def ncores(self):
+        return {f"w{i}": 1 for i in range(self._n)}
+
+    def close(self):
+        self._pool.shutdown(wait=True)
+
+
+def host_run(torch, sampler, pop: int, gens: int) -> dict:
+    """Config #2 through a host sampler on the card (``run_gate``'s
+    ε schedule and seed), with the K1 launches the code predicts: a
+    task's round evaluates the proposal density in the round, one K1
+    launch per model, so generation t >= 1 launches M × its tasks
+    (``sampler.task_counts``: the calibration call, then t = 0, 1, ...)."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+
+    models, priors, distance, observed, posterior_fn = \
+        make_two_gaussians_problem()
+    abc = pt.ABCSMC(models, priors, distance, population_size=pop,
+                    eps=pt.MedianEpsilon(), sampler=sampler,
+                    stores_sum_stats=False, seed=0)
+    abc.new("sqlite://", observed)
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    h = abc.run(max_nr_populations=gens)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tasks = sampler.task_counts[1:]
+    rows = abc.timeline
+    predicted = [abc.M * tasks[r["t"]] if r["t"] >= 1 else 0 for r in rows]
+    t = h.max_t
+    p_b = float(h.get_model_probabilities(t).get(1, 0.0))
+    df, w = h.get_distribution(m=1, t=t)
+    mu = float(np.sum(df["mu"].to_numpy() * w)) if len(df) else math.nan
+    return {"abc": abc, "wall_s": wall, "p_model_b": p_b,
+            "p_analytic": float(posterior_fn(1.0)), "mu_b": mu,
+            "prob_sum": float(h.get_model_probabilities(t).sum()),
+            "gens_run": t + 1, "tasks_per_gen": tasks,
+            "kde_launches": weighted_kde_logpdf_cuda.launches,
+            "kde_launches_per_gen": [r["kde_launches"] for r in rows],
+            "kde_predicted_per_gen": predicted,
+            "launches_ok": [r["kde_launches"] for r in rows] == predicted,
+            "s_per_task": wall / max(sum(sampler.task_counts), 1),
+            "kde_support": max((s["rows"] for r in rows if r["t"] >= 1
+                                for s in r["kde_support"]), default=0)}
+
+
+def _host_gate(run: dict, pop: int) -> dict:
+    tol_p = max(2.5e-3, 2.5 / pop ** 0.5)
+    tol_mu = max(3e-3, 3.0 / pop ** 0.5)
+    return {"p_b": abs(run["p_model_b"] - run["p_analytic"]) < tol_p,
+            "mu_b": abs(run["mu_b"] - 1.0) < tol_mu,
+            "gens": run["gens_run"] == HOST_GENS,
+            "launches": run["launches_ok"]}
+
+
+def _host_report(runs, checks: dict, launches: dict, name: str) -> dict:
+    """A DYN sampler's full run and its same-seed repeat of the first
+    generations: ``run_gate`` on the first, the repeat bit-identical to
+    its prefix, K1 as predicted in both."""
+    first, second = runs
+    difference = population_difference(first["abc"].history,
+                                       second["abc"].history, prefix=True)
+    gate = _host_gate(first, HOST_POP)
+    gate["repeat_bit_identical"] = (
+        difference is None
+        and second["gens_run"] == HOST_REPEAT_GENS)
+    gate["repeat_launches"] = second["launches_ok"]
+    checks.update({f"{name}_{k}": v for k, v in gate.items()})
+    launches[f"hostsamplers_{name}"] = first["kde_launches"]
+    launches[f"hostsamplers_{name}_repeat"] = second["kde_launches"]
+    report = {k: v for k, v in first.items() if k != "abc"}
+    report.update({"wall_s_repeat": second["wall_s"],
+                   "repeat_gens": second["gens_run"],
+                   "difference": difference})
+    return report
+
+
+def phase_hostsamplers(torch, state):
+    """Config #2 through ``ConcurrentFutureSampler`` (4 jobs, 1024
+    candidates a task) and ``DaskDistributedSampler`` (over a thread-pool
+    client) at pop 1000 for ``run_gate``'s 11 generations, each held to
+    ``run_gate``'s tolerances at that pop, and again with the same seed
+    for 6 generations (bit-identical to the first run's); and
+    ``MappingSampler(map_=map)`` at pop 100 for 3 generations (the JAX
+    test's gate); K1 launched M × tasks in every generation t >= 1."""
+    import pyabc_tpu_torch as pt
+
+    makers = {
+        "cfuture": lambda: pt.ConcurrentFutureSampler(
+            client_max_jobs=4, batch_size=HOST_BATCH, device="cuda"),
+        "dask": lambda: pt.DaskDistributedSampler(
+            dask_client=ThreadPoolClient(4), client_max_jobs=4,
+            batch_size=HOST_BATCH, device="cuda"),
+    }
+    report, checks = {}, {}
+    launches = state.setdefault("launches", {})
+    for name, make in makers.items():
+        runs = []
+        for gens in (HOST_GENS, HOST_REPEAT_GENS):
+            sampler = make()
+            runs.append(host_run(torch, sampler, HOST_POP, gens))
+            sampler.stop()
+        report[name] = _host_report(runs, checks, launches, name)
+    sampler = pt.MappingSampler(map_=map, device="cuda")
+    mapping = host_run(torch, sampler, MAPPING_POP, MAPPING_GENS)
+    checks["mapping_max_t"] = mapping["gens_run"] - 1 >= 1
+    checks["mapping_prob_sum"] = abs(mapping["prob_sum"] - 1.0) < 1e-5
+    checks["mapping_launches"] = mapping["launches_ok"]
+    launches["hostsamplers_mapping"] = mapping["kde_launches"]
+    report["mapping"] = {k: v for k, v in mapping.items() if k != "abc"}
+    # row (p) of the kernels phase: one task's proposal density
+    state["hostsampler_task_shape"] = (HOST_BATCH,
+                                       report["cfuture"]["kde_support"], 1)
+    row = {"ok": all(checks.values()), "checks": checks,
+           "pop": HOST_POP, "batch": HOST_BATCH,
+           "tolerance_p": max(2.5e-3, 2.5 / HOST_POP ** 0.5), **report}
+    emit({"phase": "hostsamplers", **row})
+    if not row["ok"]:
+        raise RuntimeError(f"hostsamplers failed its checks: {checks}")
+
+
+#: opt-in ``hostprof``: the DYN sampler's jobs in flight to compare
+HOSTPROF_JOBS = (1, 4, 1)
+HOSTPROF_GENS = 8
+
+
+def phase_hostprof(torch, state):
+    """Where a DYN host-sampler task's time goes: config #2 at pop 1000
+    through ``ConcurrentFutureSampler`` (1024 candidates a task) for 8
+    generations with 1, 4 and again 1 job in flight, each task's round
+    (``round_fn`` up to its return, launches only) and fetch timed on the
+    host; medians per run (a process's first run carries one-off set-up
+    in its mean)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.sampler import eps_mixin
+
+    runner = eps_mixin.task_runner
+    times = {}
+
+    def timed(round_fn, generator, params, B, all_accepted=False):
+        def timed_round(gen, p, b, **kwargs):
+            t0 = time.perf_counter()
+            out = round_fn(gen, p, b, **kwargs)
+            times.setdefault("round_ms", []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+
+        run = runner(timed_round, generator, params, B, all_accepted)
+
+        def run_timed(task_id):
+            t0 = time.perf_counter()
+            out = run(task_id)
+            times.setdefault("task_ms", []).append(
+                1e3 * (time.perf_counter() - t0))
+            return out
+
+        run_timed.started = run.started
+        return run_timed
+
+    eps_mixin.task_runner = timed
+    runs = []
+    try:
+        for jobs in HOSTPROF_JOBS:
+            times.clear()
+            sampler = pt.ConcurrentFutureSampler(
+                client_max_jobs=jobs, batch_size=HOST_BATCH, device="cuda")
+            r = host_run(torch, sampler, HOST_POP, HOSTPROF_GENS)
+            sampler.stop()
+            runs.append({"jobs": jobs, "wall_s": r["wall_s"],
+                         "tasks": sum(r["tasks_per_gen"]),
+                         "ms_per_task": 1e3 * r["s_per_task"],
+                         "round_ms_median": statistics.median(
+                             times["round_ms"]),
+                         "task_ms_median": statistics.median(
+                             times["task_ms"]),
+                         "round_ms_mean": statistics.fmean(times["round_ms"]),
+                         "launches_ok": r["launches_ok"]})
+    finally:
+        eps_mixin.task_runner = runner
+    row = {"ok": all(r["launches_ok"] for r in runs), "runs": runs}
+    emit({"phase": "hostprof", **row})
+    if not row["ok"]:
+        raise RuntimeError("hostprof: K1 launches off the prediction")
+
+
+def phase_aggregatedlv1e5(torch, state):
+    """``lv1e5``'s configuration with ``AggregatedTransition({(0, 2): MVN,
+    (2, 4): MVN})``: lv1e5's gates, the sequential engine (no device
+    refit for an aggregated transition, as in the JAX package), and K1
+    launched twice per generation t >= 1 — once per block, at d = 2."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.ops import kde_cuda
+
+    agg = pt.AggregatedTransition(
+        {(0, 2): pt.MultivariateNormalTransition(),
+         (2, 4): pt.MultivariateNormalTransition()})
+    shapes = []
+    run = kde_cuda.KdeCall.run
+
+    def recorded(call):
+        shapes.append((call.m, call.n, call.d))
+        return run(call)
+
+    kde_cuda.KdeCall.run = recorded
+    try:
+        row = run_adaptive(torch, "lv1e5", transitions=agg, kde_per_gen=2)
+    finally:
+        kde_cuda.KdeCall.run = run
+    lv = state.get("lv1e5_gen_launches")
+    row["checks"]["sequential"] = set(row["paths"]) == {"sequential"}
+    row["checks"]["block_d"] = bool(shapes) and all(d == 2
+                                                    for _, _, d in shapes)
+    if lv is not None:
+        row["checks"]["twice_lv1e5"] = all(
+            g["kde_launches"] == 2 * lv.get(g["t"], -1)
+            for g in row["generations"] if g["t"] >= 1)
+    row["ok"] = all(row["checks"].values())
+    row["kde_shapes"] = sorted(set(shapes))
+    row["lv1e5_gen_launches"] = lv
+    state.setdefault("launches", {})["aggregatedlv1e5"] = row["kde_launches"]
+    if shapes:
+        state["aggregated_block_shape"] = max(shapes)
+    emit({"phase": "aggregatedlv1e5", **row})
+    if not row["ok"]:
+        raise RuntimeError(
+            f"aggregatedlv1e5 failed its checks: {row['checks']}")
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -3709,6 +4334,12 @@ PHASES = {"card": phase_card, "build": phase_build,
           "capacityspread": phase_capacityspread,
           "telemetry1e6": phase_telemetry1e6, "chaos1e6": phase_chaos1e6,
           "recover1e6": phase_recover1e6, "cudafaults": phase_cudafaults,
+          "quickstart1e4": phase_quickstart1e4,
+          "envknobs1e6": phase_envknobs1e6,
+          "refexport1e5": phase_refexport1e5,
+          "hostsamplers": phase_hostsamplers,
+          "aggregatedlv1e5": phase_aggregatedlv1e5,
+          "hostprof": phase_hostprof,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}
 

@@ -12,68 +12,90 @@ the component library a user configures: the prior families and their
 truncation, the population-size strategies, the local and random-walk
 transitions and the grid search over them, the aggregated, z-score, PCA
 and range distances, ``IntegratedModel`` and the host bridges of
-:mod:`.external`.
+:mod:`.external`; and the reference-compatible surface: the progress bar
+(``ABCSMC(show_progress=True)``), ``DefaultSampler``, the host samplers
+over a map, an executor or a dask client, ``AggregatedTransition``, the
+pyABC ORM-schema export and the parity classes of the JAX package's
+``__all__``.
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see :mod:`.device`).  Nothing here imports JAX or the JAX package.
 """
 
-from .acceptor import (Acceptor, ScaledPDFNorm, StochasticAcceptor,
+from . import autotune  # noqa: F401  (the batch tuner namespace)
+from . import resilience  # noqa: F401  (faults/retry/checkpoint namespace)
+from . import telemetry  # noqa: F401  (spans/metrics/timeline namespace)
+from .acceptor import (Acceptor, AcceptorResult, ScaledPDFNorm,
+                       SimpleFunctionAcceptor, StochasticAcceptor,
                        UniformAcceptor, pdf_norm_from_kernel,
                        pdf_norm_max_found)
 from .device import resolve_device
-from .distance import (AdaptiveAggregatedDistance, AdaptivePNormDistance,
+from .distance import (SCALE_LIN, SCALE_LOG, AcceptAllDistance,
+                       AdaptiveAggregatedDistance, AdaptivePNormDistance,
                        AggregatedDistance, BinomialKernel, Distance,
-                       DistanceWithMeasureList, IndependentLaplaceKernel,
-                       IndependentNormalKernel, MinMaxDistance,
-                       NegativeBinomialKernel, NormalKernel, PCADistance,
-                       PercentileDistance, PNormDistance, PoissonKernel,
-                       RangeEstimatorDistance, SimpleFunctionDistance,
-                       SimpleFunctionKernel, StochasticKernel,
-                       ZScoreDistance)
+                       DistanceWithMeasureList, IdentityFakeDistance,
+                       IndependentLaplaceKernel, IndependentNormalKernel,
+                       MinMaxDistance, NegativeBinomialKernel, NoDistance,
+                       NormalKernel, PCADistance, PercentileDistance,
+                       PNormDistance, PoissonKernel, RangeEstimatorDistance,
+                       SimpleFunctionDistance, SimpleFunctionKernel,
+                       StochasticKernel, ZScoreDistance)
 from .distance import scale
 from .distance.scale import SCALE_FUNCTIONS
 from .epsilon import (AcceptanceRateScheme, ConstantEpsilon, DalyScheme,
                       Epsilon, EssScheme, ExpDecayFixedIterScheme,
                       ExpDecayFixedRatioScheme, FrielPettittScheme,
-                      ListEpsilon, ListTemperature, MedianEpsilon,
+                      ListEpsilon, ListTemperature, MedianEpsilon, NoEpsilon,
                       PolynomialDecayFixedIterScheme, QuantileEpsilon,
                       Temperature, TemperatureBase, TemperatureScheme)
 from .model import IntegratedModel, Model, ModelResult, SimpleModel
 from .parameters import Parameter, ParameterSpace
-from .population import Population
+from .platform_factory import DefaultSampler
+from .population import Particle, Population
 from .populationstrategy import (AdaptivePopulationSize,
                                  ConstantPopulationSize, ListPopulationSize)
 from .random_variables import (RV, Distribution, LowerBoundDecorator,
                                ModelPerturbationKernel, RVBase, RVDecorator,
                                ScipyRV, TabulatedRV, TruncatedRV)
-from .sampler import VectorizedSampler
+from .sampler import (ConcurrentFutureSampler, DaskDistributedSampler,
+                      MappingSampler, MulticoreEvalParallelSampler,
+                      MulticoreParticleParallelSampler, RoundKernel, Sample,
+                      Sampler, SingleCoreSampler, VectorizedSampler)
 from .smc import ABCSMC
-from .storage import History
-from .transition import (DiscreteRandomWalkTransition, GridSearchCV,
-                         LocalTransition, MultivariateNormalTransition)
+from .storage import History, create_sqlite_db_id
+from .sumstat import SumStatSpec
+from .transition import (AggregatedTransition, DiscreteRandomWalkTransition,
+                         GridSearchCV, LocalTransition,
+                         MultivariateNormalTransition)
+from .version import __version__  # noqa: F401
 
 __all__ = [
-    "ABCSMC", "Acceptor", "UniformAcceptor", "Distance", "PNormDistance",
-    "AdaptivePNormDistance", "scale", "SCALE_FUNCTIONS",
-    "Epsilon", "ConstantEpsilon", "ListEpsilon", "QuantileEpsilon",
-    "MedianEpsilon", "Model", "SimpleModel", "Parameter", "ParameterSpace",
-    "Population", "ConstantPopulationSize", "RV", "Distribution",
-    "ModelPerturbationKernel", "VectorizedSampler", "History",
-    "MultivariateNormalTransition", "resolve_device",
-    "StochasticAcceptor", "pdf_norm_from_kernel", "pdf_norm_max_found",
-    "ScaledPDFNorm", "StochasticKernel", "SimpleFunctionKernel",
+    "ABCSMC", "History", "create_sqlite_db_id", "Population", "Particle",
+    "Parameter", "ParameterSpace", "RVDecorator", "SimpleFunctionAcceptor",
+    "TemperatureScheme", "DistanceWithMeasureList", "SumStatSpec",
+    "Model", "SimpleModel", "IntegratedModel", "ModelResult",
+    "RV", "RVBase", "Distribution", "ModelPerturbationKernel",
+    "LowerBoundDecorator", "TruncatedRV", "ScipyRV", "TabulatedRV",
+    "Distance", "NoDistance", "AcceptAllDistance", "IdentityFakeDistance",
+    "SimpleFunctionDistance", "PNormDistance", "AdaptivePNormDistance",
+    "AggregatedDistance", "AdaptiveAggregatedDistance", "ZScoreDistance",
+    "PCADistance", "RangeEstimatorDistance", "MinMaxDistance",
+    "PercentileDistance", "StochasticKernel", "SimpleFunctionKernel",
     "NormalKernel", "IndependentNormalKernel", "IndependentLaplaceKernel",
     "BinomialKernel", "PoissonKernel", "NegativeBinomialKernel",
-    "TemperatureBase", "ListTemperature", "Temperature",
-    "TemperatureScheme", "AcceptanceRateScheme", "ExpDecayFixedIterScheme",
+    "SCALE_LIN", "SCALE_LOG", "scale", "SCALE_FUNCTIONS",
+    "Epsilon", "NoEpsilon", "ConstantEpsilon", "ListEpsilon",
+    "QuantileEpsilon", "MedianEpsilon", "TemperatureBase", "ListTemperature",
+    "Temperature", "AcceptanceRateScheme", "ExpDecayFixedIterScheme",
     "ExpDecayFixedRatioScheme", "PolynomialDecayFixedIterScheme",
     "DalyScheme", "FrielPettittScheme", "EssScheme",
-    "RVBase", "RVDecorator", "TruncatedRV", "LowerBoundDecorator",
-    "ScipyRV", "TabulatedRV", "ListPopulationSize",
-    "AdaptivePopulationSize", "LocalTransition",
-    "DiscreteRandomWalkTransition", "GridSearchCV", "AggregatedDistance",
-    "AdaptiveAggregatedDistance", "ZScoreDistance", "PCADistance",
-    "DistanceWithMeasureList", "RangeEstimatorDistance", "MinMaxDistance",
-    "PercentileDistance", "SimpleFunctionDistance", "IntegratedModel",
-    "ModelResult",
+    "Acceptor", "AcceptorResult", "UniformAcceptor", "StochasticAcceptor",
+    "pdf_norm_from_kernel", "pdf_norm_max_found", "ScaledPDFNorm",
+    "MultivariateNormalTransition", "LocalTransition",
+    "DiscreteRandomWalkTransition", "GridSearchCV", "AggregatedTransition",
+    "ConstantPopulationSize", "AdaptivePopulationSize", "ListPopulationSize",
+    "Sampler", "Sample", "VectorizedSampler", "DefaultSampler",
+    "SingleCoreSampler", "MulticoreEvalParallelSampler",
+    "MulticoreParticleParallelSampler", "MappingSampler",
+    "ConcurrentFutureSampler", "DaskDistributedSampler", "RoundKernel",
+    "resolve_device", "__version__",
 ]

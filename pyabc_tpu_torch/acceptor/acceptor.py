@@ -1,5 +1,6 @@
 """Acceptors (port of ``pyabc_tpu/acceptor/acceptor.py``: ``Acceptor``,
-``UniformAcceptor`` and ``StochasticAcceptor``).
+``UniformAcceptor``, ``StochasticAcceptor``, ``SimpleFunctionAcceptor``
+and the reference's ``AcceptorResult`` triple).
 
 Host lifecycle (``initialize`` / ``update`` / ``get_params``) plus a
 batched kernel ``accept(generator, distance, params) -> (accept[N],
@@ -18,6 +19,15 @@ import torch
 
 from ..distance.kernel import SCALE_LIN, SCALE_LOG, StochasticKernel
 from .pdf_norm import pdf_norm_from_kernel, pdf_norm_max_found
+
+
+class AcceptorResult:
+    """The reference's result triple of one acceptance decision."""
+
+    def __init__(self, distance, accept, weight=1.0):
+        self.distance = distance
+        self.accept = accept
+        self.weight = weight
 
 
 class Acceptor:
@@ -51,6 +61,22 @@ class Acceptor:
 
     def get_config(self):
         return {"name": type(self).__name__}
+
+
+class SimpleFunctionAcceptor(Acceptor):
+    """A plain function as an acceptor: ``fun(distance[N], eps) ->
+    accept[N]`` (bool), batched over tensors on the round's device, with
+    unit weights."""
+
+    def __init__(self, fun: Callable):
+        self.fun = fun
+
+    def accept(self, generator, distance, params):
+        return self.fun(distance, params["eps"]), torch.ones_like(distance)
+
+    def get_config(self):
+        return {"name": type(self).__name__,
+                "fun": getattr(self.fun, "__name__", "custom")}
 
 
 class UniformAcceptor(Acceptor):

@@ -2,7 +2,8 @@
 not, the aggregated, z-score, PCA and range distances, the scale
 functions, and the stochastic kernels)."""
 
-from .base import Distance, SimpleFunctionDistance, to_distance
+from .base import (AcceptAllDistance, Distance, IdentityFakeDistance,
+                   NoDistance, SimpleFunctionDistance, to_distance)
 from .distance import (AdaptiveAggregatedDistance, AdaptivePNormDistance,
                        AggregatedDistance, DistanceWithMeasureList,
                        MinMaxDistance, PCADistance, PercentileDistance,
@@ -14,7 +15,8 @@ from .kernel import (SCALE_LIN, SCALE_LOG, BinomialKernel,
                      SimpleFunctionKernel, StochasticKernel)
 from .scale import SCALE_FUNCTIONS
 
-__all__ = ["Distance", "SimpleFunctionDistance", "to_distance",
+__all__ = ["Distance", "NoDistance", "AcceptAllDistance",
+           "IdentityFakeDistance", "SimpleFunctionDistance", "to_distance",
            "PNormDistance", "AdaptivePNormDistance", "AggregatedDistance",
            "AdaptiveAggregatedDistance", "ZScoreDistance", "PCADistance",
            "DistanceWithMeasureList", "RangeEstimatorDistance",

@@ -16,6 +16,7 @@ params changed.
 
 from __future__ import annotations
 
+import math
 from typing import Callable, Mapping, Optional
 
 import torch
@@ -89,6 +90,29 @@ class Distance:
     def to_json(self) -> str:
         import json
         return json.dumps(self.get_config())
+
+
+class NoDistance(Distance):
+    """Always NaN: a placeholder where no distance is computed."""
+
+    def compute(self, stats, obs, params):
+        return torch.full((stats.shape[0],), math.nan,
+                          device=stats.device)
+
+
+class AcceptAllDistance(Distance):
+    """Always -1, so that every ε accepts."""
+
+    def compute(self, stats, obs, params):
+        return torch.full((stats.shape[0],), -1.0, device=stats.device)
+
+
+class IdentityFakeDistance(Distance):
+    """The first statistic column as the distance: for a model that
+    returns its distance as its (single) statistic."""
+
+    def compute(self, stats, obs, params):
+        return stats[:, 0]
 
 
 class SimpleFunctionDistance(Distance):

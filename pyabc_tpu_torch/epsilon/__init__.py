@@ -1,7 +1,7 @@
 """Epsilon schedules (port of ``pyabc_tpu/epsilon``: threshold schedules
 and the temperature schedules of the stochastic acceptor)."""
 
-from .base import Epsilon
+from .base import Epsilon, NoEpsilon
 from .epsilon import (ConstantEpsilon, ListEpsilon, MedianEpsilon,
                       QuantileEpsilon)
 from .temperature import (AcceptanceRateScheme, DalyScheme, EssScheme,
@@ -10,7 +10,7 @@ from .temperature import (AcceptanceRateScheme, DalyScheme, EssScheme,
                           PolynomialDecayFixedIterScheme, Temperature,
                           TemperatureBase, TemperatureScheme)
 
-__all__ = ["Epsilon", "ConstantEpsilon", "ListEpsilon", "QuantileEpsilon",
+__all__ = ["Epsilon", "NoEpsilon", "ConstantEpsilon", "ListEpsilon", "QuantileEpsilon",
            "MedianEpsilon", "TemperatureBase", "ListTemperature",
            "Temperature", "TemperatureScheme", "AcceptanceRateScheme",
            "ExpDecayFixedIterScheme", "ExpDecayFixedRatioScheme",

@@ -53,3 +53,10 @@ class Epsilon:
     def to_json(self) -> str:
         import json
         return json.dumps(self.get_config())
+
+
+class NoEpsilon(Epsilon):
+    """No threshold (NaN): the acceptance is decided elsewhere."""
+
+    def __call__(self, t: int) -> float:
+        return float("nan")

@@ -17,6 +17,7 @@ import os
 import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 from typing import Dict, Iterable, List, Optional
@@ -31,6 +32,9 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
+#: one build or load at a time: a host sampler's pool threads may reach
+#: a kernel's first call together
+_LOAD_LOCK = threading.Lock()
 
 
 def nvcc() -> str:
@@ -140,9 +144,12 @@ def load(name: str) -> ctypes.CDLL:
     """The loaded library ``name``, building it first if needed."""
     lib = _LOADED.get(name)
     if lib is None:
-        path = library_path(name)
-        if not path.exists():
-            build_all([name])
-        lib = ctypes.CDLL(str(path))
-        _LOADED[name] = lib
+        with _LOAD_LOCK:
+            lib = _LOADED.get(name)
+            if lib is None:
+                path = library_path(name)
+                if not path.exists():
+                    build_all([name])
+                lib = ctypes.CDLL(str(path))
+                _LOADED[name] = lib
     return lib

@@ -24,6 +24,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+import threading
 from typing import Tuple
 
 import torch
@@ -102,13 +103,19 @@ def split_plan(m: int, n: int, d: int = 1) -> Tuple[int, int]:
     return chunk, -(-n // chunk)
 
 
+#: guards the signature set-up and the launch count (host samplers launch
+#: from pool threads)
+_LOCK = threading.Lock()
+
+
 def _lib() -> ctypes.CDLL:
     lib = _build.load("kde_logpdf")
     if lib.kde_logpdf_launch.argtypes is None:
-        lib.kde_logpdf_launch.argtypes = _SIGNATURE
-        lib.kde_logpdf_launch.restype = ctypes.c_int
-        lib.kde_cuda_error_string.argtypes = [ctypes.c_int]
-        lib.kde_cuda_error_string.restype = ctypes.c_char_p
+        with _LOCK:
+            lib.kde_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.kde_cuda_error_string.restype = ctypes.c_char_p
+            lib.kde_logpdf_launch.restype = ctypes.c_int
+            lib.kde_logpdf_launch.argtypes = _SIGNATURE
     return lib
 
 
@@ -175,7 +182,8 @@ class KdeCall:
         if rc != 0:
             raise RuntimeError("kde_logpdf kernel launch failed: "
                                + lib.kde_cuda_error_string(rc).decode())
-        weighted_kde_logpdf_cuda.launches += 1
+        with _LOCK:
+            weighted_kde_logpdf_cuda.launches += 1
         return self.out
 
 

@@ -10,7 +10,8 @@ plane (transition fits, epsilon, History) is host numpy:
     sum_stats: {"__flat__": float32[N, S]} (optional)
 
 Model probabilities are each model's weight share (reference
-population.py:123-145).
+population.py:123-145).  :class:`Particle` is the reference's
+per-particle view, built only on request (``Population.to_particles``).
 """
 
 from __future__ import annotations
@@ -18,6 +19,27 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import numpy as np
+
+
+class Particle:
+    """One particle, the reference's view of a population row."""
+
+    def __init__(self, m: int, parameter: dict, weight: float,
+                 accepted_sum_stats=None, accepted_distances=None,
+                 rejected_sum_stats=None, rejected_distances=None,
+                 accepted: bool = True):
+        self.m = int(m)
+        self.parameter = parameter
+        self.weight = float(weight)
+        self.accepted_sum_stats = accepted_sum_stats or []
+        self.accepted_distances = accepted_distances or []
+        self.rejected_sum_stats = rejected_sum_stats or []
+        self.rejected_distances = rejected_distances or []
+        self.accepted = bool(accepted)
+
+    def __repr__(self):
+        return (f"Particle(m={self.m}, parameter={self.parameter}, "
+                f"weight={self.weight:.3g}, accepted={self.accepted})")
 
 
 class Population:
@@ -33,6 +55,28 @@ class Population:
 
     def __len__(self):
         return int(self.m.shape[0])
+
+    def get_list(self) -> list:
+        """One dict per particle: ``m``, ``parameter`` (its theta row),
+        ``weight``, ``distance``."""
+        m, theta = np.asarray(self.m), np.asarray(self.theta)
+        w, d = np.asarray(self.weight), np.asarray(self.distance)
+        return [{"m": int(m[i]), "parameter": theta[i],
+                 "weight": float(w[i]), "distance": float(d[i])}
+                for i in range(len(m))]
+
+    def to_particles(self, param_names=None) -> list:
+        """One :class:`Particle` per row, its parameters named by
+        ``param_names`` (default ``p0``, ``p1``, ...)."""
+        m, theta = np.asarray(self.m), np.asarray(self.theta)
+        w, d = np.asarray(self.weight), np.asarray(self.distance)
+        names = param_names or [f"p{i}" for i in range(theta.shape[1])]
+        return [Particle(m=int(m[i]),
+                         parameter={k: float(theta[i, j])
+                                    for j, k in enumerate(names)},
+                         weight=float(w[i]),
+                         accepted_distances=[float(d[i])])
+                for i in range(len(m))]
 
     def get_model_probabilities(self, nr_models: Optional[int] = None
                                 ) -> np.ndarray:

@@ -29,8 +29,8 @@ from typing import Dict, Mapping, Optional, Union
 import numpy as np
 import torch
 
-from .device import device_of
-from .parameters import ParameterSpace
+from .device import device_of, make_generator
+from .parameters import Parameter, ParameterSpace
 
 _LOG_SQRT_2PI = 0.5 * math.log(2.0 * math.pi)
 
@@ -901,6 +901,23 @@ class Distribution:
             return torch.zeros(theta.shape[:-1], device=theta.device)
         return sum(parts[1:], parts[0])
 
+    # ---- the reference's scalar API -------------------------------------
+
+    def rvs(self, generator: Optional[torch.Generator] = None) -> Parameter:
+        """One draw as a :class:`Parameter`; without a generator, from a
+        CPU generator seeded 0 (the JAX package draws from
+        ``PRNGKey(0)``)."""
+        if generator is None:
+            generator = make_generator(torch.device("cpu"), 0)
+        return self.space.array_to_dict(
+            self.rvs_array(generator).cpu().numpy())
+
+    def pdf(self, x: Mapping[str, float]) -> float:
+        """The joint density at one named point, on the CPU."""
+        theta = torch.tensor([float(x[n]) for n in self.space.names],
+                             dtype=torch.float32)
+        return float(torch.exp(self.log_pdf_array(theta)))
+
 
 class ModelPerturbationKernel:
     """Model-jump proposal for model selection: with probability
@@ -939,3 +956,9 @@ class ModelPerturbationKernel:
                            math.log(p_jump) if p_jump > 0 else -math.inf)
         valid = (m_new >= 0) & (m_new < self.nr_of_models)
         return torch.where(valid, logp, -math.inf).to(torch.float32)
+
+    def pmf(self, m_new, m_old) -> torch.Tensor:
+        """``exp(log_pmf)`` of model indices given as ints, arrays or
+        tensors."""
+        return torch.exp(self.log_pmf(torch.as_tensor(m_new),
+                                      torch.as_tensor(m_old)))

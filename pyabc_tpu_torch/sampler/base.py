@@ -179,6 +179,12 @@ RECORD_KEYS = ("stats", "distance", "accepted", "m", "theta",
                "log_proposal")
 
 
+def round_rows(rr: RoundResult) -> dict:
+    """The columns of a round that :meth:`Sample.append_round` reads on
+    the host."""
+    return {k: getattr(rr, k) for k in _ROW_KEYS + ("accepted",)}
+
+
 class Sample:
     """Host-side accumulator over rounds: accepted rows as numpy batches,
     records as device tensors."""
@@ -210,11 +216,12 @@ class Sample:
         self.pending_ready = None
         self._pending_rows = 0
 
-    def append_round(self, rr: RoundResult):
-        """Ingest one round's accepted rows (one host transfer) and, when
-        recording, its valid rows."""
-        host = fetch_to_host({k: getattr(rr, k)
-                              for k in _ROW_KEYS + ("accepted",)})
+    def append_round(self, rr: RoundResult, host: Optional[dict] = None):
+        """Ingest one round's accepted rows (one host transfer, unless a
+        host sampler's task already fetched ``host = fetch_to_host(
+        round_rows(rr))``) and, when recording, its valid rows."""
+        if host is None:
+            host = fetch_to_host(round_rows(rr))
         acc = host["accepted"]
         self.nr_evaluations += int(acc.shape[0])
         self.raw_accepted += int(acc.sum())
@@ -428,6 +435,9 @@ class Sampler:
         #: mid-generation sub-checkpoint sink, set by the sequential run
         #: path for one generation (resilience/checkpoint.py); None = off
         self.checkpointer = None
+        #: render a per-generation bar over the accepted count (set from
+        #: ``ABCSMC(show_progress=)``)
+        self.show_progress = False
 
     def _dispatch(self, fn, *args, rng=None, restore=None):
         """THE device-dispatch chokepoint of a sampler loop: transient

@@ -854,7 +854,9 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
     relative index from which the temperature is pinned to 1, stochastic
     triple), and optionally ``run_tag``: the progress word
     (``telemetry.lanes.PROGRESS``) this call advances after each written
-    generation's control read, from the values that read returned.
+    generation's control read, from the values that read returned, and
+    ``on_generation(t, count)``, called at the same point with the same
+    host values (the progress bar).
     ``carry`` is the fused engine's; the returned one is the last written
     generation's.  ``ctl_out``: ``t`` (generations written),
     ``stop``, ``stop_t`` (relative index of the generation that set the
@@ -885,6 +887,7 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
         t_limit = min(int(ctl["t_limit"]), max_T)
         final_rel = int(ctl["final_rel"])
         run_tag = ctl.get("run_tag")
+        on_generation = ctl.get("on_generation")
         t, stop, stop_t, stop_count, rounds_tot = 0, STOP_NONE, -1, 0, 0
         control_s = 0.0
         slots = _WireSlots(t_limit)
@@ -928,6 +931,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                 if run_tag is not None:
                     progress_update(t, eps_host, count, rounds_tot,
                                     run_tag=run_tag)
+                if on_generation is not None:
+                    on_generation(t, count)
                 if stop != STOP_NONE or t >= t_limit:
                     break
         ctl_out = {"t": t, "stop": stop, "stop_t": stop_t,

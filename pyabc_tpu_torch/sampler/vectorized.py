@@ -176,6 +176,10 @@ class VectorizedSampler(Sampler):
             self.nr_evaluations_ = sample.nr_evaluations
             return sample
 
+        bar = None
+        if self.show_progress:
+            from ..utils.progress import ProgressBar
+            bar = ProgressBar(n, desc="sampling")
         B = self.last_batch = self.choose_batch(n)
         record_cap = (min(self.max_records, B * self.max_rounds_per_call)
                       if self.record_rejected else 0)
@@ -220,6 +224,8 @@ class VectorizedSampler(Sampler):
                 sample.append_record_batch(rec)
             count, rounds = int(state["count"]), state["rounds"]
             self._tuner.observe(count, max(rounds * B, 1), rounds=rounds)
+            if bar is not None:
+                bar.update(min(count, n))
             ck = self.checkpointer
             if ck is not None and count < n:
                 if ck.should_flush(rounds):
@@ -264,5 +270,23 @@ class VectorizedSampler(Sampler):
         self._states[loop_key] = state
         while len(self._states) > 4:
             self._states.pop(next(iter(self._states)))
+        if bar is not None:
+            bar.finish()
         self.nr_evaluations_ = sample.nr_evaluations
         return sample
+
+
+# The reference's local sampler flavours, as aliases: on the card every
+# one of them is the vectorized rejection-round design.
+class SingleCoreSampler(VectorizedSampler):
+    """Alias of :class:`VectorizedSampler` for pyABC's ``SingleCoreSampler``."""
+
+
+class MulticoreEvalParallelSampler(VectorizedSampler):
+    """Alias of :class:`VectorizedSampler` for pyABC's
+    ``MulticoreEvalParallelSampler``."""
+
+
+class MulticoreParticleParallelSampler(VectorizedSampler):
+    """Alias of :class:`VectorizedSampler` for pyABC's
+    ``MulticoreParticleParallelSampler``."""

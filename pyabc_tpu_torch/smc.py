@@ -170,6 +170,10 @@ _ADAPTATION_FAILURES = (ValueError, ArithmeticError, np.linalg.LinAlgError,
 #: explicit ``PYABC_TPU_HBM_BUDGET``; the auto-detected budget alone
 #: measures nothing
 CAPACITY_MEASURE_ENV = "PYABC_TPU_CAPACITY_MEASURE"
+#: the engine and the one-dispatch window when the constructor leaves
+#: ``run_mode`` / ``onedispatch_max_t`` at None, as in the JAX package
+RUN_MODE_ENV = "PYABC_TPU_RUN_MODE"
+ONEDISPATCH_MAX_T_ENV = "PYABC_TPU_ONEDISPATCH_MAX_T"
 
 STOP_EPS = "Stopping: minimum epsilon reached"
 STOP_SINGLE_MODEL = "Stopping: single model alive"
@@ -186,7 +190,10 @@ STOP_REASONS = {_fused.STOP_EPS: STOP_EPS,
 
 def _pdf_support_rows(params: dict) -> dict:
     """Rows of the KDE support the proposal density runs against: the
-    grid-compressed cells when the fit produced them."""
+    grid-compressed cells when the fit produced them; an aggregated
+    transition's params give ``{"blocks": [...]}``, one entry per block."""
+    if params and all(isinstance(v, dict) for v in params.values()):
+        return {"blocks": [_pdf_support_rows(v) for v in params.values()]}
     if "c_support" in params:
         return {"rows": int(params["c_support"].shape[0]),
                 "compressed": True}
@@ -215,14 +222,16 @@ class ABCSMC:
                  max_nr_recorded_particles: int = 1 << 21,
                  fuse_generations: int = 1,
                  fused_support_cap: Optional[int] = 1 << 14,
-                 run_mode: str = "auto",
-                 onedispatch_max_t: int = 32,
+                 run_mode: Optional[str] = None,
+                 onedispatch_max_t: Optional[int] = None,
                  ingest_mode: str = "auto",
                  ingest_depth: int = 2,
                  history_mode: Optional[str] = None,
                  fidelity=None,
                  checkpoint_every_rounds: Optional[int] = None,
                  trace_path: Optional[str] = None,
+                 show_progress: bool = False,
+                 compile_cache: Optional[str] = None,
                  seed: int = 0,
                  device=None):
         if not isinstance(models, (list, tuple)):
@@ -258,6 +267,8 @@ class ABCSMC:
         if transitions is None:
             transitions = [MultivariateNormalTransition()
                            for _ in range(self.M)]
+        if not isinstance(transitions, (list, tuple)):
+            transitions = [transitions]
         self.transitions: List[Transition] = list(transitions)
         if isinstance(population_size, int):
             population_size = ConstantPopulationSize(population_size)
@@ -286,15 +297,21 @@ class ABCSMC:
         #: KDE refit (systematic inverse CDF); None refits on every row
         self.fused_support_cap = fused_support_cap
         self._fused_cache: Dict[tuple, Callable] = {}
+        if run_mode is None:
+            run_mode = os.environ.get(RUN_MODE_ENV, "auto")
         if run_mode not in ("auto", "classic", "onedispatch"):
             raise ValueError("run_mode must be 'auto', 'classic' or "
                              f"'onedispatch' (got {run_mode!r})")
         #: "onedispatch" runs the rest of a run as one dispatch with the
         #: stop chain on the device (``_onedispatch_eligible``); "auto"
-        #: behaves as "classic" (fused blocks with host stop checks)
+        #: behaves as "classic" (fused blocks with host stop checks).
+        #: None defers to ``$PYABC_TPU_RUN_MODE`` (default "auto")
         self.run_mode = run_mode
         #: generations one dispatch may write; a longer run dispatches
-        #: again from the carried population
+        #: again from the carried population.  None defers to
+        #: ``$PYABC_TPU_ONEDISPATCH_MAX_T`` (default 32)
+        if onedispatch_max_t is None:
+            onedispatch_max_t = os.environ.get(ONEDISPATCH_MAX_T_ENV, "32")
         self.onedispatch_max_t = max(1, int(onedispatch_max_t))
         if ingest_mode not in ("auto", "overlap", "sequential"):
             raise ValueError("ingest_mode must be 'auto', 'overlap' or "
@@ -337,6 +354,15 @@ class ABCSMC:
         #: Chrome-trace JSONL sink of this run's spans (None: the
         #: ``$PYABC_TPU_TRACE`` variable, else tracing off)
         self.trace_path = trace_path
+        #: a per-generation progress bar on stderr over the accepted
+        #: count, from values the engines already read (the sampler's for
+        #: the sequential loop; see :meth:`_progress_generation`)
+        self.show_progress = bool(show_progress)
+        #: the compile-cache directory of the JAX package's signature,
+        #: kept and not used: the port compiles no program (its engine
+        #: cache holds Python closures) until rounds are captured as
+        #: CUDA graphs
+        self.compile_cache = compile_cache
         #: ``tl_*`` telemetry lanes (and the progress word) in the fused
         #: and one-dispatch engines ($PYABC_TPU_TELEMETRY_LANES, default
         #: on); the populations are the same bits either way
@@ -1122,6 +1148,16 @@ class ABCSMC:
 
         return fetch
 
+    def _progress_generation(self, n: int, count: int):
+        """With ``show_progress``, one generation of a device engine as a
+        finished bar: the engines read each generation's accepted count
+        anyway (a fused block at its rounds, a one-dispatch run in its
+        control read), so the bar adds no host read."""
+        if self.show_progress:
+            from .utils.progress import ProgressBar
+            with ProgressBar(n, desc="sampling") as bar:
+                bar.update(min(int(count), n))
+
     def _append_device_generation(self, t_k: int, payload, count: int,
                                   rounds: int, eps_raw, B: int, n: int,
                                   info: dict, path: str, lazy: bool):
@@ -1132,6 +1168,9 @@ class ABCSMC:
         without its times), or None when its weights are degenerate."""
         label = {"fused": "fused block", "pipelined": "pipelined block",
                  "onedispatch": "one-dispatch run"}[path]
+        if path != "onedispatch":
+            # a one-dispatch run shows each generation at its control read
+            self._progress_generation(n, count)
         eps_mode = self._eps_device_config()[0]
         evals = rounds * B
         pop = None
@@ -1518,6 +1557,9 @@ class ABCSMC:
                 t0=t, t_limit=t_limit,
                 run_id=getattr(self.history, "id", None))
             ctl["run_tag"] = run_tag
+        if self.show_progress:
+            ctl["on_generation"] = lambda t_rel, count: \
+                self._progress_generation(n, count)
 
         t0 = time.perf_counter()
         tr0 = transfer.snapshot()
@@ -2129,6 +2171,8 @@ class ABCSMC:
         self.sampler.fetch_stats = (
             self.stores_sum_stats
             or (self._distance_is_adaptive() and not records_cover_refit))
+        # the sequential loop's bar is the sampler's: it reads the count
+        self.sampler.show_progress = self.show_progress
 
         t = t0
         t_max = (t0 + max_nr_populations

@@ -70,6 +70,19 @@ def _preempt_deadline_s() -> float:
     except ValueError:
         return 30.0
 
+#: keep only the last resident generation's blobs at ``flush_lazy``
+LAZY_FINAL_ONLY_ENV = "PYABC_TPU_LAZY_FINAL_ONLY"
+
+
+def create_sqlite_db_id(dir_: Optional[str] = None,
+                        file_: str = "pyabc_test.db") -> str:
+    """``sqlite:///<dir>/<file>``, in the system temp directory by
+    default (``pyabc_tpu/storage/history.py:59``)."""
+    import tempfile
+    base = dir_ if dir_ is not None else tempfile.gettempdir()
+    return "sqlite:///" + os.path.join(base, file_)
+
+
 _SCHEMA = """
 CREATE TABLE IF NOT EXISTS abc_smc (
     id INTEGER PRIMARY KEY AUTOINCREMENT,
@@ -666,17 +679,28 @@ class History:
         self._materialize(t)
         return self.get_population(t)
 
-    def flush_lazy(self, newest_first: bool = False,
+    def flush_lazy(self, final_only: Optional[bool] = None,
+                   newest_first: bool = False,
                    deadline: Optional[float] = None):
         """Materialize every resident generation and empty the store.
-        ``deadline`` (absolute ``time.monotonic``) bounds the flush: past
-        it the remaining generations stay resident and journaled instead
-        of being dropped.  A complete flush compacts the journal."""
+        With ``final_only`` (None: ``$PYABC_TPU_LAZY_FINAL_ONLY``) every
+        resident generation but the last is dropped first and keeps its
+        summary row only.  ``deadline`` (absolute ``time.monotonic``)
+        bounds the flush: past it the remaining generations stay resident
+        and journaled instead of being dropped.  A complete flush compacts
+        the journal."""
+        if final_only is None:
+            final_only = os.environ.get(LAZY_FINAL_ONLY_ENV, "0").lower() \
+                in ("1", "true", "on")
         self._drain_spills()
         store = self._store
         if store is None:
             return
         ts = store.resident_ts()
+        if final_only and ts:
+            for t in ts[:-1]:
+                store.drop(t)
+            ts = ts[-1:]
         if newest_first:
             ts = list(reversed(ts))
         for i, t in enumerate(ts):
@@ -786,6 +810,17 @@ class History:
             (self.id,)).fetchone()
         return row[0] if row and row[0] is not None else -1
 
+    def alive_models(self, t: Optional[int] = None) -> List[int]:
+        """Models with a positive probability in generation ``t``."""
+        t = self.max_t if t is None else t
+        rows = self._conn.execute(
+            "SELECT m FROM model_populations WHERE abc_smc_id=? AND t=? "
+            "AND p_model>0 ORDER BY m", (self.id, t)).fetchall()
+        return [r[0] for r in rows]
+
+    def db_file(self) -> str:
+        return self.db_path
+
     def get_model_probabilities(self, t: Optional[int] = None):
         """All generations as a t x m DataFrame, or one generation's
         ``{m: p}`` Series."""
@@ -856,11 +891,50 @@ class History:
             sum_stats=({"__flat__": np.concatenate(stats)}
                        if len(stats) == len(rows) else {}))
 
+    def get_sum_stats(self, t: Optional[int] = None, m: int = 0
+                      ) -> Dict[str, np.ndarray]:
+        """Model ``m``'s per-particle summary statistics of generation
+        ``t`` by key, ``{key: [N, *shape]}`` (keys in sorted order over
+        the flat block, as the stored spec lays them out)."""
+        t = self.max_t if t is None else t
+        self._materialize(t)
+        row = self._conn.execute(
+            "SELECT stats, stat_spec, digest FROM model_populations "
+            "WHERE abc_smc_id=? AND t=? AND m=?", (self.id, t, m)).fetchone()
+        if row is None or row[0] is None:
+            return {}
+        crcs = json.loads(row[2]) if row[2] else {}
+        flat = self._unpack_checked(row[0], crcs.get("stats"), t=t)
+        if not row[1]:
+            return {"__flat__": flat}
+        spec = json.loads(row[1])
+        out, off = {}, 0
+        for k in sorted(spec):
+            shape = tuple(spec[k])
+            size = int(np.prod(shape, dtype=int))
+            out[k] = flat[:, off:off + size].reshape((flat.shape[0],) + shape)
+            off += size
+        return out
+
     def get_nr_particles_per_population(self) -> pd.Series:
         rows = self._conn.execute(
             "SELECT t, SUM(n_particles) FROM model_populations WHERE "
             "abc_smc_id=? GROUP BY t ORDER BY t", (self.id,)).fetchall()
         return pd.Series({t: n for t, n in rows})
+
+    @classmethod
+    def from_reference_db(cls, path: str, db: str = "sqlite://",
+                          abc_id: int = 1) -> "History":
+        """A run of a pyABC ORM-schema database as a History backed by
+        ``db`` (:mod:`.reference_export`)."""
+        from .reference_export import from_reference_db
+        return from_reference_db(path, db=db, abc_id=abc_id)
+
+    def to_reference_db(self, path: str, batch_stats: bool = True) -> int:
+        """Write this run into a fresh pyABC ORM-schema database at
+        ``path`` (:mod:`.reference_export`); returns its ``abc_smc.id``."""
+        from .reference_export import to_reference_db
+        return to_reference_db(self, path, batch_stats=batch_stats)
 
     def done(self):
         """End of a run: every resident generation gets its blobs (and

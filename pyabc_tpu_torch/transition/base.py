@@ -11,10 +11,14 @@ The bootstrap estimate of the fitted density's uncertainty,
 draws the bootstrap indices from a ``torch.Generator`` on its device,
 refits on the host and evaluates each refit's density at the test points
 on that device (for the Gaussian KDE: the KDE kernel).
+
+:class:`AggregatedTransition` composes transitions over disjoint blocks
+of parameter columns.
 """
 
 from __future__ import annotations
 
+import hashlib
 from typing import Optional
 
 import numpy as np
@@ -197,3 +201,93 @@ class Transition:
 
 class NotFittedError(Exception):
     """Raised when rvs / pdf is called before fit."""
+
+
+def sub_generators(generator: torch.Generator, k: int) -> list:
+    """``k`` generators on ``generator``'s device, one stream each, seeded
+    from a hash of ``generator``'s state (host bytes: a CUDA generator
+    keeps its seed and offset on the host, so nothing is read from the
+    card); ``generator`` then advances by one draw, so the next call
+    seeds new streams.  The same state gives the same streams."""
+    state = generator.get_state().numpy().tobytes()
+    dev = device_of(generator)
+    out = []
+    for i in range(k):
+        digest = hashlib.blake2b(state + i.to_bytes(4, "little"),
+                                 digest_size=8).digest()
+        sub = torch.Generator(device=dev)
+        sub.manual_seed(int.from_bytes(digest, "little") & (2 ** 63 - 1))
+        out.append(sub)
+    torch.empty(1, device=dev).uniform_(generator=generator)
+    return out
+
+
+class AggregatedTransition(Transition):
+    """Disjoint contiguous blocks of parameter columns, each with a
+    transition of its own (``pyabc_tpu/transition/base.py:210``).
+
+    ``mapping`` is ``{(start, stop): Transition}``; the blocks must tile
+    the columns from 0 without gaps or overlaps, and they are always
+    visited in ascending column order, whatever the dict's order.  The
+    composed kernels draw each block from its own generator stream
+    (:func:`sub_generators`) and sum the blocks' log densities; a
+    :class:`MultivariateNormalTransition` block runs the KDE kernel on
+    its own columns."""
+
+    def __init__(self, mapping: dict):
+        super().__init__()
+        self.mapping = dict(mapping)
+        expected_start = 0
+        for a, b in sorted(self.mapping):
+            if b <= a:
+                raise ValueError(f"empty mapping slice ({a}, {b})")
+            if a != expected_start:
+                raise ValueError(
+                    f"mapping slices must tile columns contiguously from "
+                    f"0; got {sorted(self.mapping)} (gap/overlap at column "
+                    f"{a})")
+            expected_start = b
+
+    def _blocks(self):
+        """``(start, stop, key, transition)`` in ascending column order."""
+        return [(a, b, f"{a}:{b}", sub)
+                for (a, b), sub in sorted(self.mapping.items(),
+                                          key=lambda item: item[0])]
+
+    def _fit(self, theta, w):
+        for a, b, _, sub in self._blocks():
+            sub.fit(theta[:, a:b], w)
+
+    def get_params(self) -> dict:
+        return {key: sub.get_params() for _, _, key, sub in self._blocks()}
+
+    def pad_params(self, params: dict, n_pad: int) -> dict:
+        # each block pads its own params
+        return {key: sub.pad_params(params[key], n_pad)
+                for _, _, key, sub in self._blocks()}
+
+    def static_fns(self):
+        """The composed ``(rvs_from_params, log_pdf_from_params)`` over
+        the blocks' own static kernels."""
+        blocks = [(a, b, key, sub.static_fns())
+                  for a, b, key, sub in self._blocks()]
+
+        def rvs_from_params(generator, params: dict, n: int):
+            gens = sub_generators(generator, len(blocks))
+            return torch.cat(
+                [torch.atleast_2d(rvs(g, params[key], n))
+                 for g, (_, _, key, (rvs, _)) in zip(gens, blocks)], dim=-1)
+
+        def log_pdf_from_params(x, params: dict):
+            total = torch.zeros(x.shape[0], device=x.device)
+            for a, b, key, (_, log_pdf) in blocks:
+                total = total + log_pdf(x[:, a:b], params[key])
+            return total
+
+        return rvs_from_params, log_pdf_from_params
+
+    def rvs_from_params(self, generator, params: dict, n: int):
+        return self.static_fns()[0](generator, params, n)
+
+    def log_pdf_from_params(self, x, params: dict):
+        return self.static_fns()[1](x, params)

@@ -56,7 +56,14 @@ def test_port_files_exist():
                 "telemetry/lanes.py", "telemetry/flight.py",
                 "resilience/__init__.py", "resilience/faults.py",
                 "resilience/retry.py", "resilience/checkpoint.py",
-                "resilience/journal.py"):
+                "resilience/journal.py", "version.py", "utils/__init__.py",
+                "utils/progress.py", "utils/transfer.py",
+                "platform_factory.py", "storage/reference_export.py",
+                "storage/export.py", "sampler/eps_mixin.py",
+                "sampler/mapping.py", "sampler/dask_sampler.py",
+                "sge/__init__.py", "sge/config.py", "sge/db.py",
+                "sge/execute_load.py", "sge/execution_contexts.py",
+                "sge/sge.py", "sge/util.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 
