@@ -248,6 +248,32 @@ Phases, each printed as one JSON line and each fatal on failure:
    (``pyabc_tpu_torch.sge``) maps host functions in processes of their
    own and is tested on the CPU only.
 
+14. ``analysis1e6`` — looking at a run.  ``onedispatch1e6``'s
+   configuration with lazy rows in a database file, under a run
+   directory (``PYABC_TPU_RUN_DIR``), ``PYABC_TPU_SUMMARY_GRID=1`` and a
+   0.05 s progress poll, beside its twin without them (another file):
+   the one-dispatch gates, the populations bit-identical; the run
+   directory read back: one host, a trajectory naming every generation
+   of the timeline, at least one snapshot written while the dispatch was
+   in flight naming a generation past its first, ``fleet_rollup`` and
+   ``render_prometheus`` parsed; every lazy row the sequential site
+   wrote holds a grid of at most 2^14 cells whose masses sum to 1 within
+   1e-5 and whose centroid mean is the population's weighted mean
+   within 1e-4 (the one-dispatch rows hold none, as in the JAX package).
+   Then ``sir1e5``'s configuration, and on the card against
+   ``device="cpu"`` on the same History: ``kde_1d`` (fixed scaling) on
+   each model's last population, ``compute_kde_max`` (the same point, or
+   densities equal within the tolerance), ``kde_2d`` on the SIR
+   population, each within ``TOL_ABS + TOL_REL·|cpu|`` and one K1
+   launch; the CV default (a scaling from its grid, finite non-negative
+   densities, grid × bootstraps + 1 launches).  Last the viewer, served
+   from a thread (``run_app(port=0, blocking=False)``): ``/api/runs``,
+   ``/api/run/1``, ``/api/kde``, ``/api/fleet``, ``/metrics``,
+   ``/abc/1`` and a population page each 200 and parsed, ``/api/kde``
+   against ``kde_1d``, ``/plot`` a PNG where matplotlib is installed
+   (``"matplotlib"`` in the line says whether).  It reports each call's
+   and route's milliseconds and launches and the snapshots seen.
+
 Every phase of items 4–8 pins ``history_mode="eager"``, and every run at
 pop 1e6 among them ``ingest_mode="sequential"``, so that each measures
 the engine it did before the pipeline and the lazy rows became the
@@ -261,8 +287,10 @@ shape [records × support] from the ``petab1e5`` run's timeline, rows (h),
 ``adaptivepop``, row (l) the largest finalize of ``stats1e5``, rows (m),
 (n) and (o) the finalize of ``fidelitysir5e4``, ``fidelitylv5e4`` and
 ``capacity1e7``, row (p) one ``hostsamplers`` task's proposal density
-[1024 × support] and row (q) an ``aggregatedlv1e5`` block's finalize at
-d = 2 (stated default shapes without those runs).
+[1024 × support], row (q) an ``aggregatedlv1e5`` block's finalize at
+d = 2, and rows (r)–(u) ``analysis1e6``'s densities: the viewer's
+``/api/kde`` grid, ``compute_kde_max``, ``kde_2d`` and the CV default's
+bootstrap (stated default shapes without those runs).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -316,7 +344,7 @@ ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "adaptivepop", "local1e4", "fidelitysir5e4", "fidelitylv5e4",
               "capacity1e7", "telemetry1e6", "chaos1e6", "recover1e6",
               "cudafaults", "quickstart1e4", "envknobs1e6", "refexport1e5",
-              "hostsamplers", "aggregatedlv1e5", "kernels")
+              "hostsamplers", "aggregatedlv1e5", "analysis1e6", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat", "capacity1e8",
                 "capacityspread", "hostprof")
@@ -591,6 +619,30 @@ def host_aggregated_cases(state) -> list:
     return out
 
 
+def analysis_cases(state) -> list:
+    """Rows (r)-(u): the analysis1e6 phase's densities — the viewer's
+    /api/kde slider grid and the posterior mode against the
+    grid-compressed 1-D support, ``kde_2d``'s 50 x 50 mesh against the
+    SIR population, the CV default's bootstrap (the population against a
+    refit's grid) — from the run or at these stated defaults."""
+    out = []
+    for label, key, default in (
+            ("r analysis /api/kde", "analysis_api_kde_shape",
+             (ANALYSIS_KDE_GRID, 8192, 1)),
+            ("s analysis compute_kde_max", "analysis_kde_max_shape",
+             (190_000, 8192, 1)),
+            ("t analysis kde_2d", "analysis_kde_2d_shape",
+             (2500, ADAPTIVE_POP, 2)),
+            ("u analysis CV bootstrap", "analysis_cv_shape",
+             (810_000, 8192, 1))):
+        m, n, d = state.get(key, default)
+        source = "run" if key in state else "default"
+        grid = d == 1 and n >= 8192 and n & (n - 1) == 0
+        out.append((f"{label} ({source})", m, n, d,
+                    {"grid": True} if grid else {}))
+    return out
+
+
 def phase_kernels(torch, state):
     from pyabc_tpu_torch.ops import kde as kde_plain
     from pyabc_tpu_torch.ops import kde_cuda
@@ -603,7 +655,8 @@ def phase_kernels(torch, state):
     for label, m, n, d, kw in (KDE_CASES + [record_case(state)]
                                + fused_cases(state) + library_cases(state)
                                + fidelity_capacity_cases(state)
-                               + host_aggregated_cases(state)):
+                               + host_aggregated_cases(state)
+                               + analysis_cases(state)):
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
@@ -996,11 +1049,12 @@ ONEDISPATCH_GENS = 9
 
 
 def onedispatch_main_run(torch, run_mode, history_mode: str = "eager",
-                         gens: int = ONEDISPATCH_GENS, **kwargs) -> tuple:
+                         gens: int = ONEDISPATCH_GENS, db: str = "sqlite://",
+                         **kwargs) -> tuple:
     """``(abc, wall_s, K1 launches)`` of the ``bench_onedispatch``
     configuration through ``ABCSMC.run`` on the card (the fused twin on
-    the classic loop: pop 1e6 would pipeline it); ``kwargs`` go to the
-    constructor."""
+    the classic loop: pop 1e6 would pipeline it), its History in ``db``;
+    ``kwargs`` go to the constructor."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import make_two_gaussians_problem
     from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
@@ -1015,7 +1069,7 @@ def onedispatch_main_run(torch, run_mode, history_mode: str = "eager",
         stores_sum_stats=False, fuse_generations=FUSE_K, run_mode=run_mode,
         ingest_mode="sequential", history_mode=history_mode, seed=0,
         device="cuda", **kwargs)
-    abc.new("sqlite://", observed)
+    abc.new(db, observed)
     weighted_kde_logpdf_cuda.launches = 0
     t0 = time.perf_counter()
     abc.run(max_nr_populations=gens)
@@ -4287,6 +4341,414 @@ def phase_aggregatedlv1e5(torch, state):
             f"aggregatedlv1e5 failed its checks: {row['checks']}")
 
 
+#: the analysis phase's SIR run (config #4 at sir1e5's configuration)
+#: and its viewer's slider grid (visserver's /api/kde)
+ANALYSIS_SIR = "sir1e5"
+ANALYSIS_KDE_GRID = 120
+#: the progress poller's period in the analysis phase (seconds): a pop-1e6
+#: generation takes ~0.1 s on the card, the default 0.5 s poll would see
+#: a one-dispatch call of 8 generations only a few times
+ANALYSIS_POLL_S = "0.05"
+
+
+class _Env:
+    """Set environment variables for a ``with`` block, then restore
+    them (the analysis phase's run directory and grid switch must not
+    reach any other phase)."""
+
+    def __init__(self, **values):
+        self.values = values
+
+    def __enter__(self):
+        import os
+        self.saved = {k: os.environ.get(k) for k in self.values}
+        for k, v in self.values.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return self
+
+    def __exit__(self, *exc):
+        import os
+        for k, v in self.saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        return False
+
+
+class _SnapshotWatcher:
+    """A thread reading the run directory's telemetry snapshots every
+    ``interval`` seconds while a run goes on: every distinct snapshot
+    (by its write time) with its progress word."""
+
+    def __init__(self, run_dir: str, interval: float = 0.01):
+        import threading
+        self.run_dir = run_dir
+        self.interval = interval
+        self.seen = {}
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True,
+                                        name="smoke-snapshot-watcher")
+
+    def _run(self):
+        from pyabc_tpu_torch.telemetry import aggregate
+        while not self._stop.wait(self.interval):
+            for snap in aggregate.read_snapshots(self.run_dir):
+                self.seen.setdefault(snap["written_unix"],
+                                     snap.get("run_progress"))
+
+    def __enter__(self):
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return False
+
+
+def _support_rows(tr) -> int:
+    """The support rows of a fitted transition's density: the grid's
+    cells where the fit compressed a large 1-D support."""
+    params = tr.get_params()
+    return int(params.get("c_support", params["support"]).shape[0])
+
+
+def _counted(torch, fn):
+    """``(result, K1 launches, ms)`` of ``fn()`` on the card."""
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    torch.cuda.synchronize()
+    before = weighted_kde_logpdf_cuda.launches
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    return out, weighted_kde_logpdf_cuda.launches - before, ms
+
+
+def _within(got, ref) -> tuple:
+    """``(ok, max_abs_err)`` of densities against the CPU's at the
+    kernel tolerance."""
+    import numpy as np
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    err = np.abs(got - ref)
+    return (bool(np.all(np.isfinite(got))
+                 and np.all(err <= TOL_ABS + TOL_REL * np.abs(ref))),
+            float(err.max()))
+
+
+def _prometheus_parses(text: str) -> bool:
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        name, _, value = line.rpartition(" ")
+        if not name:
+            return False
+        float(value)
+    return True
+
+
+def analysis_visualization(torch, state, h_main, h_sir) -> dict:
+    """The visualization calls on the card beside the same calls with
+    ``device="cpu"`` on the same History, with each call's K1 launches
+    against what the code gives and its milliseconds."""
+    import numpy as np
+
+    from pyabc_tpu_torch import visualization as viz
+    from pyabc_tpu_torch.transition import MultivariateNormalTransition
+    from pyabc_tpu_torch.visualization.kde import _default_kde
+
+    t = h_main.max_t
+    calls, checks = [], {}
+    for m in (0, 1):
+        df, w = h_main.get_distribution(m=m, t=t)
+        tr = MultivariateNormalTransition()
+        (grid, dens), n_k1, ms = _counted(torch, lambda: viz.kde_1d(
+            df, w, "mu", kde=tr, device="cuda"))
+        (grid_c, dens_c), _, ms_c = _counted(torch, lambda: viz.kde_1d(
+            df, w, "mu", kde=MultivariateNormalTransition(), device="cpu"))
+        ok, err = _within(dens, dens_c)
+        checks[f"kde_1d_m{m}"] = ok and np.array_equal(grid, grid_c)
+        checks[f"kde_1d_m{m}_launches"] = n_k1 == 1
+        calls.append({"call": f"kde_1d m={m}", "ms": ms, "cpu_ms": ms_c,
+                      "launches": n_k1, "max_abs_err": err,
+                      "shape": [len(grid), _support_rows(tr), 1]})
+    # the mode of the smaller model's posterior ([N x grid] on the CPU too)
+    m_small = int(np.argmin([len(h_main.get_distribution(m=m, t=t)[0])
+                             for m in (0, 1)]))
+    df, w = h_main.get_distribution(m=m_small, t=t)
+    tr = MultivariateNormalTransition()
+    mode, n_k1, ms = _counted(torch, lambda: viz.compute_kde_max(
+        tr, df, w, device="cuda"))
+    mode_c, _, ms_c = _counted(torch, lambda: viz.compute_kde_max(
+        MultivariateNormalTransition(), df, w, device="cpu"))
+    same = bool(np.array_equal(mode, mode_c))
+    if not same:
+        # a tie within float32: the densities at both points agree
+        at = torch.tensor(np.stack([mode, mode_c]), dtype=torch.float32,
+                          device="cuda")
+        d_pair = tr.pdf(at).cpu().numpy()
+        same = _within(d_pair[:1], d_pair[1:])[0]
+    checks["kde_max"] = same
+    checks["kde_max_launches"] = n_k1 == 1
+    calls.append({"call": f"compute_kde_max m={m_small}", "ms": ms,
+                  "cpu_ms": ms_c, "launches": n_k1,
+                  "same_point": bool(np.array_equal(mode, mode_c)),
+                  "shape": [len(df), _support_rows(tr), 1]})
+    state["analysis_kde_max_shape"] = (len(df), _support_rows(tr), 1)
+    # kde_2d on the SIR population (d = 2, no compression)
+    sdf, sw = h_sir.get_distribution(m=0, t=h_sir.max_t)
+    x, y = list(sdf.columns[:2])
+    tr = MultivariateNormalTransition()
+    (mx, my, dens), n_k1, ms = _counted(torch, lambda: viz.kde_2d(
+        sdf, sw, x, y, kde=tr, device="cuda"))
+    (_, _, dens_c), _, ms_c = _counted(torch, lambda: viz.kde_2d(
+        sdf, sw, x, y, kde=MultivariateNormalTransition(), device="cpu"))
+    ok, err = _within(dens, dens_c)
+    checks["kde_2d"] = ok and dens.shape == (50, 50)
+    checks["kde_2d_launches"] = n_k1 == 1
+    calls.append({"call": f"kde_2d {x},{y}", "ms": ms, "cpu_ms": ms_c,
+                  "launches": n_k1, "max_abs_err": err,
+                  "shape": [dens.size, _support_rows(tr), 2]})
+    state["analysis_kde_2d_shape"] = (dens.size, _support_rows(tr), 2)
+    # the CV default (kde=None): a GridSearchCV whose bootstrap runs here
+    m_big = 1 - m_small
+    df, w = h_main.get_distribution(m=m_big, t=t)
+    probe = _default_kde("cuda")
+    (grid, dens), n_k1, ms = _counted(torch, lambda: viz.kde_1d(
+        df, w, "mu", kde=probe, device="cuda"))
+    n_grid = len(probe.param_grid["scaling"])
+    checks["cv_default"] = (
+        probe.best_params_ is not None
+        and probe.best_params_["scaling"] in probe.param_grid["scaling"]
+        and bool(np.all(np.isfinite(dens)) and np.all(dens >= 0)))
+    checks["cv_launches"] = n_k1 == n_grid * probe.n_bootstrap + 1
+    boot = probe.best_estimator_.cv_density_shape
+    calls.append({"call": f"kde_1d CV default m={m_big}", "ms": ms,
+                  "launches": n_k1, "scaling": probe.best_params_,
+                  "bootstrap_shape": list(boot)})
+    state["analysis_cv_shape"] = tuple(boot)
+    return {"calls": calls, "checks": checks}
+
+
+def analysis_viewer(torch, state, db: str, run_dir: str, h_main,
+                    matplotlib: bool) -> dict:
+    """The viewer served from a thread over the run's database and run
+    directory, every route fetched with ``urllib`` and parsed, with its
+    milliseconds; ``/api/kde`` held to ``kde_1d`` on the card."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    from pyabc_tpu_torch import visualization as viz
+    from pyabc_tpu_torch.transition import MultivariateNormalTransition
+    from pyabc_tpu_torch.visserver.server import run_app
+
+    t = h_main.max_t
+    httpd = run_app(db, port=0, blocking=False, run_dir=run_dir,
+                    device="cuda")
+    thread = threading.Thread(target=httpd.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{httpd.server_address[1]}"
+    routes, checks, bodies = [], {}, {}
+    try:
+        paths = ["/api/runs", "/api/run/1", "/api/fleet", "/metrics",
+                 "/abc/1", f"/abc/1/model/0/t/{t}"]
+        paths += [f"/api/kde/1/{m}/{t}?x=mu" for m in (0, 1)]
+        if matplotlib:
+            paths.append(f"/plot/1/0/{t}")
+        for path in paths:
+            def fetch():
+                with urllib.request.urlopen(base + path, timeout=120) as r:
+                    return r.status, r.headers.get("Content-Type"), r.read()
+            (status, ctype, body), n_k1, ms = _counted(torch, fetch)
+            bodies[path] = body
+            if ctype == "application/json":
+                parsed = json.loads(body)
+            elif ctype == "text/plain":
+                parsed = _prometheus_parses(body.decode())
+            elif ctype == "image/png":
+                parsed = body[:8] == b"\x89PNG\r\n\x1a\n"
+            else:
+                parsed = b"<html>" in body and b"error" not in body
+            checks[path] = status == 200 and bool(parsed)
+            routes.append({"route": path, "status": status, "ms": ms,
+                           "launches": n_k1, "bytes": len(body)})
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
+        thread.join(timeout=10)
+    checks["server_stopped"] = not thread.is_alive()
+    for m in (0, 1):
+        path = f"/api/kde/1/{m}/{t}?x=mu"
+        got = json.loads(bodies[path])
+        df, w = h_main.get_distribution(m=m, t=t)
+        grid, dens = viz.kde_1d(df, w, "mu", numx=ANALYSIS_KDE_GRID,
+                                kde=MultivariateNormalTransition(),
+                                device="cuda")
+        ok, err = _within(got["density"], dens)
+        checks[f"api_kde_m{m}"] = ok and np.allclose(got["grid"], grid)
+        checks[f"api_kde_m{m}_launches"] = next(
+            r["launches"] for r in routes if r["route"] == path) == 1
+    tr = MultivariateNormalTransition()
+    df, w = h_main.get_distribution(m=1, t=t)
+    tr.fit(df.to_numpy(np.float32), np.asarray(w, np.float32))
+    state["analysis_api_kde_shape"] = (ANALYSIS_KDE_GRID,
+                                       _support_rows(tr), 1)
+    fleet = json.loads(bodies["/api/fleet"])
+    checks["api_fleet"] = (fleet["enabled"] and len(fleet["hosts"]) == 1
+                           and len(fleet["trajectory"]) == t + 1)
+    return {"routes": routes, "checks": checks}
+
+
+def phase_analysis1e6(torch, state):
+    """Looking at a run on the card: config #2 at pop 1e6 in
+    ``onedispatch1e6``'s configuration with lazy rows, a run directory
+    and the summary grid, beside its twin without them; config #4 at
+    ``sir1e5``'s configuration; the visualization calls on the card
+    against the CPU; the viewer over HTTP."""
+    import importlib.util
+    import os
+    import sqlite3
+    import tempfile
+
+    import numpy as np
+
+    from pyabc_tpu_torch.parallel import health
+    from pyabc_tpu_torch.storage.history import _unpack
+    from pyabc_tpu_torch.telemetry import aggregate, lanes, spans
+    from pyabc_tpu_torch.wire import store
+
+    matplotlib = importlib.util.find_spec("matplotlib") is not None
+    if matplotlib:
+        import matplotlib as mpl
+        mpl.use("Agg")
+    tmp = tempfile.mkdtemp(prefix="analysis1e6_")
+    run_dir = os.path.join(tmp, "run")
+    db = os.path.join(tmp, "od.db")
+    checks = {}
+    tracer = (spans.TRACER.enabled, spans.TRACER._path)
+    try:
+        with _Env(**{health.RUN_DIR_ENV: run_dir,
+                     store.SUMMARY_GRID_ENV: "1",
+                     lanes.POLL_ENV: ANALYSIS_POLL_S}):
+            with _SnapshotWatcher(run_dir) as watcher:
+                a_run, wall, launches = onedispatch_main_run(
+                    torch, "onedispatch", "lazy", db=db)
+        # the publisher armed the span tracer into the run directory
+        spans.TRACER.reset()
+        if tracer[1]:
+            spans.TRACER.configure(trace_path=tracer[1])
+        with _Env(**{health.RUN_DIR_ENV: None,
+                     store.SUMMARY_GRID_ENV: None}):
+            a_twin, wall_twin, launches_twin = onedispatch_main_run(
+                torch, "onedispatch", "lazy",
+                db=os.path.join(tmp, "twin.db"))
+        report = onedispatch_report(a_run, a_run.timeline, wall)
+        checks.update(report["onedispatch_checks"])
+        difference = population_difference(a_run.history, a_twin.history)
+        checks["bit_identical_to_twin"] = difference is None
+        checks["twin_has_no_fleet"] = a_twin._fleet is None
+        # the fleet view
+        snaps = aggregate.read_snapshots(run_dir)
+        checks["one_host"] = len(snaps) == 1
+        ts = [r["t"] for r in a_run.timeline]
+        traj = [r["gen"] for r in (snaps[0].get("trajectory") or [])] \
+            if snaps else []
+        checks["trajectory"] = traj == ts
+        in_flight = [w for w in watcher.seen.values()
+                     if w and w.get("active") and w["gen"] > w["t0"]]
+        checks["in_flight_snapshot"] = bool(in_flight)
+        roll = aggregate.fleet_rollup(run_dir)
+        prom = aggregate.render_prometheus(run_dir)
+        checks["rollup"] = (roll["n_hosts"] == 1
+                            and json.loads(json.dumps(roll)) == roll)
+        checks["prometheus"] = (_prometheus_parses(prom)
+                                and "pyabc_tpu_fleet_hosts 1" in prom)
+        # the summary grid: the sequential site's lazy rows carry one
+        con = sqlite3.connect(db)
+        grid_rows = dict(con.execute(
+            "SELECT t, summary_grid FROM populations WHERE t >= 0"
+        ).fetchall())
+        con.close()
+        seq_lazy = [r["t"] for r in a_run.timeline
+                    if r["path"] == "sequential"
+                    and r["history_mode"] == "lazy"]
+        grids = []
+        for t in seq_lazy:
+            blob = grid_rows.get(t)
+            if blob is None:
+                grids.append({"t": t, "grid": None})
+                continue
+            g = _unpack(blob).astype(np.float64)
+            mass = np.exp(g[1])
+            pop = a_run.history.get_population(t)
+            w = pop.weight / pop.weight.sum()
+            mean = float(np.sum(w * pop.theta[:, 0]))
+            grids.append({"t": t, "cells": int(g.shape[1]),
+                          "mass_sum_err": abs(float(mass.sum()) - 1.0),
+                          "mean_err": abs(float(np.sum(mass * g[0]))
+                                          - mean)})
+        checks["summary_grid"] = bool(grids) and all(
+            g.get("cells") and g["cells"] <= (1 << 14)
+            and g["mass_sum_err"] <= 1e-5 and g["mean_err"] <= 1e-4
+            for g in grids)
+        # the JAX package's one-dispatch append keeps no grid either
+        checks["od_rows_without_grid"] = all(
+            grid_rows.get(r["t"]) is None for r in a_run.timeline
+            if r["path"] == "onedispatch")
+        # config #4 for the 2-D density
+        from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+        a_sir = adaptive_abc(ANALYSIS_SIR)[0]
+        weighted_kde_logpdf_cuda.launches = 0
+        a_sir.run(max_nr_populations=ADAPTIVE[ANALYSIS_SIR][2])
+        launches_sir = weighted_kde_logpdf_cuda.launches
+        checks["sir_gens"] = a_sir.history.max_t + 1 == \
+            ADAPTIVE[ANALYSIS_SIR][2]
+        h_main = a_run.history
+        weighted_kde_logpdf_cuda.launches = 0
+        viz = analysis_visualization(torch, state, h_main, a_sir.history)
+        viewer = analysis_viewer(torch, state, db, run_dir, h_main,
+                                 matplotlib)
+        launches_analysis = weighted_kde_logpdf_cuda.launches
+        checks.update(viz["checks"])
+        checks.update({f"viewer {k}": v
+                       for k, v in viewer["checks"].items()})
+    finally:
+        spans.TRACER.reset()
+        if tracer[1]:
+            spans.TRACER.configure(trace_path=tracer[1])
+    launch_state = state.setdefault("launches", {})
+    launch_state["analysis1e6"] = launches
+    launch_state["analysis1e6_twin"] = launches_twin
+    launch_state["analysis1e6_sir"] = launches_sir
+    launch_state["analysis1e6_calls"] = launches_analysis
+    row = {"phase": "analysis1e6", "ok": all(checks.values()),
+           "checks": checks, "matplotlib": matplotlib,
+           "pop": ONEDISPATCH_POP, "gens": ONEDISPATCH_GENS,
+           "wall_s": wall, "twin_wall_s": wall_twin,
+           "kde_launches": launches, "twin_kde_launches": launches_twin,
+           "sir_kde_launches": launches_sir,
+           "analysis_kde_launches": launches_analysis,
+           "twin_difference": difference,
+           "snapshots_seen": len(watcher.seen),
+           "in_flight_snapshots": len(in_flight),
+           "in_flight_gens": sorted({w["gen"] for w in in_flight}),
+           "poll_s": float(ANALYSIS_POLL_S),
+           "engine_builds": roll["metrics"].get(
+               "xla_compiles_total", {}).get("sum"),
+           "summary_grids": grids, "calls": viz["calls"],
+           "routes": viewer["routes"],
+           "paths": report["paths"]}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"analysis1e6 failed its checks: {checks}")
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -4339,6 +4801,7 @@ PHASES = {"card": phase_card, "build": phase_build,
           "refexport1e5": phase_refexport1e5,
           "hostsamplers": phase_hostsamplers,
           "aggregatedlv1e5": phase_aggregatedlv1e5,
+          "analysis1e6": phase_analysis1e6,
           "hostprof": phase_hostprof,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}

@@ -99,3 +99,12 @@ __all__ = [
     "ConcurrentFutureSampler", "DaskDistributedSampler", "RoundKernel",
     "resolve_device", "__version__",
 ]
+
+
+def __getattr__(name):
+    """``pyabc_tpu_torch.visualization`` / ``.visserver`` on first use:
+    importing the package does not pull matplotlib."""
+    if name in ("visualization", "visserver"):
+        import importlib
+        return importlib.import_module(f".{name}", __name__)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

@@ -45,10 +45,6 @@ CKPT_ROUNDS_ENV = "PYABC_TPU_CKPT_ROUNDS"
 
 _HELP = "sub-checkpoint ledger; see resilience/checkpoint.py"
 
-#: the operator's stop file in the run directory (the JAX package's
-#: ``parallel.health.STOP_SENTINEL``)
-STOP_SENTINEL = "STOP"
-
 
 def _counter(name: str):
     from ..telemetry.metrics import REGISTRY
@@ -127,10 +123,10 @@ def _local_stop_requested() -> bool:
     """A local STOP-sentinel poll for mid-generation use: the
     ``STOP`` file in ``$PYABC_TPU_RUN_DIR``, read without any
     collective."""
-    from ..telemetry.flight import run_dir
-    directory = run_dir()
+    from ..parallel import health
+    directory = health.run_dir()
     return bool(directory) and os.path.exists(
-        os.path.join(directory, STOP_SENTINEL))
+        os.path.join(directory, health.STOP_SENTINEL))
 
 
 class GenCheckpointer:

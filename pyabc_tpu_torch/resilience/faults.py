@@ -67,6 +67,7 @@ from typing import Dict, List, Optional, Tuple
 SITE_DISPATCH = "device.dispatch"
 SITE_FETCH = "wire.fetch"
 SITE_APPEND = "history.append"
+SITE_HEARTBEAT = "heartbeat.write"
 SITE_PREEMPT = "preempt"
 SITE_STORE_DEPOSIT = "store.deposit"
 SITE_STORE_SPILL = "store.spill"
@@ -77,8 +78,9 @@ SITE_DRAIN = "run.drain"
 SITE_FIDELITY_CALIBRATE = "fidelity.calibrate"
 
 #: every named fault site, for validation and docs
-SITES = (SITE_DISPATCH, SITE_FETCH, SITE_APPEND, SITE_PREEMPT,
-         SITE_STORE_DEPOSIT, SITE_STORE_SPILL, SITE_STORE_HYDRATE,
+SITES = (SITE_DISPATCH, SITE_FETCH, SITE_APPEND, SITE_HEARTBEAT,
+         SITE_PREEMPT, SITE_STORE_DEPOSIT, SITE_STORE_SPILL,
+         SITE_STORE_HYDRATE,
          SITE_MATERIALIZE, SITE_JOURNAL, SITE_DRAIN,
          SITE_FIDELITY_CALIBRATE)
 

@@ -130,6 +130,7 @@ from .fidelity import FidelityConfig
 from .model import Model, SimpleModel
 from .ops import precision as _precision
 from .ops.kde_cuda import weighted_kde_logpdf_cuda
+from .parallel.health import stop_requested
 from .population import Population
 from .populationstrategy import ConstantPopulationSize, PopulationStrategy
 from .random_variables import Distribution, ModelPerturbationKernel
@@ -143,6 +144,7 @@ from .sampler.rounds import RoundKernel
 from .sampler.vectorized import VectorizedSampler, _pow2_at_least
 from .storage.history import PRE_TIME, History
 from .sumstat import SumStatSpec
+from .telemetry import aggregate as _aggregate
 from .telemetry import flight as _flight
 from .telemetry import lanes as _lanes
 from .telemetry import metrics as _metrics
@@ -367,6 +369,9 @@ class ABCSMC:
         #: and one-dispatch engines ($PYABC_TPU_TELEMETRY_LANES, default
         #: on); the populations are the same bits either way
         self.telemetry_lanes = _lanes.lanes_enabled()
+        #: the fleet snapshot publisher ($PYABC_TPU_RUN_DIR), armed by
+        #: run(); None costs one attribute check per generation
+        self._fleet = None
         #: sub-checkpoint cadence of a sequential generation in device
         #: rounds, checked after each sampler call (0: off; None:
         #: $PYABC_TPU_CKPT_ROUNDS)
@@ -1047,6 +1052,11 @@ class ABCSMC:
             eps_sketch=eps_sketch, fidelity_cfg=fidelity_cfg,
             carry_precision=carry_prec, wire_stats=wire_stats,
             telemetry_lanes=lanes_on, **static)
+        # the fleet snapshot's compile count: the port builds an engine
+        # where the JAX package compiles its XLA program
+        _metrics.REGISTRY.counter(
+            "xla_compiles_total", "engine builds (fused / one-dispatch)"
+        ).inc()
         self._fused_cache[key] = fn
         while len(self._fused_cache) > 4:
             self._fused_cache.pop(next(iter(self._fused_cache)))
@@ -1314,6 +1324,13 @@ class ABCSMC:
             self.sampler.observe_generation(
                 accepted, row["evaluations"], rounds=row["rounds"],
                 compute_s=share["compute_s"], overlap_s=share["overlap_s"])
+        self._publish_fleet()
+
+    def _publish_fleet(self, force: bool = False):
+        """A fleet snapshot of the timeline into the run directory, when
+        one is advertised (throttled by the publisher unless forced)."""
+        if self._fleet is not None:
+            self._fleet.publish(self.timeline, force=force)
 
     def _run_fused_block(self, t: int, t_max, total_sims: int,
                          max_total_nr_simulations):
@@ -1550,6 +1567,7 @@ class ABCSMC:
 
         lanes_on = bool(self.telemetry_lanes)
         run_tag = None
+        poller = None
         if lanes_on:
             # this call's progress word, advanced after each written
             # generation's control read
@@ -1557,6 +1575,11 @@ class ABCSMC:
                 t0=t, t_limit=t_limit,
                 run_id=getattr(self.history, "id", None))
             ctl["run_tag"] = run_tag
+            if self._fleet is not None:
+                # the fleet snapshot follows the word while the call runs
+                poller = _lanes.ProgressPoller(
+                    lambda: self._fleet.publish(self.timeline,
+                                                force=True)).start()
         if self.show_progress:
             ctl["on_generation"] = lambda t_rel, count: \
                 self._progress_generation(n, count)
@@ -1579,6 +1602,9 @@ class ABCSMC:
             if lanes_on:
                 _lanes.PROGRESS.finish(run_tag)
             return 0, 0, None
+        finally:
+            if poller is not None:
+                poller.stop()
         dispatch_s = time.perf_counter() - t0
         if measure:
             torch.cuda.synchronize(self.device)
@@ -1603,6 +1629,12 @@ class ABCSMC:
                                           else None))
                 try:
                     for k in range(ctl_out["t"]):
+                        # an operator stop abandons the remaining slots
+                        # (the budget below still counts their rounds);
+                        # the run resumes from the last drained one
+                        if stop_requested():
+                            interrupted = "Stopping: operator stop requested"
+                            break
                         if _ckpt.preempt_requested():
                             interrupted = ("Stopping: preemption requested "
                                            "(SIGTERM)")
@@ -1978,6 +2010,7 @@ class ABCSMC:
                 else:
                     # the sampler observed its own rate
                     self._record(rows[0], tr)
+                    self._publish_fleet()
             if st["fallback"] or st["stop"]:
                 rewind_to_frontier()
 
@@ -1986,6 +2019,14 @@ class ABCSMC:
             torch.cuda.reset_peak_memory_stats(self.device)
         try:
             while st["t"] < t_max and st["stop"] is None:
+                if stop_requested():
+                    # drain what is in flight (its device work is done),
+                    # then exit between generations
+                    while inflight and st["stop"] is None:
+                        harvest_one()
+                    if st["stop"] is None:
+                        st["stop"] = "Stopping: operator stop requested"
+                    break
                 if st["carry"] is None and not inflight:
                     if not sequential_gen():
                         break
@@ -2091,13 +2132,16 @@ class ABCSMC:
     def _configure_telemetry(self):
         """Arm the span tracer for this run: an explicit ``trace_path``
         wins, else ``$PYABC_TPU_TRACE`` (no-op when neither is set — the
-        tracer stays a one-boolean no-op).  The flight recorder is
-        pointed at this run's identity and timeline so a dump from any
-        trigger site carries the run context."""
+        tracer stays a one-boolean no-op).  With ``$PYABC_TPU_RUN_DIR``
+        set, the run publishes fleet snapshots and spans there
+        (``telemetry/aggregate.py``); else ``self._fleet`` is None.  The
+        flight recorder is pointed at this run's identity and timeline
+        so a dump from any trigger site carries the run context."""
         if self.trace_path:
             _spans.TRACER.configure(trace_path=self.trace_path)
         else:
             _spans.TRACER.configure_from_env()
+        self._fleet = _aggregate.publisher_from_env()
         _flight.RECORDER.set_timeline(self.timeline)
         if self.history is not None:
             _flight.RECORDER.set_run_id(getattr(self.history, "id", None))
@@ -2133,6 +2177,7 @@ class ABCSMC:
                     logger.exception("lazy-tail persist at run exit "
                                      "failed")
             _spans.TRACER.flush()
+            self._publish_fleet(force=True)
             if len(self.timeline):
                 logger.debug("generation timeline:\n%s",
                              self.timeline.render_ascii())
@@ -2220,6 +2265,13 @@ class ABCSMC:
             # call boundary and raises Preempted
             _ckpt.install_signal_handlers()
         while t < t_max:
+            # operator clean-stop (parallel.health.request_stop): exit
+            # between generations; the History frontier is durable, so a
+            # later run() resumes here
+            if stop_requested():
+                self.stop_reason = "Stopping: operator stop requested"
+                logger.info(self.stop_reason)
+                break
             if _ckpt.preempt_requested():
                 # the signal arrived between generations: nothing is in
                 # flight and the History frontier is durable
@@ -2343,7 +2395,9 @@ class ABCSMC:
                             sample.device_population, self.M),
                         model_names=model_names,
                         param_names=self._param_names(),
-                        stat_spec=self.spec.shapes)
+                        stat_spec=self.spec.shapes,
+                        summary_grid=_wire_store.maybe_summary_grid(
+                            sample.device_population))
                 else:
                     population = sample.get_accepted_population(n)
                     self.history.append_population(
@@ -2389,6 +2443,7 @@ class ABCSMC:
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
                                 / 1e9 if on_card else None)}, tr_t,
                 accepted=sample.raw_accepted)
+            self._publish_fleet()
             # the sampler observed its rate per call; the ledger's
             # compute / overlap split is seen only here
             observe_timing = getattr(self.sampler, "observe_timing", None)

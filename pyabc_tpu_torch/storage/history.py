@@ -45,7 +45,7 @@ import os
 import sqlite3
 import time
 import zlib
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import pandas as pd
@@ -314,15 +314,16 @@ class History:
     def _append_population_once(self, t, current_epsilon, population,
                                 nr_simulations, model_names,
                                 param_names=None, stat_spec=None,
-                                summary_json=None):
+                                summary_json=None, summary_grid=None):
         probs = population.get_model_probabilities(
             nr_models=len(model_names))
         self._conn.execute(
             "INSERT OR REPLACE INTO populations (abc_smc_id, t, epsilon,"
-            " nr_samples, population_end_time, lazy, summary) VALUES"
-            " (?,?,?,?,?,0,?)",
+            " nr_samples, population_end_time, lazy, summary, summary_grid)"
+            " VALUES (?,?,?,?,?,0,?,?)",
             (self.id, t, float(current_epsilon), int(nr_simulations),
-             datetime.datetime.now().isoformat(), summary_json))
+             datetime.datetime.now().isoformat(), summary_json,
+             summary_grid))
         m_arr = np.asarray(population.m)
         stats = (population.sum_stats.get("__flat__")
                  if self.stores_sum_stats else None)
@@ -465,27 +466,36 @@ class History:
                                nr_simulations: int, *, summary: dict,
                                model_names: List[str],
                                param_names: Optional[List] = None,
-                               stat_spec: Optional[dict] = None):
+                               stat_spec: Optional[dict] = None,
+                               summary_grid: Optional[dict] = None):
         """The summary row of a device-resident generation: the packet
         (``wire.store.summary_from_lanes``) and one blob-less row per
-        model with its count and mass, under the shared retry policy."""
+        model with its count and mass, under the shared retry policy.
+        ``summary_grid`` (``wire.store.maybe_summary_grid``) is stored
+        as one ``[2, G]`` blob (centroids, log masses)."""
         from ..resilience import faults as _faults
         from ..resilience import retry as _retry
         _retry.shared_policy().call(
             self._append_population_lazy_once, _faults.SITE_APPEND,
             t, current_epsilon, nr_simulations, summary, model_names,
-            param_names, stat_spec)
+            param_names, stat_spec, summary_grid)
 
     def _append_population_lazy_once(self, t, current_epsilon,
                                      nr_simulations, summary, model_names,
-                                     param_names, stat_spec):
+                                     param_names, stat_spec, summary_grid):
         self._drain_spills()
+        grid_blob = None
+        if summary_grid:
+            grid_blob = _pack(np.stack(
+                [np.asarray(summary_grid["grid_centroid"]),
+                 np.asarray(summary_grid["grid_log_mass"])]))
         self._conn.execute(
             "INSERT OR REPLACE INTO populations (abc_smc_id, t, epsilon,"
-            " nr_samples, population_end_time, lazy, summary) VALUES"
-            " (?,?,?,?,?,1,?)",
+            " nr_samples, population_end_time, lazy, summary, summary_grid)"
+            " VALUES (?,?,?,?,?,1,?,?)",
             (self.id, int(t), float(current_epsilon), int(nr_simulations),
-             datetime.datetime.now().isoformat(), json.dumps(summary)))
+             datetime.datetime.now().isoformat(), json.dumps(summary),
+             grid_blob))
         model_w = list(summary.get("model_w", []))
         model_n = list(summary.get("model_n", []))
         per_model = (param_names
@@ -537,10 +547,13 @@ class History:
         pn = {m: (json.loads(p) if p else []) for m, p, _ in rows}
         spec = next(({k: tuple(v) for k, v in json.loads(sp).items()}
                      for _, _, sp in rows if sp), None)
+        grid = self._conn.execute(
+            "SELECT summary_grid FROM populations WHERE abc_smc_id=?"
+            " AND t=?", (self.id, int(t))).fetchone()
         self._append_population_once(
             int(t), row[1], pop, row[2], names,
             [pn.get(m, []) for m in range(len(names))], spec,
-            summary_json=row[3])
+            summary_json=row[3], summary_grid=grid[0] if grid else None)
         self._journal_done(int(t))
 
     def _journal_done(self, t: int):
@@ -810,6 +823,10 @@ class History:
             (self.id,)).fetchone()
         return row[0] if row and row[0] is not None else -1
 
+    @property
+    def n_populations(self) -> int:
+        return self.max_t + 1
+
     def alive_models(self, t: Optional[int] = None) -> List[int]:
         """Models with a positive probability in generation ``t``."""
         t = self.max_t if t is None else t
@@ -921,6 +938,153 @@ class History:
             "SELECT t, SUM(n_particles) FROM model_populations WHERE "
             "abc_smc_id=? GROUP BY t ORDER BY t", (self.id,)).fetchall()
         return pd.Series({t: n for t, n in rows})
+
+    def _blob(self, blob, digest, key: str, t: int):
+        """One stored blob of a model row behind its CRC."""
+        crcs = json.loads(digest) if digest else {}
+        return self._unpack_checked(blob, crcs.get(key), t=t)
+
+    def get_weighted_distances(self, t: Optional[int] = None
+                               ) -> pd.DataFrame:
+        """Generation ``t``'s distances with their normalized weights
+        (columns ``distance``, ``w``), models in row order."""
+        t = self.max_t if t is None else t
+        self._materialize(t)
+        rows = self._conn.execute(
+            "SELECT distance, weight, digest FROM model_populations WHERE "
+            "abc_smc_id=? AND t=?", (self.id, t)).fetchall()
+        rows = [r for r in rows if r[0] is not None]
+        ds = (np.concatenate([self._blob(r[0], r[2], "distance", t)
+                              for r in rows]) if rows else np.zeros(0))
+        ws = (np.concatenate([self._blob(r[1], r[2], "weight", t)
+                              for r in rows]) if rows else np.zeros(0))
+        return pd.DataFrame({"distance": ds,
+                             "w": ws / max(ws.sum(), 1e-300)})
+
+    def _raw_weighted_sum_stats(self, t: int, m: int
+                                ) -> Tuple[np.ndarray, List[Dict]]:
+        """Model ``m``'s un-normalized weights and one summary-statistic
+        dict per particle."""
+        self._materialize(t)
+        row = self._conn.execute(
+            "SELECT weight, digest FROM model_populations WHERE "
+            "abc_smc_id=? AND t=? AND m=?", (self.id, t, m)).fetchone()
+        if row is None or row[0] is None:
+            return np.zeros(0), []
+        w = self._blob(row[0], row[1], "weight", t)
+        keyed = self.get_sum_stats(t, m)
+        return w, [{k: v[i] for k, v in keyed.items()}
+                   for i in range(w.shape[0])]
+
+    def get_weighted_sum_stats(self, t: Optional[int] = None
+                               ) -> Tuple[np.ndarray, List[Dict]]:
+        """(normalized weights, one summary-statistic dict per particle)
+        over all models of generation ``t``."""
+        t = self.max_t if t is None else t
+        rows = self._conn.execute(
+            "SELECT m FROM model_populations WHERE abc_smc_id=? "
+            "AND t=? ORDER BY m", (self.id, t)).fetchall()
+        weights, dicts = [], []
+        for (m,) in rows:
+            w, d = self._raw_weighted_sum_stats(t, m)
+            weights.append(w)
+            dicts.extend(d)
+        if not weights:
+            return np.zeros(0), []
+        w = np.concatenate(weights)
+        return w / max(w.sum(), 1e-300), dicts
+
+    def get_weighted_sum_stats_for_model(self, m: int = 0,
+                                         t: Optional[int] = None
+                                         ) -> Tuple[np.ndarray, List[Dict]]:
+        """(normalized weights, summary-statistic dicts) of model ``m``."""
+        t = self.max_t if t is None else t
+        w, dicts = self._raw_weighted_sum_stats(t, m)
+        if w.size == 0:
+            return w, dicts
+        return w / max(w.sum(), 1e-300), dicts
+
+    def get_population_strategy(self) -> dict:
+        row = self._conn.execute(
+            "SELECT population_strategy FROM abc_smc WHERE id=?",
+            (self.id,)).fetchone()
+        return json.loads(row[0]) if row and row[0] else {}
+
+    def all_runs(self) -> pd.DataFrame:
+        rows = self._conn.execute(
+            "SELECT id, start_time FROM abc_smc").fetchall()
+        return pd.DataFrame(rows, columns=["id", "start_time"])
+
+    @property
+    def db_size(self) -> float:
+        """The database file's size in MB; -1 in memory."""
+        if self.in_memory:
+            return -1.0
+        try:
+            return os.path.getsize(self.db_path) / 1e6
+        except OSError:
+            return -1.0
+
+    @property
+    def total_nr_simulations(self) -> int:
+        row = self._conn.execute(
+            "SELECT SUM(nr_samples) FROM populations WHERE abc_smc_id=?",
+            (self.id,)).fetchone()
+        return int(row[0] or 0)
+
+    def get_ground_truth_parameter(self) -> dict:
+        row = self._conn.execute(
+            "SELECT json_parameters FROM abc_smc WHERE id=?",
+            (self.id,)).fetchone()
+        params = json.loads(row[0]) if row and row[0] else {}
+        return params.get("ground_truth_parameter") or {}
+
+    def nr_of_models_alive(self, t: Optional[int] = None) -> int:
+        return len(self.alive_models(t))
+
+    def get_population_extended(self, m: Optional[int] = None,
+                                t: Union[int, str, None] = "last"
+                                ) -> pd.DataFrame:
+        """Long-form particle table: columns ``t``, ``m``, ``w``,
+        ``distance`` and the parameters.  ``t="last"`` is the last
+        generation; ``None`` or ``"all"`` every stored one, the
+        calibration sample (``t = -1``) included."""
+        if t == "last":
+            ts = [self.max_t]
+        elif t is None or t == "all":
+            ts = [r[0] for r in self._conn.execute(
+                "SELECT DISTINCT t FROM model_populations WHERE "
+                "abc_smc_id=? ORDER BY t", (self.id,)).fetchall()]
+        else:
+            ts = [int(t)]
+        frames = []
+        for ti in ts:
+            query = ("SELECT m, theta, weight, distance, param_names, "
+                     "digest FROM model_populations WHERE abc_smc_id=? "
+                     "AND t=?")
+            args = [self.id, ti]
+            if m is not None:
+                query += " AND m=?"
+                args.append(m)
+            self._materialize(ti)
+            rows = self._conn.execute(query + " ORDER BY m",
+                                      args).fetchall()
+            for mi, tb, wb, db_, names_json, digest in rows:
+                if tb is None:
+                    continue
+                theta = self._blob(tb, digest, "theta", ti)
+                names = (json.loads(names_json)
+                         or [f"p{i}" for i in range(theta.shape[1])])
+                df = pd.DataFrame(theta[:, :len(names)], columns=names)
+                df.insert(0, "distance",
+                          self._blob(db_, digest, "distance", ti))
+                df.insert(0, "w", self._blob(wb, digest, "weight", ti))
+                df.insert(0, "m", mi)
+                df.insert(0, "t", ti)
+                frames.append(df)
+        if not frames:
+            return pd.DataFrame(columns=["t", "m", "w", "distance"])
+        return pd.concat(frames, ignore_index=True)
 
     @classmethod
     def from_reference_db(cls, path: str, db: str = "sqlite://",

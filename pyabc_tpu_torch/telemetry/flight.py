@@ -25,14 +25,13 @@ never the working directory, so a crash can't litter a source
 checkout.  Repeat dumps for one run overwrite the same file — the last
 writer has the most context, and the ring persists across dumps.
 
-Leaf-package rule: wire imports are function-local.
+Leaf-package rule: wire and parallel imports are function-local.
 """
 
 from __future__ import annotations
 
 import json
 import os
-import socket
 import threading
 import time
 from collections import deque
@@ -43,11 +42,6 @@ from .metrics import REGISTRY
 
 FLIGHT_ENV = "PYABC_TPU_FLIGHT"
 FLIGHT_DIR_ENV = "PYABC_TPU_FLIGHT_DIR"
-#: the shared run directory advertised to this process (the JAX
-#: package's ``parallel.health.RUN_DIR_ENV``)
-RUN_DIR_ENV = "PYABC_TPU_RUN_DIR"
-#: this process's fleet identity (``telemetry.aggregate.HOST_ENV``)
-HOST_ENV = "PYABC_TPU_HOST_ID"
 
 SCHEMA_VERSION = 1
 
@@ -190,12 +184,14 @@ class FlightRecorder:
 
 def run_dir():
     """The shared run directory advertised to this process, if any."""
-    return os.environ.get(RUN_DIR_ENV)
+    from ..parallel import health  # leaf rule: function-local
+    return health.run_dir()
 
 
 def _host() -> str:
     """``$PYABC_TPU_HOST_ID`` else the hostname."""
-    return os.environ.get(HOST_ENV) or socket.gethostname()
+    from .aggregate import host_id
+    return host_id()
 
 
 #: the process-global recorder every failure site notes into

@@ -31,7 +31,12 @@ read (:func:`progress_update`): no extra host read.  The flight recorder
 embeds the last word in its dump, so a post-mortem names the generation
 that died.
 
-Not ported (the fleet layer): ``ProgressPoller`` and ``merge_progress``.
+**Fleet side.**  With a run directory (``telemetry/aggregate.py``), a
+:class:`ProgressPoller` thread force-publishes the fleet snapshot every
+``$PYABC_TPU_PROGRESS_POLL_S`` seconds (default 0.5) while the word
+moves, so a reader sees the generations of a one-dispatch call advance
+before the call returns; :func:`merge_progress` folds the hosts' words
+into one.
 """
 
 from __future__ import annotations
@@ -40,7 +45,7 @@ import math
 import os
 import threading
 import time
-from typing import Dict, List, Optional
+from typing import Callable, Dict, List, Optional
 
 #: phases of one fused generation, in program order.  ``simulate``,
 #: ``distance`` and ``screen`` scale with the rejection rounds
@@ -63,6 +68,17 @@ def lanes_enabled() -> bool:
     """Whether device telemetry lanes (and the progress word) run in the
     fused and one-dispatch engines."""
     return os.environ.get(LANES_ENV, "1") not in ("0", "false", "no")
+
+
+#: seconds between the progress poller's looks at the word
+POLL_ENV = "PYABC_TPU_PROGRESS_POLL_S"
+
+
+def poll_interval_s() -> float:
+    try:
+        return max(float(os.environ.get(POLL_ENV, "0.5")), 0.05)
+    except ValueError:
+        return 0.5
 
 
 # ------------------------------------------------------------- device side
@@ -267,3 +283,66 @@ def progress_update(gens_done: int, eps: float, accepted: int,
                         int(rounds), tag=run_tag)
     except Exception:
         pass
+
+
+class ProgressPoller:
+    """Daemon thread publishing the progress word while a one-dispatch
+    call is in flight: every tick that sees a fresher word force-writes
+    the fleet snapshot (the cadence here is the throttle), so the
+    snapshot does not freeze at the pre-dispatch state until the call
+    returns."""
+
+    def __init__(self, publish: Callable[[], object],
+                 interval_s: Optional[float] = None):
+        self._publish = publish
+        self._interval = (poll_interval_s() if interval_s is None
+                          else max(float(interval_s), 0.05))
+        self._stop = threading.Event()
+        self._thread: Optional[threading.Thread] = None
+        self._last_seen = -1.0
+
+    def start(self) -> "ProgressPoller":
+        t = threading.Thread(target=self._run, daemon=True,
+                             name="abc-progress-poller")
+        self._thread = t
+        t.start()
+        return self
+
+    def _run(self):
+        while not self._stop.wait(self._interval):
+            word = PROGRESS.read()
+            if word is None or not word.get("active"):
+                continue
+            if word["updated_unix"] <= self._last_seen:
+                continue  # nothing new since the last publish
+            self._last_seen = word["updated_unix"]
+            try:
+                self._publish()
+            except Exception:
+                pass  # a publish hiccup must not kill the poller
+
+    def stop(self):
+        self._stop.set()
+        t = self._thread
+        if t is not None:
+            t.join(timeout=2.0)
+            self._thread = None
+
+
+# -------------------------------------------------------------- fleet side
+
+def merge_progress(words: List[Optional[dict]]) -> Optional[dict]:
+    """One fleet view of per-host progress words: the most recently
+    updated active word (else the freshest inactive one), with
+    ``hosts_active`` (hosts still inside a dispatch) and
+    ``hosts_reporting``."""
+    live = [w for w in words if w]
+    if not live:
+        return None
+    active = [w for w in live if w.get("active")]
+    pick = max(active or live,
+               key=lambda w: w.get("updated_unix", 0.0))
+    merged = dict(pick)
+    merged["hosts_active"] = len(active)
+    merged["hosts_reporting"] = len(live)
+    return merged

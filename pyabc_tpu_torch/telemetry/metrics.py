@@ -17,6 +17,7 @@ telemetry freely.
 from __future__ import annotations
 
 import threading
+import time
 from typing import Dict, Optional
 
 _DEFAULT_BUCKETS = (0.001, 0.005, 0.01, 0.05, 0.1, 0.5, 1.0, 5.0,
@@ -256,3 +257,38 @@ def record_generation(evals: int, accepted: int, acc_rate: float,
                 "abc_screen_rate",
                 "fidelity-screen survival rate of latest generation"
             ).set(screen_pass / max(sims_low, 1))
+
+
+_STARTED_AT = time.time()
+
+
+def heartbeat_summary() -> dict:
+    """Compact per-process snapshot for heartbeat payloads: sampler
+    throughput plus the wire ledger, all plain scalars."""
+    from ..wire import transfer  # function-local: wire imports telemetry
+
+    d = REGISTRY.to_dict()
+    tr = transfer.snapshot()
+    evals = d.get("abc_evaluations_total", 0)
+    acc = d.get("abc_accepted_total", 0)
+    return {
+        "uptime_s": round(time.time() - _STARTED_AT, 3),
+        "generations": int(d.get("abc_generations_total", 0)),
+        "evaluations": int(evals),
+        "accepted": int(acc),
+        "acceptance_rate": round(acc / evals, 6) if evals else 0.0,
+        "d2h_mb": round(tr["d2h_bytes"] / 1e6, 3),
+        "d2h_mb_per_s": tr["d2h_mb_per_s"],
+        "compute_s": round(tr["compute_s"], 3),
+        "fetch_s": round(tr["fetch_s"], 3),
+        "decode_s": round(tr["decode_s"], 3),
+        "overlap_s": round(tr["overlap_s"], 3),
+        "rewinds": int(tr["rewinds"]),
+        "ingest_inflight": int(d.get("wire_ingest_inflight", 0)),
+        # resilience ledger: non-zero retries/degrades on a healthy run
+        # are the early warning a fleet reader looks for
+        "retries": int(d.get("resilience_retries_total", 0)),
+        "degrades": int(d.get("resilience_degrade_total", 0)),
+        "checkpoints": int(d.get("resilience_checkpoints_total", 0)),
+    }
+

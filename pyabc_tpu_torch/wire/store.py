@@ -39,7 +39,9 @@ decode; a mismatch raises ``IntegrityError`` for the History's recovery
 ladder.  The ``store.deposit``, ``store.spill`` and ``store.hydrate``
 fault sites sit at those three points.
 
-Not ported: the opt-in ``$PYABC_TPU_SUMMARY_GRID`` packet.
+Opt-in ``$PYABC_TPU_SUMMARY_GRID``: a sequential generation's lazy row
+also keeps its 1-D posterior compressed to the device grid
+(:func:`maybe_summary_grid`).
 """
 
 from __future__ import annotations
@@ -62,6 +64,8 @@ logger = logging.getLogger("ABC.Wire")
 STORE_GENS_ENV = "PYABC_TPU_STORE_GENS"
 #: the default ``history_mode`` of ``ABCSMC`` (lazy | eager)
 HISTORY_MODE_ENV = "PYABC_TPU_HISTORY_MODE"
+#: "1" keeps a grid-compressed 1-D posterior with each sequential lazy row
+SUMMARY_GRID_ENV = "PYABC_TPU_SUMMARY_GRID"
 
 #: wire lanes of the summary packet, computed on the device
 SUMMARY_LANE_KEYS = ("sm_ess", "sm_mean", "sm_var", "sm_mw", "sm_mn",
@@ -141,6 +145,46 @@ def summarize_device_population(dp: dict, M: int) -> dict:
     with transfer.egress("summary"):
         host = fetch_to_host(lanes)
     return summary_from_lanes(host)
+
+
+def summary_grid_enabled() -> bool:
+    return os.environ.get(SUMMARY_GRID_ENV, "0").lower() in (
+        "1", "true", "on", "yes")
+
+
+def maybe_summary_grid(dp: dict) -> Optional[dict]:
+    """The population's 1-D posterior on the device grid
+    (``sampler/fused.py:_compress_support_device``) when
+    ``$PYABC_TPU_SUMMARY_GRID`` is on: ``{"grid_centroid",
+    "grid_log_mass"}`` host arrays of the grid's cells, or None (off, or
+    the parameter space is not 1-D).  ``dp`` is a sequential
+    generation's accepted rows (``Sample.device_population``: every row
+    valid)."""
+    if not summary_grid_enabled():
+        return None
+    theta = dp["theta"]
+    if theta.ndim != 2 or theta.shape[1] != 1:
+        return None
+    from ..sampler.base import fetch_to_host
+    from ..sampler.fused import _compress_support_device
+
+    valid = torch.ones(theta.shape[0], dtype=torch.bool,
+                       device=theta.device)
+    log_w = dp["log_weight"]
+    lw = torch.where(torch.isfinite(log_w), log_w,
+                     torch.full_like(log_w, -math.inf))
+    lw_max = lw.max()
+    lw_max = torch.where(torch.isfinite(lw_max), lw_max,
+                         torch.zeros_like(lw_max))
+    w_un = torch.exp(log_w - lw_max)
+    w = w_un / torch.clamp(w_un.sum(), min=1e-38)
+    sup, log_mass, _ = _compress_support_device(
+        theta, w, valid, torch.ones((1, 1), dtype=theta.dtype,
+                                    device=theta.device))
+    with transfer.egress("summary"):
+        host = fetch_to_host({"grid_centroid": sup[:, 0],
+                              "grid_log_mass": log_mass})
+    return {k: np.asarray(v) for k, v in host.items()}
 
 
 # ---------------------------------------------------------------- decode

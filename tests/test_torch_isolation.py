@@ -63,7 +63,12 @@ def test_port_files_exist():
                 "sampler/mapping.py", "sampler/dask_sampler.py",
                 "sge/__init__.py", "sge/config.py", "sge/db.py",
                 "sge/execute_load.py", "sge/execution_contexts.py",
-                "sge/sge.py", "sge/util.py"):
+                "sge/sge.py", "sge/util.py", "parallel/__init__.py",
+                "parallel/health.py", "telemetry/aggregate.py",
+                "visualization/__init__.py", "visualization/util.py",
+                "visualization/kde.py", "visualization/run_plots.py",
+                "visserver/__init__.py", "visserver/app.py",
+                "visserver/server.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 
