@@ -274,6 +274,29 @@ Phases, each printed as one JSON line and each fatal on failure:
    (``"matplotlib"`` in the line says whether).  It reports each call's
    and route's milliseconds and launches and the snapshots seen.
 
+15. ``serve1e4`` / ``servecb`` — the serving path (``serve/``).
+   ``serve1e4`` is bench.py's ``bench_serve`` mix through one
+   ``ServeWorker`` on the card: a pop-1e4 study warms the solo
+   one-dispatch engine, a second runs on the renewed engine (zero
+   program builds, at least one ladder hit), then four pop-100 and three
+   pop-1000 studies (the study axis) and three duplicates are served
+   from the queue.  Gates: every study served, the duplicates from the
+   cache with no build and no K1 launch, every lane bit-identical to the
+   same spec as a batch of one on the card, every posterior mean within
+   0.15 of y, K1 once per lane and successful generation and once per
+   one-dispatch generation of the solo engine.  It reports studies/s,
+   p50/p99 study wall, the cache and ladder counters, K1 launches.
+   ``servecb`` is ``bench_serve_cb``'s workload: 96 pop-100 studies of
+   one batch key (three 2-generation to one 12-generation) submitted from
+   a thread at seeded Poisson arrivals of 100 Hz to a worker thread, with
+   ``PYABC_TPU_SERVE_CB`` 0 then 1 (multiplex 8, window 2), then the
+   fixed-shape probe (three turnovers, no build).  Gates: no failed
+   study, three sampled lanes bit-identical to fresh batches of one, the
+   12-generation studies' means within 4 standard errors + 0.05 of the
+   analytic posterior mean y/2, K1 once per lane and successful
+   generation.  It reports tombstone-to-submit p50/p99 for both arms,
+   turnovers, windows and occupancy.
+
 Every phase of items 4–8 pins ``history_mode="eager"``, and every run at
 pop 1e6 among them ``ingest_mode="sequential"``, so that each measures
 the engine it did before the pipeline and the lazy rows became the
@@ -290,7 +313,9 @@ shape [records × support] from the ``petab1e5`` run's timeline, rows (h),
 [1024 × support], row (q) an ``aggregatedlv1e5`` block's finalize at
 d = 2, and rows (r)–(u) ``analysis1e6``'s densities: the viewer's
 ``/api/kde`` grid, ``compute_kde_max``, ``kde_2d`` and the CV default's
-bootstrap (stated default shapes without those runs).
+bootstrap, rows (v)–(x) a study-axis lane's importance weights at pop
+100, 1000 and 4096 and row (y) ``serve1e4``'s solo finalize (stated
+default shapes without those runs).
 
 Opt-in phases (``--phases``, not in the default run): ``profile``
 profiles the slowest generation of the pop-1e6 run with
@@ -315,6 +340,11 @@ generations if the plan fits, else reports the ``CapacityError`` with its
 ledger.  ``capacityspread`` runs ``capacity1e7``'s configuration with no
 budget in float32 and bf16 at seeds 0-2 and reports the spread of the
 posterior means, at each run's last ε and at the smallest of them.
+``serveprof`` profiles one window of 8 study-axis lanes (device time by
+kernel, idle share, launches per lane generation).  ``laddermem`` runs
+``envknobs1e6`` and ``chaos1e6`` with the sampler's ladder at 4 and at
+16 entries and reports each arm's ``max_memory_allocated`` and the most
+engines a ladder held.
 ``hostprof`` times a ``ConcurrentFutureSampler`` task's round and whole
 task with 1, 4 and again 1 job in flight (config #2, pop 1000, 8
 generations).
@@ -344,10 +374,11 @@ ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "adaptivepop", "local1e4", "fidelitysir5e4", "fidelitylv5e4",
               "capacity1e7", "telemetry1e6", "chaos1e6", "recover1e6",
               "cudafaults", "quickstart1e4", "envknobs1e6", "refexport1e5",
-              "hostsamplers", "aggregatedlv1e5", "analysis1e6", "kernels")
+              "hostsamplers", "aggregatedlv1e5", "analysis1e6", "serve1e4",
+              "servecb", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat", "capacity1e8",
-                "capacityspread", "hostprof")
+                "capacityspread", "hostprof", "laddermem", "serveprof")
 TOL_ABS = 1e-4
 TOL_REL = 1e-5
 #: largest [M, N] float32 block the library yardstick may materialize
@@ -656,7 +687,10 @@ def phase_kernels(torch, state):
                                + fused_cases(state) + library_cases(state)
                                + fidelity_capacity_cases(state)
                                + host_aggregated_cases(state)
-                               + analysis_cases(state)):
+                               + analysis_cases(state)
+                               + serve_cases(state)):
+        kw = dict(kw)
+        main_launches = kw.pop("main_launches", None)
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
         args = (c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
         got = kde_cuda.weighted_kde_logpdf_cuda(*args)
@@ -692,7 +726,8 @@ def phase_kernels(torch, state):
                "bound_share": bound_ms / kernel_only_ms,
                "pairs_per_s": m * n / (kernel_only_ms * 1e-3),
                "chunk": chunk, "splits": splits,
-               "partial_kernel": _partial_regs(state, d)}
+               "partial_kernel": _partial_regs(state, d),
+               "launches": main_launches}
         emit(row)
         rows.append(row)
         ok_all = ok_all and ok
@@ -3037,7 +3072,7 @@ def phase_capacity1e8(torch, state):
 #: the resilience counters a phase with no fault plan must leave at 0
 CLEAN_COUNTERS = ("resilience_retries_total", "resilience_degrade_total")
 #: phases that install faults or provoke them on the card
-FAULT_PHASES = ("chaos1e6", "recover1e6", "cudafaults")
+FAULT_PHASES = ("chaos1e6", "recover1e6", "cudafaults", "laddermem")
 
 
 def resilience_counts() -> dict:
@@ -4749,6 +4784,579 @@ def phase_analysis1e6(torch, state):
         raise RuntimeError(f"analysis1e6 failed its checks: {checks}")
 
 
+# ------------------------------------------------------------ serving
+#: bench.py's bench_serve mix (SERVE_GENS, :719): one warm-up and one
+#: renewed pop-1e4 study, four pop-100 studies, three pop-1000 studies,
+#: three duplicates
+SERVE_GENS = 3
+SERVE_LARGE = 10_000
+#: bench.py's bench_serve_cb workload: 96 studies at pop 100, three
+#: short (2 generations) to one long (12), Poisson arrivals at 100 Hz
+SERVECB_STUDIES = 96
+SERVECB_RATE_HZ = 100.0
+SERVECB_ENV = {"PYABC_TPU_SERVE_MULTIPLEX": "8",
+               "PYABC_TPU_SERVE_CB_WINDOW": "2"}
+#: the study axis's posterior gate (tests/test_serve.py:407-410)
+SERVE_MEAN_TOL = 0.15
+#: servecb's gate on its 12-generation studies (y ~ N(mu, 1), mu ~ N(0,
+#: 1), distance |y - y_obs|): a lane's last population is an importance
+#: sample of the ABC posterior at its last eps (``_abc_gauss_posterior``).
+#: Each lane's weighted mean and std become z-scores on its ESS
+#: (sigma / sqrt(ESS), sigma / sqrt(2 ESS)); per arm, each z-score summed
+#: over the lanes over sqrt(lanes) must lie within SERVECB_Z.  The prior
+#: (std 1 against ~0.71) fails it, as do uniform weights or a doubled
+#: kernel scale in the weights (PERF.md, PR 13)
+SERVECB_Z = 4.0
+
+
+def _abc_gauss_posterior(torch, y_obs: float, eps: float):
+    """Mean and std of p(mu | |y - y_obs| <= eps) for y ~ N(mu, 1) under
+    mu ~ N(0, 1): N(mu; 0, 1) [Phi(y_obs + eps - mu) - Phi(y_obs - eps -
+    mu)], by quadrature on the CPU in float64."""
+    mu = torch.linspace(-8.0, 8.0, 40001, dtype=torch.float64)
+    dens = torch.exp(-0.5 * mu * mu) * (
+        torch.special.ndtr(y_obs + eps - mu)
+        - torch.special.ndtr(y_obs - eps - mu))
+    dens = dens / dens.sum()
+    mean = float((dens * mu).sum())
+    return mean, float(torch.sqrt((dens * (mu - mean) ** 2).sum()))
+
+
+def _servecb_posterior(torch, lanes: dict) -> dict:
+    """The servecb posterior gate over one arm's 12-generation lanes:
+    pooled z-scores of the weighted mean and (reliability-corrected)
+    std against ``_abc_gauss_posterior`` at each lane's last eps."""
+    import numpy as np
+    z_mean, z_std, gens = [], [], []
+    for spec, res in lanes.values():
+        if spec.max_generations != 12:
+            continue
+        eps = float(res["eps"])
+        if not math.isfinite(eps) or int(res["gens"]) < 2:
+            return {"ok": False, "lanes": len(z_mean), "eps": eps}
+        theta = np.asarray(res["theta"], dtype=np.float64)[:, 0]
+        w = np.asarray(res["w"], dtype=np.float64)
+        w = w / w.sum()
+        w2 = float(np.sum(w * w))
+        mean = float(np.sum(w * theta))
+        std = math.sqrt(float(np.sum(w * (theta - mean) ** 2)) / (1 - w2))
+        ref_mean, ref_std = _abc_gauss_posterior(
+            torch, float(np.float32(spec.observed["y"])), eps)
+        z_mean.append((mean - ref_mean) * math.sqrt(1 / w2) / ref_std)
+        z_std.append((std - ref_std) * math.sqrt(2 / w2) / ref_std)
+        gens.append(int(res["gens"]))
+    k = len(z_mean)
+    pooled = (sum(z_mean) / math.sqrt(max(k, 1)),
+              sum(z_std) / math.sqrt(max(k, 1)))
+    return {"ok": k > 0 and all(abs(z) <= SERVECB_Z for z in pooled),
+            "lanes": k, "z_mean": pooled[0], "z_std": pooled[1],
+            "max_lane_abs_z_mean": max(map(abs, z_mean), default=None),
+            "max_lane_abs_z_std": max(map(abs, z_std), default=None),
+            "gens": sorted(gens)}
+
+
+def _serve_model(generator, theta):
+    """bench.py's ``_serve_model`` (:722-728) for torch: y = mu + 0.1·N(0,
+    1).  Module-level, as a tenant's importable model (specs pickle)."""
+    import torch
+    noise = 0.1 * torch.randn(theta.shape[0], 1, generator=generator,
+                              device=theta.device)
+    return {"y": theta[:, :1] + noise}
+
+
+def _serve_spec(pop, seed, tenant, y=0.4, gens=SERVE_GENS):
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.serve import StudySpec
+    return StudySpec(model=_serve_model,
+                     prior=pt.Distribution(mu=pt.RV("uniform", -1.0, 2.0)),
+                     observed={"y": float(y)}, population_size=pop,
+                     seed=seed, tenant=tenant, max_generations=gens)
+
+
+def _capture_lanes(worker, store: dict):
+    """Record every study-axis lane result the worker summarizes (keyed
+    by digest), leaving the summary as it was."""
+    inner = worker._batch_summary
+
+    def capture(spec, res, digest):
+        store[digest] = (spec, {k: v.copy() for k, v in res.items()})
+        return inner(spec, res, digest)
+    worker._batch_summary = capture
+
+
+def _same_bits(a: dict, b: dict) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(
+        np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+        and np.asarray(a[k]).dtype == np.asarray(b[k]).dtype for k in a)
+
+
+def _lane_twin(torch, spec, window: int) -> dict:
+    """The same spec as a fresh batch of one on the card."""
+    from pyabc_tpu_torch.serve import StudyBatch
+    return StudyBatch([spec], program_cache={}, window=window,
+                      device="cuda").run()[0]
+
+
+def _walls(ms):
+    ms = sorted(ms)
+    if not ms:
+        return None, None
+    return (ms[len(ms) // 2],
+            ms[min(len(ms) - 1, int(round(0.99 * (len(ms) - 1))))])
+
+
+def phase_serve1e4(torch, state):
+    """bench_serve's mix through one ServeWorker on the card: the solo
+    one-dispatch engine (warm-up, then a renewed study), the study axis
+    (pop 100 and 1000 lanes), the cache (three duplicates)."""
+    import os
+    import tempfile
+
+    import numpy as np
+
+    from pyabc_tpu_torch.autotune import compile_counters
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.sampler import fused
+    from pyabc_tpu_torch.serve import ServeWorker, StudyQueue
+    from pyabc_tpu_torch.serve.spec import study_digest
+    from pyabc_tpu_torch.telemetry.metrics import REGISTRY
+
+    root = tempfile.mkdtemp(prefix="serve1e4_")
+    worker = ServeWorker(root=root)
+    lanes: dict = {}
+    _capture_lanes(worker, lanes)
+    warm = worker.serve_spec(_serve_spec(SERVE_LARGE, 0, "t_large"))
+    (abc,) = worker._engines.values()
+    ladder0 = abc.sampler._ladder.summary()
+    builds0 = compile_counters()["n_compiles"]
+    engine_builds0 = REGISTRY.counter("serve_engine_builds_total").value
+
+    # the main path: the counts start at 0 here
+    weighted_kde_logpdf_cuda.launches = 0
+    t0 = time.perf_counter()
+    served0 = worker.served
+    renewed = worker.serve_spec(_serve_spec(SERVE_LARGE, 1, "t_large"))
+    torch.cuda.synchronize()
+    solo_launches = weighted_kde_logpdf_cuda.launches
+    solo_rows = [dict(r) for r in abc.timeline]
+    ladder1 = abc.sampler._ladder.summary()
+    builds1 = compile_counters()["n_compiles"]
+    queue = StudyQueue(root=root)
+    mix = ([_serve_spec(100, s, "t_small", y=y)
+            for s, y in enumerate((0.2, 0.3, 0.4, 0.5))]
+           + [_serve_spec(1_000, s, "t_mid") for s in range(3)])
+    dups = [_serve_spec(100, 1, "t_small", y=0.3),
+            _serve_spec(1_000, 1, "t_mid"), _serve_spec(1_000, 2, "t_mid")]
+    tickets = [queue.submit(s) for s in mix + dups]
+    worker.run_forever(queue, once=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = weighted_kde_logpdf_cuda.launches
+    lane_launches = launches - solo_launches
+    n_served = worker.served - served0
+    p50, p99 = _walls(worker.walls_ms[-n_served:])
+    stats = queue.stats()
+    engines = {}
+    for t in tickets:
+        with open(os.path.join(queue.root, "done", f"{t.id}.json"),
+                  encoding="utf-8") as f:
+            engines[t.id] = json.load(f)["engine"]
+    dup_ids = {t.id for t in tickets[len(mix):]}
+
+    # duplicates again, alone: the cache with no build and no launch
+    weighted_kde_logpdf_cuda.launches = 0
+    b0 = compile_counters()["n_compiles"]
+    e0 = REGISTRY.counter("serve_engine_builds_total").value
+    again = [worker.serve_spec(s) for s in dups]
+    dup_launches = weighted_kde_logpdf_cuda.launches
+    dup_builds = compile_counters()["n_compiles"] - b0
+    dup_engine_builds = REGISTRY.counter(
+        "serve_engine_builds_total").value - e0
+
+    # every multiplexed lane against the same spec as a batch of one
+    twins = {d: _same_bits(res, _lane_twin(torch, spec, 8))
+             for d, (spec, res) in lanes.items()}
+    means = {}
+    for spec in mix:
+        summary = worker.cache.get(
+            f"{study_digest(spec)}."
+            f"{'multiplex' if spec.population_size <= 4096 else 'solo'}")
+        means[f"{spec.population_size}/{spec.seed}"] = (
+            summary["posterior_mean"]["mu"], spec.observed["y"])
+    for label, s in (("warm", warm), ("renewed", renewed)):
+        means[f"{SERVE_LARGE}/{label}"] = (s["posterior_mean"]["mu"], 0.4)
+    lane_gens = {d: int(res["gens"]) for d, (_s, res) in lanes.items()}
+    od_rows = [r for r in solo_rows if r["path"] == "onedispatch"]
+    per_gen = fused.kde_launches_per_gen(1, False)
+    checks = {
+        "served": (n_served == len(mix) + len(dups) + 1
+                   and (stats["done"], stats["failed"], stats["pending"])
+                   == (len(tickets), 0, 0)),
+        "engines": (renewed["served_from"] == "solo"
+                    and warm["served_from"] == "solo"
+                    and sorted(engines[i] for i in dup_ids)
+                    == ["cache"] * 3
+                    and sorted(v for i, v in engines.items()
+                               if i not in dup_ids)
+                    == ["multiplex"] * len(mix)),
+        "duplicates_from_cache": (
+            all(s["served_from"] == "cache" for s in again)
+            and dup_launches == 0 and dup_builds == 0
+            and dup_engine_builds == 0),
+        "renew_no_build": (builds1 == builds0
+                           and ladder1["misses"] == ladder0["misses"]
+                           and ladder1["hits"] >= ladder0["hits"] + 1
+                           and REGISTRY.counter(
+                               "serve_engine_builds_total").value
+                           == engine_builds0),
+        "lanes_bit_identical": bool(twins) and all(twins.values())
+        and len(twins) == len(mix),
+        "posterior": all(abs(m - y) < SERVE_MEAN_TOL
+                         for m, y in means.values()),
+        # K1: once per lane and successful generation; the solo engine's
+        # finalize once per one-dispatch generation
+        "k1_lanes": lane_launches == sum(g - 1 for g in lane_gens.values()),
+        "k1_solo": (solo_launches == sum(r["kde_launches"]
+                                         for r in solo_rows)
+                    and bool(od_rows)
+                    and all(r["kde_launches"] == per_gen for r in od_rows)),
+        "launched": launches > 0,
+    }
+    lane_shapes = sorted({int(s.population_size) for s in mix})
+    state.setdefault("launches", {})["serve1e4"] = launches
+    state["serve_lane_launches"] = {
+        p: sum(lane_gens[study_digest(s)] - 1 for s in mix
+               if s.population_size == p) for p in lane_shapes}
+    sup = [r.get("kde_support") for r in od_rows]
+    state["serve_solo_shape"] = (SERVE_LARGE, (sup[-1] or [{}])[0].get(
+        "rows", SERVE_LARGE) if sup else SERVE_LARGE, 1,
+        bool(sup and (sup[-1] or [{}])[0].get("compressed")),
+        sum(r["kde_launches"] for r in od_rows))
+    ladder = {k: 0 for k in ("hits", "misses", "evictions")}
+    for eng in worker._engines.values():
+        for k in ladder:
+            ladder[k] += int(eng.sampler._ladder.summary()[k])
+    cache = worker.cache.stats()
+    row = {"phase": "serve1e4", "ok": all(checks.values()),
+           "checks": checks, "studies": n_served, "wall_s": wall,
+           "studies_per_s": n_served / wall, "p50_ms": p50, "p99_ms": p99,
+           "cache": {k: cache[k] for k in ("hits", "misses", "t1_hits",
+                                           "t2_hits", "hit_ratio")},
+           "ladder": ladder, "ladder_renew": {"before": ladder0,
+                                              "after": ladder1},
+           "kde_launches": launches, "solo_kde_launches": solo_launches,
+           "lane_kde_launches": lane_launches,
+           "lane_gens": sorted(lane_gens.values()),
+           "posterior_means": means,
+           "solo_generations": [generation_row(r) for r in solo_rows]}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"serve1e4 failed its checks: {checks}")
+
+
+def _servecb_spec(seed, gens, tag):
+    """bench.py's cb_spec: one batch_key, duration and seed per lane."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import gaussian_model
+    from pyabc_tpu_torch.serve import StudySpec
+    return StudySpec(model=gaussian_model,
+                     prior=pt.Distribution(mu=pt.RV("norm", 0.0, 1.0)),
+                     observed={"y": 0.1 * (seed % 5)}, population_size=100,
+                     seed=seed, tenant=f"cb_{tag}", max_generations=gens)
+
+
+def _servecb_arm(torch, root: str, cb_on: bool, tag: str) -> dict:
+    """One arm: the pool submitted from a thread at seeded Poisson
+    arrivals to a worker thread in this process; latency = tombstone
+    ``completed_unix`` − ``submitted_unix``."""
+    import os
+    import threading
+
+    import numpy as np
+
+    from pyabc_tpu_torch.serve import ServeWorker, StudyQueue
+
+    pool = [_servecb_spec(4 * i + j, 12 if j == 3 else 2, tag)
+            for i in range(SERVECB_STUDIES // 4) for j in range(4)]
+    with _Env(PYABC_TPU_SERVE_CB="1" if cb_on else "0", **SERVECB_ENV):
+        queue = StudyQueue(root=os.path.join(root, tag), max_depth=4096,
+                           tenant_quota=4096)
+        worker = ServeWorker(root=queue.root, worker_id=f"w_{tag}")
+        lanes: dict = {}
+        _capture_lanes(worker, lanes)
+        joined = []
+        admit = worker._cb_admit_lane
+
+        def admit_and_note(batch, lanes_, tk, spec, digest):
+            joined.append(digest)
+            return admit(batch, lanes_, tk, spec, digest)
+        worker._cb_admit_lane = admit_and_note
+        failure = []
+
+        def serve():
+            try:
+                worker.run_forever(queue, poll_s=0.005)
+            except BaseException as exc:  # reported, then fatal
+                failure.append(repr(exc))
+
+        th = threading.Thread(target=serve, daemon=True)
+        gaps = np.random.default_rng(5).exponential(
+            1.0 / SERVECB_RATE_HZ, len(pool))
+        t0 = time.perf_counter()
+        th.start()
+        tickets = []
+
+        def submit():
+            for spec, gap in zip(pool, gaps):
+                time.sleep(gap)
+                tickets.append(queue.submit(spec))
+
+        sub = threading.Thread(target=submit, daemon=True)
+        sub.start()
+        sub.join(timeout=120.0)
+        deadline = time.perf_counter() + 120.0
+        while time.perf_counter() < deadline and not failure:
+            st = queue.stats()
+            if st["done"] + st["failed"] >= len(pool):
+                break
+            time.sleep(0.01)
+        worker.drain()
+        th.join(timeout=60.0)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = queue.stats()
+    lat = []
+    for t in tickets:
+        path = os.path.join(queue.root, "done", f"{t.id}.json")
+        if os.path.exists(path):
+            with open(path, encoding="utf-8") as f:
+                tomb = json.load(f)
+            lat.append(1e3 * (tomb["completed_unix"]
+                              - tomb["submitted_unix"]))
+    p50, p99 = _walls(lat)
+    return {"pool": pool, "lanes": lanes, "joined": joined,
+            "stats": stats, "failure": failure, "wall_s": wall,
+            "p50_ms": p50, "p99_ms": p99, "completed": len(lat),
+            "alive": th.is_alive()}
+
+
+def phase_servecb(torch, state):
+    """bench_serve_cb's workload with continuous batching off and on,
+    then the fixed-shape turnover probe."""
+    import tempfile
+
+    from pyabc_tpu_torch.autotune import (compile_counters,
+                                          install_compile_listener)
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.serve import StudyBatch
+    from pyabc_tpu_torch.serve.multiplex import STOP_NAMES
+    from pyabc_tpu_torch.telemetry.metrics import REGISTRY
+
+    root = tempfile.mkdtemp(prefix="servecb_")
+    weighted_kde_logpdf_cuda.launches = 0
+    static = _servecb_arm(torch, root, False, "static")
+    static_launches = weighted_kde_logpdf_cuda.launches
+    turn0 = REGISTRY.counter("serve_cb_lane_turnovers_total").value
+    win0 = REGISTRY.counter("serve_cb_windows_total").value
+    weighted_kde_logpdf_cuda.launches = 0
+    cb = _servecb_arm(torch, root, True, "cb")
+    cb_launches = weighted_kde_logpdf_cuda.launches
+    turnovers = REGISTRY.counter(
+        "serve_cb_lane_turnovers_total").value - turn0
+    windows = REGISTRY.counter("serve_cb_windows_total").value - win0
+    occupancy = REGISTRY.gauge("serve_cb_occupancy").value
+
+    # the fixed-shape probe: >= 3 admit/retire turnovers, no build
+    install_compile_listener()
+    probe = StudyBatch([_servecb_spec(9000, 2, "probe"),
+                        _servecb_spec(9001, 2, "probe")],
+                       program_cache={}, window=1, device="cuda")
+    probe.step_window()
+    n0 = compile_counters()["n_compiles"]
+    waiting = [_servecb_spec(9000 + s, 2, "probe") for s in (2, 3, 4)]
+    for _ in range(64):
+        for slot in probe.step_window():
+            probe.retire(slot)
+            if waiting:
+                probe.admit(waiting.pop(0), slot=slot)
+        if not waiting and not probe.unfinished():
+            break
+    probe_builds = compile_counters()["n_compiles"] - n0
+
+    # three sampled lanes of the CB arm against fresh batches of one: a
+    # long and a short lane admitted mid-session, one seated at window 0
+    joined = [d for d in cb["joined"] if d in cb["lanes"]]
+    picks = [next((d for d in joined
+                   if cb["lanes"][d][0].max_generations == g), None)
+             for g in (12, 2)]
+    picks.append(next((d for d in cb["lanes"] if d not in joined), None))
+    picks = [d for d in picks if d is not None]
+    picks += [d for d in joined if d not in picks][:3 - len(picks)]
+    sampled = {}
+    for d in picks:
+        spec, res = cb["lanes"][d]
+        sampled[f"seed {spec.seed} gens {spec.max_generations}"] = \
+            _same_bits(res, _lane_twin(torch, spec, 2))
+    posterior = {tag: _servecb_posterior(torch, arm["lanes"])
+                 for tag, arm in (("static", static), ("cb", cb))}
+    lane_gens = sum(int(res["gens"]) - 1
+                    for arm in (static, cb) for _s, res in arm["lanes"].values())
+    checks = {
+        "no_failed": all(a["stats"]["failed"] == 0 and not a["failure"]
+                         and a["completed"] == SERVECB_STUDIES
+                         and not a["alive"] for a in (static, cb)),
+        "turnover_no_build": probe_builds == 0 and probe.turnovers >= 3
+        and probe.admitted == 5,
+        "session_turnovers": turnovers >= 3,
+        "sampled_bit_identical": len(sampled) == 3 and all(
+            sampled.values()),
+        "posterior": all(g["ok"] and g["lanes"] == SERVECB_STUDIES // 4
+                         for g in posterior.values()),
+        "k1_lanes": static_launches + cb_launches == lane_gens,
+        "launched": cb_launches > 0 and static_launches > 0,
+    }
+    state.setdefault("launches", {})["servecb"] = cb_launches
+    state["launches"]["servecb_static"] = static_launches
+    state["servecb_lane_launches"] = cb_launches + static_launches
+    row = {"phase": "servecb", "ok": all(checks.values()),
+           "checks": checks, "studies": SERVECB_STUDIES,
+           "rate_hz": SERVECB_RATE_HZ, **SERVECB_ENV,
+           "cb_p50_ms": cb["p50_ms"], "cb_p99_ms": cb["p99_ms"],
+           "static_p50_ms": static["p50_ms"],
+           "static_p99_ms": static["p99_ms"],
+           "cb_wall_s": cb["wall_s"], "static_wall_s": static["wall_s"],
+           "lane_turnovers": int(turnovers), "windows": int(windows),
+           "occupancy": occupancy, "probe_builds": probe_builds,
+           "probe_turnovers": probe.turnovers,
+           "refilled_lanes": len(cb["joined"]),
+           "sampled": sampled, "posterior": posterior,
+           "stop_reasons": {
+               tag: {name: sum(1 for _s, r in arm["lanes"].values()
+                               if STOP_NAMES[int(r["stop_code"])] == name)
+                     for name in STOP_NAMES}
+               for tag, arm in (("static", static), ("cb", cb))},
+           "kde_launches": cb_launches,
+           "static_kde_launches": static_launches,
+           "failures": static["failure"] + cb["failure"]}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"servecb failed its checks: {checks}")
+
+
+def phase_serveprof(torch, state):
+    """One study-axis window under ``torch.profiler``: 8 lanes of
+    ``servecb``'s spec (pop 100, 12-generation budget) seated at once,
+    one warm window, then the next window profiled: device time by
+    kernel, the device's idle share, launches per lane generation."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.serve import StudyBatch
+
+    batch = StudyBatch([_servecb_spec(7000 + i, 12, "prof")
+                        for i in range(8)], program_cache={}, window=2,
+                       device="cuda")
+    batch.step_window()
+    gens0 = [int(g) for g in batch._carry[4]]
+    torch.cuda.synchronize()
+    k0 = weighted_kde_logpdf_cuda.launches
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        batch.step_window()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    lane_gens = sum(int(g) - g0 for g, g0 in zip(batch._carry[4], gens0))
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+    busy_s = sum(dev_us(e) for e in kernels) * 1e-6
+    if busy_s <= 0:
+        raise RuntimeError("the profiler saw no device time")
+    launches = sum(e.count for e in kernels)
+    top = sorted(kernels, key=dev_us, reverse=True)[:8]
+    emit({"phase": "serveprof", "ok": True, "lanes": 8, "window": 2,
+          "lane_generations": lane_gens, "wall_s": wall,
+          "wall_per_lane_generation_ms": 1e3 * wall / max(lane_gens, 1),
+          "device_busy_s": busy_s, "device_idle_share": 1 - busy_s / wall,
+          "device_launches": launches,
+          "launches_per_lane_generation": launches / max(lane_gens, 1),
+          "kde_launches": weighted_kde_logpdf_cuda.launches - k0,
+          "top_device": [{"name": e.key[:80], "calls": e.count,
+                          "device_s": dev_us(e) * 1e-6} for e in top]})
+
+
+def serve_cases(state) -> list:
+    """Rows (v)-(y): K1 at the study axis's lane shapes (a lane's
+    importance weights: pop queries against the pop-row previous
+    population, d = 1) at pop 100, 1000 and 4096 (the study axis's
+    largest, ``PYABC_TPU_SERVE_MULTIPLEX_MAX_POP``), and the solo engine's
+    pop-1e4 finalize from ``serve1e4``'s run (or its stated default)."""
+    # a count is printed only when serve1e4 ran in this invocation (a
+    # lane shape its mix has no study at then counts 0); else null
+    launches = state.get("serve_lane_launches")
+    out = [(f"{tag} serve lane pop{p}", p, p, 1,
+            {"main_launches": None if launches is None
+             else launches.get(p, 0)})
+           for tag, p in (("v", 100), ("w", 1000), ("x", 4096))]
+    m, n, d, grid, n_launch = state.get(
+        "serve_solo_shape", (SERVE_LARGE, SERVE_LARGE, 1, False, None))
+    source = "run" if "serve_solo_shape" in state else "default"
+    out.append((f"y serve1e4 solo finalize ({source})", m, n, d,
+                {"grid": grid, "main_launches": n_launch}))
+    return out
+
+
+#: the bound of the engine cache the ladder replaced, then the ladder's
+#: (``sampler.vectorized.LADDER_CAPACITY``, the JAX package's 16)
+LADDERMEM_CAPACITIES = (4, 16)
+
+
+def phase_laddermem(torch, state):
+    """The ladder's memory: ``envknobs1e6`` and ``chaos1e6`` with the
+    sampler's ladder at each of ``LADDERMEM_CAPACITIES`` entries: each
+    arm's ``max_memory_allocated`` and the most engines a ladder held."""
+    from pyabc_tpu_torch.autotune.ladder import CompiledLadder
+    from pyabc_tpu_torch.sampler import vectorized
+
+    out, held = {}, {}
+    port_capacity = vectorized.LADDER_CAPACITY
+    insert = CompiledLadder._insert
+    sizes = []
+
+    def counting_insert(self, key, value):
+        insert(self, key, value)
+        sizes.append(len(self))
+
+    CompiledLadder._insert = counting_insert
+    try:
+        for cap in LADDERMEM_CAPACITIES:
+            vectorized.LADDER_CAPACITY = cap
+            for name in ("envknobs1e6", "chaos1e6"):
+                sizes.clear()
+                torch.cuda.synchronize()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                PHASES[name](torch, state)
+                torch.cuda.synchronize()
+                out[f"{name} cap {cap}"] = torch.cuda.max_memory_allocated()
+                held[f"{name} cap {cap}"] = max(sizes, default=0)
+    finally:
+        vectorized.LADDER_CAPACITY = port_capacity
+        CompiledLadder._insert = insert
+    emit({"phase": "laddermem", "ok": True,
+          "order": list(LADDERMEM_CAPACITIES),
+          "max_memory_allocated": out, "most_engines_held": held,
+          "growth_bytes": {name: out[f"{name} cap 16"]
+                           - out[f"{name} cap 4"]
+                           for name in ("envknobs1e6", "chaos1e6")}})
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -4759,7 +5367,7 @@ def kernels_line(state) -> dict:
     launches = state.get("launches", {})
     keys = ("kernel_only_ms", "call_ms", "plain_ms", "library_ms",
             "library_chunks", "bound_ms", "bound_share", "max_abs_err",
-            "partial_kernel")
+            "partial_kernel", "launches")
     return {"kernels": [{
         "name": "kde_logpdf", "route": "cuda",
         "source": "pyabc_tpu_torch/csrc/kde_logpdf.cu",
@@ -4802,6 +5410,8 @@ PHASES = {"card": phase_card, "build": phase_build,
           "hostsamplers": phase_hostsamplers,
           "aggregatedlv1e5": phase_aggregatedlv1e5,
           "analysis1e6": phase_analysis1e6,
+          "serve1e4": phase_serve1e4, "servecb": phase_servecb,
+          "laddermem": phase_laddermem, "serveprof": phase_serveprof,
           "hostprof": phase_hostprof,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}

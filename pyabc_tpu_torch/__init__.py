@@ -21,7 +21,7 @@ Entry points run on the card unless the caller passes ``device="cpu"``
 (see :mod:`.device`).  Nothing here imports JAX or the JAX package.
 """
 
-from . import autotune  # noqa: F401  (the batch tuner namespace)
+from . import autotune  # noqa: F401  (tuner, program ladder, build cache)
 from . import resilience  # noqa: F401  (faults/retry/checkpoint namespace)
 from . import telemetry  # noqa: F401  (spans/metrics/timeline namespace)
 from .acceptor import (Acceptor, AcceptorResult, ScaledPDFNorm,

@@ -26,7 +26,10 @@ identical carry.  ``install_local_transition`` puts a fitted
 ``LocalTransition``'s state (support, weights, Cholesky factors and log
 norms, e.g. from the JAX package's fit) into a port ``LocalTransition``;
 ``install_population_size`` sets an ``AdaptivePopulationSize``'s current
-size.
+size.  ``lane_carry_to_torch`` turns one lane of the JAX package's
+``StudyBatch`` carry (its ``lane_extract`` leaves: theta, w, dist, eps,
+gens, live, code, acc_tot, rounds_tot) into the port's lane carry, so a
+test can seat the same population in both packages' study axis.
 """
 
 from __future__ import annotations
@@ -182,3 +185,24 @@ def install_annealing(temperature, acceptor, temperatures: dict,
     acceptor.installed_norms = {int(t): float(v)
                                 for t, v in pdf_norms.items()}
     return temperature, acceptor
+
+
+def lane_carry_to_torch(lane_np, device) -> tuple:
+    """One study-axis lane of the JAX package (``lane_extract``'s numpy
+    leaves) -> the port's lane rows: theta ``[n, d]``, w and dist ``[n]``
+    float32 on ``device``; eps (float32), gens, code, acc_tot, rounds_tot
+    (int32) and live (bool) as 0-d host tensors, the layout of
+    ``serve.multiplex.StudyBatch``'s carry."""
+    theta, w, dist, eps, gens, live, code, acc_tot, rounds_tot = lane_np
+    dev = torch.device(device)
+
+    def bulk(x):
+        return torch.as_tensor(np.array(x, dtype=np.float32), device=dev)
+
+    def ctl(x, dtype):
+        return torch.as_tensor(np.asarray(x)).to(dtype)
+
+    return (bulk(theta), bulk(w), bulk(dist), ctl(eps, torch.float32),
+            ctl(gens, torch.int32), ctl(live, torch.bool),
+            ctl(code, torch.int32), ctl(acc_tot, torch.int32),
+            ctl(rounds_tot, torch.int32))

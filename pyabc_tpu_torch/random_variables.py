@@ -158,10 +158,18 @@ class RVBase:
         return self.pdf(x)
 
     def get_config(self) -> dict:
+        """The JAX package's canonical config: the name and every numeric
+        attribute as the float of its float32 value (the JAX package
+        holds them as float32), so one declaration gives one study
+        digest in both packages."""
         cfg = {"name": type(self).__name__}
-        cfg.update({k: float(v) for k, v in self.__dict__.items()
-                    if isinstance(v, (int, float))})
+        cfg.update({k: float(np.float32(v)) for k, v in self.__dict__.items()
+                    if isinstance(v, (int, float))
+                    and k not in self._CONFIG_SKIP})
         return cfg
+
+    #: numeric attributes that are not part of the JAX package's config
+    _CONFIG_SKIP: tuple = ()
 
     def __repr__(self):
         return f"<{type(self).__name__} {self.get_config()}>"
@@ -771,6 +779,8 @@ class TruncatedRV(RVDecorator):
     1, 2, 4, 8, … (whether every row is in bounds), never once per pass.
     The density is renormalized by ``cdf(upper) − cdf(lower)``.
     """
+
+    _CONFIG_SKIP = ("_lo_cdf",)
 
     def __init__(self, base: RVBase, lower=-math.inf, upper=math.inf,
                  max_iter=100):

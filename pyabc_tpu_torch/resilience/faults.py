@@ -31,9 +31,10 @@ Fault sites (the constants below):
 - ``run.drain``       — each generation the one-dispatch drain harvests
 - ``fidelity.calibrate`` — block-carry seeding of the multi-fidelity
   calibration rings (``ABCSMC._seed_block_carry``)
-
-The JAX package's ``heartbeat.write`` and ``serve.window`` sites belong
-to layers the port does not have yet.
+- ``serve.window``    — between two windows of a continuous-batching
+  session (``serve.worker.ServeWorker._cb_session``), after the
+  window's retired lanes are published and before the next refill
+- ``heartbeat.write`` — every ``parallel.health.Heartbeat`` beat
 
 Plan grammar (semicolon-separated directives)::
 
@@ -75,13 +76,14 @@ SITE_STORE_HYDRATE = "store.hydrate"
 SITE_MATERIALIZE = "history.materialize"
 SITE_JOURNAL = "journal.write"
 SITE_DRAIN = "run.drain"
+SITE_SERVE_WINDOW = "serve.window"
 SITE_FIDELITY_CALIBRATE = "fidelity.calibrate"
 
 #: every named fault site, for validation and docs
 SITES = (SITE_DISPATCH, SITE_FETCH, SITE_APPEND, SITE_HEARTBEAT,
          SITE_PREEMPT, SITE_STORE_DEPOSIT, SITE_STORE_SPILL,
          SITE_STORE_HYDRATE,
-         SITE_MATERIALIZE, SITE_JOURNAL, SITE_DRAIN,
+         SITE_MATERIALIZE, SITE_JOURNAL, SITE_DRAIN, SITE_SERVE_WINDOW,
          SITE_FIDELITY_CALIBRATE)
 
 FAULTS_ENV = "PYABC_TPU_FAULTS"

@@ -70,9 +70,13 @@ the front of the rings, cut to ``cal_rows``.
 (``telemetry/lanes.py``) to its wire, and a one-dispatch run advances its
 progress word after each generation's control read.
 
-Not ported (ROADMAP): the pod constraint, lane surgery and the
-``narrow_wire`` codec: a generation's output is float32 tensors (the
-model index int64).
+:func:`lane_extract` and :func:`lane_splice` are row surgery on a batched
+carry whose every leaf has the batch axis first (the study axis of
+``serve/multiplex.py``): they copy rows out and in, and never write a
+leaf in place.
+
+Not ported (ROADMAP): the pod constraint and the ``narrow_wire`` codec: a
+generation's output is float32 tensors (the model index int64).
 """
 
 from __future__ import annotations
@@ -941,3 +945,28 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
         return carry, ctl_out, slots.stacked()
 
     return onedispatch
+
+
+# ---------------------------------------------------------------------------
+# lane surgery on a batched carry (pyabc_tpu/sampler/fused.py:1042-1060)
+# ---------------------------------------------------------------------------
+
+
+def lane_extract(carry: tuple, row: int) -> tuple:
+    """One lane's rows of a batched carry: ``leaf[row]`` of every leaf,
+    copied, so the result does not alias a buffer that later work may
+    rewrite."""
+    return tuple(leaf[row].clone() for leaf in carry)
+
+
+def lane_splice(carry: tuple, row: int, values: tuple) -> tuple:
+    """A new carry with ``values`` (one lane's rows, as from
+    :func:`lane_extract`) written at ``row`` of every leaf.  Leaves are
+    copied, never written in place: the input carry may still back work
+    in flight."""
+    out = []
+    for leaf, val in zip(carry, values):
+        new = leaf.clone()
+        new[row] = torch.as_tensor(val, dtype=leaf.dtype, device=leaf.device)
+        out.append(new)
+    return tuple(out)

@@ -48,7 +48,7 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
-from ..autotune import BatchAutotuner
+from ..autotune import BatchAutotuner, CompiledLadder
 from ..convert import to_torch
 from ..device import resolve_device
 from ..resilience import faults as _faults
@@ -58,6 +58,13 @@ from .base import Sample, Sampler, SamplingError, fetch_to_host, mark_ready
 from .device_loop import build_stateful_loop, harvest_rec
 
 logger = logging.getLogger("ABC.Sampler")
+
+
+#: engines the sampler's ladder keeps: the JAX package's 16.  A port
+#: engine closure may hold device buffers, where an XLA executable holds
+#: none; ``chip_smoke.py --phases laddermem`` runs the pop-1e6 phases at
+#: 4 and 16 entries (their ladders hold at most 3 engines)
+LADDER_CAPACITY = 16
 
 
 def _pow2_at_least(x: float) -> int:
@@ -80,6 +87,10 @@ class VectorizedSampler(Sampler):
         self.safety_factor = float(safety_factor)
         self.max_rounds_per_call = int(max_rounds_per_call)
         self._tuner = BatchAutotuner()
+        #: the engines the orchestrator builds for this sampler (fused
+        #: blocks, one-dispatch runs): one bounded LRU, as in the JAX
+        #: package
+        self._ladder = CompiledLadder(capacity=LADDER_CAPACITY)
         #: loop buffers per (round fn, B, n, deferred), reused across
         #: generations (a reset is a cursor rewind); at most 4 kept
         self._states: Dict[Tuple, tuple] = {}

@@ -118,6 +118,7 @@ import numpy as np
 import torch
 
 from .acceptor import Acceptor, StochasticAcceptor, UniformAcceptor
+from .autotune import configure_compile_cache
 from .autotune import occupancy as _occupancy
 from .capacity import model as _capacity
 from .convert import to_numpy, to_torch
@@ -200,6 +201,15 @@ def _pdf_support_rows(params: dict) -> dict:
         return {"rows": int(params["c_support"].shape[0]),
                 "compressed": True}
     return {"rows": int(params["support"].shape[0]), "compressed": False}
+
+
+def _obs_equal(a: Optional[Dict], b: Optional[Dict]) -> bool:
+    """Bit-exact equality of two coerced observed-stat dicts: the gate of
+    :meth:`ABCSMC.renew` (the round kernel holds the observed stats)."""
+    if a is None or b is None or set(a) != set(b):
+        return False
+    return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
+               for k in a)
 
 
 class ABCSMC:
@@ -298,7 +308,6 @@ class ABCSMC:
         #: population to this many uniform-weight support rows before the
         #: KDE refit (systematic inverse CDF); None refits on every row
         self.fused_support_cap = fused_support_cap
-        self._fused_cache: Dict[tuple, Callable] = {}
         if run_mode is None:
             run_mode = os.environ.get(RUN_MODE_ENV, "auto")
         if run_mode not in ("auto", "classic", "onedispatch"):
@@ -360,11 +369,14 @@ class ABCSMC:
         #: count, from values the engines already read (the sampler's for
         #: the sequential loop; see :meth:`_progress_generation`)
         self.show_progress = bool(show_progress)
-        #: the compile-cache directory of the JAX package's signature,
-        #: kept and not used: the port compiles no program (its engine
-        #: cache holds Python closures) until rounds are captured as
-        #: CUDA graphs
+        #: where the kernels' nvcc output persists: this argument, else
+        #: ``$PYABC_TPU_COMPILE_CACHE``, else ``build/kernels/``
+        #: (``autotune/cache.py``; None: the directory is left as it
+        #: is). Process-wide: it repoints ``ops._build.BUILD_DIR`` for
+        #: every engine of the process, as the JAX package's setting
+        #: repoints JAX's global cache
         self.compile_cache = compile_cache
+        self.compile_cache_dir = configure_compile_cache(compile_cache)
         #: ``tl_*`` telemetry lanes (and the progress word) in the fused
         #: and one-dispatch engines ($PYABC_TPU_TELEMETRY_LANES, default
         #: on); the populations are the same bits either way
@@ -496,6 +508,54 @@ class ABCSMC:
             self.population_strategy.to_json())
         self._bind()
         return self.history
+
+    def renew(self, db: str, observed_sum_stat: Dict,
+              gt_model: Optional[int] = None, gt_par: Optional[dict] = None,
+              meta_info: Optional[dict] = None, eps: Optional[Epsilon] = None,
+              seed: Optional[int] = None) -> History:
+        """Register a new study on a warm binding (``serve/worker.py``).
+
+        ``new()`` always rebinds: a fresh :class:`RoundKernel` (a new
+        ``_uid``, which keys every engine in the sampler's ladder), so a
+        second study through it builds its engines again.  When the
+        incoming observed stats are bit-equal to the bound ``x_0``,
+        ``renew`` keeps the kernel and resets only the run-scoped state:
+        a fresh History, no carried population, a fresh device store in
+        lazy mode, a clean quantile look-up (or ``eps``), the generator
+        reseeded from ``seed``, a fresh acceptance tuner (its rate keys
+        the first block's round cap), and an empty timeline and block
+        list.  Different observed stats fall back to ``new()``."""
+        incoming = (observed_sum_stat if self.summary_statistics is None
+                    else self.summary_statistics(observed_sum_stat))
+        if self._kernel is None or not _obs_equal(
+                self._coerce_stats(incoming), self.x_0):
+            hist = self.new(db, observed_sum_stat, gt_model=gt_model,
+                            gt_par=gt_par, meta_info=meta_info)
+        else:
+            self.history = History(db, stores_sum_stats=self.stores_sum_stats)
+            self.history.store_initial_data(
+                gt_model, meta_info or {}, observed_sum_stat, gt_par,
+                [m.name for m in self.models],
+                self.distance_function.to_json(), self.eps.to_json(),
+                self.population_strategy.to_json())
+            self._fused_carry = None
+            if self.history_mode == "lazy":
+                self._store = _wire_store.DeviceRunStore()
+                self.history.attach_store(self._store)
+            hist = self.history
+        if eps is not None:
+            self.eps = eps
+        elif hasattr(self.eps, "_look_up"):
+            # study 1's thresholds must not reach study 2's calibration
+            self.eps._look_up = {}
+        if seed is not None:
+            self.generator = make_generator(self.device, seed)
+        if hasattr(self.sampler, "_tuner"):
+            self.sampler._tuner = type(self.sampler._tuner)()
+        self.timeline = GenerationTimeline()
+        self.blocks = []
+        self.generation_transfer = {}
+        return hist
 
     def load(self, db: str, abc_id: int = 1) -> History:
         """Resume a stored run: the loop continues at ``max_t + 1``."""
@@ -976,7 +1036,9 @@ class ABCSMC:
         """``build``'s engine for this configuration with the arguments a
         fused block and a one-dispatch run share, plus ``static`` (built
         once per shape, schedule, fidelity configuration and carry
-        precision; a small dict cache)."""
+        precision), served by the sampler's :class:`CompiledLadder` —
+        keyed by the round kernel's ``_uid``, so a renewed run reuses it
+        and a rebound one never does."""
         samp = self.sampler
         d, s_width = self.dim, self.spec.total_size
         eps_mode, alpha, mult, weighted, eps_sketch = \
@@ -1004,9 +1066,19 @@ class ABCSMC:
                weighted, eps_sketch, max_rounds, sup_cap, mode["adaptive"],
                mode["stoch"], record_rows, pdf_norm, fid_key, carry_prec,
                wire_stats, lanes_on)
-        fn = self._fused_cache.get(key)
-        if fn is not None:
-            return fn
+        return samp._ladder.get(key, lambda: self._build_engine_fn(
+            build, t, B, mode, fid_on, static, record_rows, pdf_norm,
+            n_target=n, max_rounds=max_rounds, d=d, s=s_width,
+            eps_mode=eps_mode, eps_alpha=alpha, eps_multiplier=mult,
+            eps_weighted=weighted, eps_sketch=eps_sketch,
+            support_cap=sup_cap, carry_precision=carry_prec,
+            wire_stats=wire_stats, telemetry_lanes=lanes_on))
+
+    def _build_engine_fn(self, build: Callable, t: int, B: int, mode: dict,
+                         fid_on: bool, static: dict, record_rows: int,
+                         pdf_norm: float, **shared):
+        """Build one engine of :meth:`_get_engine_fn`'s key (a ladder
+        miss); ``shared`` are the builder arguments that key names."""
         adaptive_cfg = None
         if mode["adaptive"]:
             dist = self.distance_function
@@ -1031,36 +1103,22 @@ class ABCSMC:
             round_fn = self._kernel.staged_generation_round
             round_kwargs = {"full_fraction": self.fidelity.full_fraction}
             fidelity_cfg = self._fidelity_block_cfg(B)
-        fn = build(
+        return build(
             kernel=self._kernel,
             bandwidth_selectors=[tr.bandwidth_selector
                                  for tr in self.transitions],
             scalings=[tr.scaling for tr in self.transitions],
-            dims=[p.dim for p in self.parameter_priors],
-            n_target=n, B=B, max_rounds=max_rounds, d=d, s=s_width,
-            eps_mode=eps_mode, eps_alpha=alpha, eps_multiplier=mult,
-            eps_weighted=weighted,
+            dims=[p.dim for p in self.parameter_priors], B=B,
             # an adaptive distance's weights ride the carry
             distance_params=(None if mode["adaptive"] else to_torch(
                 self.distance_function.get_params(t), self.device)),
-            raw_round=samp.raw_round(round_fn, B, **round_kwargs),
-            support_cap=sup_cap,
+            raw_round=self.sampler.raw_round(round_fn, B, **round_kwargs),
             # a quantile schedule tightens ε every generation: the carried
             # rate over-predicts by about alpha
-            rate_pred_factor=alpha if eps_mode == "quantile" else 1.0,
+            rate_pred_factor=(shared["eps_alpha"]
+                              if shared["eps_mode"] == "quantile" else 1.0),
             adaptive_cfg=adaptive_cfg, stoch_cfg=stoch_cfg,
-            eps_sketch=eps_sketch, fidelity_cfg=fidelity_cfg,
-            carry_precision=carry_prec, wire_stats=wire_stats,
-            telemetry_lanes=lanes_on, **static)
-        # the fleet snapshot's compile count: the port builds an engine
-        # where the JAX package compiles its XLA program
-        _metrics.REGISTRY.counter(
-            "xla_compiles_total", "engine builds (fused / one-dispatch)"
-        ).inc()
-        self._fused_cache[key] = fn
-        while len(self._fused_cache) > 4:
-            self._fused_cache.pop(next(iter(self._fused_cache)))
-        return fn
+            fidelity_cfg=fidelity_cfg, **shared, **static)
 
     # ---- capacity planning (capacity/model.py) --------------------------
 

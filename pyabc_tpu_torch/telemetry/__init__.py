@@ -2,8 +2,7 @@
 registry, the per-generation run timeline, device telemetry lanes and
 the flight recorder.
 
-Port of ``pyabc_tpu/telemetry`` without its fleet layer (``aggregate``,
-``studytrace``, the progress poller):
+Port of ``pyabc_tpu/telemetry``:
 
 - :mod:`.spans` — Chrome-trace-emitting span tracer (``span("gen.sample",
   gen=t)``), enabled by ``PYABC_TPU_TRACE`` or ``ABCSMC(trace_path=...)``.
@@ -15,6 +14,10 @@ Port of ``pyabc_tpu/telemetry`` without its fleet layer (``aggregate``,
   engines, their per-phase attribution, and the progress word.
 - :mod:`.flight` — always-on bounded flight recorder dumping
   ``flight_<runid>.json`` on crash / ``RetryExhausted`` / SIGTERM.
+- :mod:`.aggregate` — fleet snapshots, their rollup, the progress
+  poller and the Prometheus rendering of a run directory.
+- :mod:`.studytrace` — a served study's lifecycle events folded into its
+  critical path, the fleet latency histogram and the SLO burn ledger.
 - :func:`profile_generation` — a ``torch.profiler`` trace of one
   generation (``PYABC_TPU_PROFILE_GEN=<t>``).
 """

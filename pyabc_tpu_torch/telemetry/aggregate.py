@@ -423,58 +423,13 @@ def _serve_rollup(metrics_rollup: Dict) -> Dict:
     # counters sum across workers, so the fleet histogram is exact, not
     # an average of percentiles
     if any(k.startswith("serve_latency_ms_") for k in out):
-        out["latency"] = _latency_histogram(out, "serve_latency_ms")
-        out["queue_wait"] = _latency_histogram(out, "serve_queue_wait_ms")
-        out["slo"] = _slo_ledger(out)
+        from . import studytrace
+        out["latency"] = studytrace.latency_histogram(
+            out, "serve_latency_ms")
+        out["queue_wait"] = studytrace.latency_histogram(
+            out, "serve_queue_wait_ms")
+        out["slo"] = studytrace.slo_ledger(out)
     return out
-
-
-#: latency histogram bucket upper bounds (milliseconds) of the serving
-#: tier's flat counters ``<name>_le_<bucket>``, ``<name>_le_inf`` and
-#: ``<name>_sum_total`` (the JAX package's ``telemetry/studytrace.py``)
-LATENCY_BUCKETS_MS = (5.0, 10.0, 25.0, 50.0, 100.0, 250.0, 500.0,
-                      1000.0, 2500.0, 5000.0, 10000.0)
-
-
-def _latency_histogram(rollup_serve: Dict[str, float],
-                       name: str = "serve_latency_ms") -> dict:
-    """One flat-bucket histogram re-assembled from a serve rollup:
-    ``{"buckets": {"5": n, ...}, "count", "sum_ms", "p50_ms",
-    "p99_ms"}`` (percentiles are bucket-upper-bound estimates)."""
-    buckets = {}
-    for b in LATENCY_BUCKETS_MS:
-        key = f"{name}_le_{b:g}"
-        if key in rollup_serve:
-            buckets[f"{b:g}"] = float(rollup_serve[key])
-    count = float(rollup_serve.get(f"{name}_le_inf", 0.0))
-    total = float(rollup_serve.get(f"{name}_sum_total", 0.0))
-
-    def _pct(q: float) -> float:
-        if count <= 0:
-            return 0.0
-        rank = q * count
-        for b in LATENCY_BUCKETS_MS:
-            if buckets.get(f"{b:g}", 0.0) >= rank:
-                return float(b)
-        return float("inf")
-
-    return {"buckets": buckets, "count": count,
-            "sum_ms": round(total, 3),
-            "p50_ms": _pct(0.50), "p99_ms": _pct(0.99)}
-
-
-def _slo_ledger(rollup_serve: Dict[str, float]) -> dict:
-    """The fleet SLO burn ledger of a serve rollup: admitted studies
-    over/under the SLO, sheds, and the burn rate over admitted ones."""
-    over = float(rollup_serve.get("serve_slo_over_total", 0.0))
-    under = float(rollup_serve.get("serve_slo_under_total", 0.0))
-    shed = float(rollup_serve.get("serve_shed_total", 0.0))
-    admitted = over + under
-    return {
-        "slo_p99_ms": float(rollup_serve.get("serve_slo_p99_ms", 0.0)),
-        "over": over, "under": under, "shed": shed,
-        "burn_rate": round(over / admitted, 5) if admitted else 0.0,
-    }
 
 
 #: sched_* keys that are point-in-time gauges — fleet view reads their

@@ -11,8 +11,8 @@ on top, polling ``/api/fleet`` every 2 s while the run is in flight:
 per-host throughput, wire MB/s, retries/degrades/checkpoints, engine
 builds, the engine decision and an eps/acceptance trajectory fed from
 the telemetry snapshots (the History learns a generation only at its
-append).  The study-trace card needs the serving layer, which the port
-does not have yet: its route answers with an error.
+append).  The study-trace card reads ``/api/trace/<id>`` (a study's
+lifecycle events folded by ``telemetry/studytrace.py``).
 """
 
 PAGE = """<!doctype html>

@@ -11,10 +11,10 @@ Served with the standard library's ``http.server``:
 - With ``run_dir``: ``/api/fleet`` and ``/metrics``, the live view of a
   run in flight from the telemetry snapshots (``telemetry/aggregate.py``)
   and heartbeats (``parallel/health.py``).  ``/api/serve`` and
-  ``/api/sched`` give the fleet rollup's serving and scheduling slices;
-  their queue state and ``/api/trace/<id>`` need the serving layer
-  (``serve/``, ``telemetry/studytrace.py``), which the port does not
-  have yet, and answer with a 500 JSON error naming it.
+  ``/api/sched`` give the fleet rollup's serving and scheduling slices
+  with the serving queue's state (``serve/queue.py``: its stats, leases
+  and lapsed claims), and ``/api/trace/<id>`` one study's assembled
+  lifecycle trace (``telemetry/studytrace.py``).
 
 Run: ``python -m pyabc_tpu_torch.visserver.server --db abc.db
 [--run-dir DIR] [--port 8765] [--device cpu]``.
@@ -28,11 +28,6 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from urllib.parse import parse_qs, urlparse
 
 from ..storage.history import History
-
-#: what the serving-layer branches raise until it is ported
-_NO_SERVE = ("needs the serving layer (serve/, telemetry/studytrace.py), "
-             "not ported to pyabc_tpu_torch yet: ROADMAP.md Queue 1 "
-             "item 6")
 
 _PAGE = """<!doctype html><html><head><title>pyabc_tpu</title>
 <style>body{{font-family:sans-serif;margin:2em}}img{{max-width:45em}}</style>
@@ -262,7 +257,8 @@ class _Handler(BaseHTTPRequestHandler):
         out = {"enabled": True, "serve": roll.get("serve") or {}}
         serve_dir = os.path.join(self.run_dir, "serve")
         if os.path.isdir(os.path.join(serve_dir, "queue")):
-            raise NotImplementedError(f"/api/serve queue state {_NO_SERVE}")
+            from ..serve.queue import StudyQueue
+            out["queue"] = StudyQueue(root=serve_dir).stats()
         return out
 
     def _sched_state(self) -> dict:
@@ -281,14 +277,30 @@ class _Handler(BaseHTTPRequestHandler):
         out = {"enabled": True, "sched": roll.get("sched") or {}}
         serve_dir = os.path.join(self.run_dir, "serve")
         if os.path.isdir(os.path.join(serve_dir, "queue")):
-            raise NotImplementedError(f"/api/sched queue state {_NO_SERVE}")
+            from ..serve.queue import StudyQueue
+            q = StudyQueue(root=serve_dir)
+            out["queue"] = q.stats()
+            out["leases"] = {"lease_s": q.lease_s,
+                             "lapsed": len(q.lapsed())}
         return out
 
     def _trace_state(self, key: str) -> dict:
-        """One study's assembled lifecycle trace (``/api/trace/<id>``)."""
+        """One study's assembled lifecycle trace (``/api/trace/<id>``, id
+        = trace id, ticket id, or digest): the ordered events and the
+        folded critical-path phases."""
         if not self.run_dir:
             return {"enabled": False}
-        raise NotImplementedError(f"/api/trace {_NO_SERVE}")
+        import os
+
+        from ..telemetry import studytrace
+
+        serve_dir = os.environ.get("PYABC_TPU_SERVE_DIR",
+                                   os.path.join(self.run_dir, "serve"))
+        trace = studytrace.StudyTrace.assemble(serve_dir, key)
+        if trace is None:
+            return {"enabled": True, "found": False, "key": key}
+        return {"enabled": True, "found": True, "key": key,
+                **trace.to_dict()}
 
     def _index(self):
         h = History(self.db_path, abc_id=1)

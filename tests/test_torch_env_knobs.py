@@ -69,7 +69,11 @@ def test_explicit_arguments_win_and_bad_modes_raise(monkeypatch):
                   sampler=pt.VectorizedSampler(device="cpu"))
 
 
-def test_show_progress_and_compile_cache_construct(tmp_path):
+def test_show_progress_and_compile_cache_construct(tmp_path, monkeypatch):
+    from pyabc_tpu_torch.ops import _build
+    # compile_cache= repoints the process-wide kernel build directory:
+    # put it back after this test
+    monkeypatch.setattr(_build, "BUILD_DIR", _build.BUILD_DIR)
     _, a_p = _both(show_progress=True, compile_cache=None)
     assert a_p.show_progress is True and a_p.compile_cache is None
     _, a_p = _both(compile_cache=str(tmp_path))

@@ -68,7 +68,12 @@ def test_port_files_exist():
                 "visualization/__init__.py", "visualization/util.py",
                 "visualization/kde.py", "visualization/run_plots.py",
                 "visserver/__init__.py", "visserver/app.py",
-                "visserver/server.py"):
+                "visserver/server.py", "autotune/ladder.py",
+                "autotune/cache.py", "telemetry/studytrace.py",
+                "serve/__init__.py", "serve/spec.py", "serve/shards.py",
+                "serve/tracing.py", "serve/queue.py", "serve/cache.py",
+                "serve/admission.py", "serve/multiplex.py",
+                "serve/worker.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 

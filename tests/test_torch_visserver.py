@@ -5,9 +5,9 @@ Both servers run on one small JAX-written database of config #2 (pop
 telemetry snapshot and a heartbeat.  Every JSON route answers as the
 JAX package's does (``/api/kde`` within the KDE tolerance of
 ``tests/test_ops_kde_pallas.py``), every HTML route returns 200 and
-``/plot`` a PNG.  The queue state of ``/api/serve`` and ``/api/sched``
-and ``/api/trace`` need the serving layer, which the port does not have:
-they answer with a 500 JSON error that names it.
+``/plot`` a PNG.  Over a serving queue in the run directory, the queue
+state of ``/api/serve`` and ``/api/sched`` and the traces of
+``/api/trace`` answer as the JAX package's do.
 """
 
 import contextlib
@@ -147,24 +147,66 @@ def test_plot_route_returns_a_png(both):
     assert body[:8] == b"\x89PNG\r\n\x1a\n"
 
 
-def test_serving_branches_name_what_is_missing(db_and_run_dir, tmp_path):
-    """With a serving queue in the run directory, and for any trace, the
-    port answers 500 with an error naming the serving layer; with no
-    run directory these routes are off, as in the JAX package."""
+def test_serving_branches_name_what_is_missing(db_and_run_dir, tmp_path,
+                                              monkeypatch):
+    """The serving routes over one queue in the run directory, with one
+    study served by the port's worker and one submitted after it: the
+    queue state of ``/api/serve``, the leases of ``/api/sched`` and the
+    assembled traces of ``/api/trace/<id>`` (both studies, and a key
+    that matches nothing) answer as the JAX package's do; with no run
+    directory these routes are off, as in the JAX package.  (The name
+    dates from when these routes answered 500 naming the missing
+    ``serve/``; it is kept so the test keeps its identity.)"""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.serve import ServeWorker, StudyQueue, StudySpec
+
     db, _ = db_and_run_dir
     run_dir = str(tmp_path)
-    os.makedirs(os.path.join(run_dir, "serve", "queue"))
-    with _serving(run_app, db, run_dir, device="cpu") as get:
-        for route in ("/api/serve", "/api/sched", "/api/trace/abc123"):
+    serve_dir = os.path.join(run_dir, "serve")
+    monkeypatch.delenv("PYABC_TPU_SERVE_DIR", raising=False)
+    monkeypatch.setenv("PYABC_TPU_SERVE_MULTIPLEX", "2")
+
+    def spec(seed):
+        return StudySpec(model=_serve_model,
+                         prior=pt.Distribution(mu=pt.RV("uniform", -1., 2.)),
+                         observed={"y": 0.4}, population_size=100,
+                         seed=seed, max_generations=2)
+
+    queue = StudyQueue(root=serve_dir)
+    served = queue.submit(spec(0))
+    assert ServeWorker(root=serve_dir, worker_id="w_vis",
+                       device="cpu").run_forever(queue, once=True) == 1
+    waiting = queue.submit(spec(1))
+    with _serving(run_app, db, run_dir, device="cpu") as get, \
+            _serving(jax_run_app, db, run_dir) as jget:
+        for route in ("/api/serve", "/api/sched",
+                      f"/api/trace/{served.id}",
+                      f"/api/trace/{waiting.trace_id}",
+                      f"/api/trace/{served.digest}", "/api/trace/abc123"):
             status, ctype, body = get(route)
-            assert (status, ctype) == (500, "application/json")
-            err = _strict(body)["error"]
-            assert "serving layer" in err and "Queue 1 item 6" in err
+            assert (status, ctype) == (200, "application/json"), route
+            got, ref = _strict(body), _strict(jget(route)[2])
+            assert got == ref, route
+        serve = _strict(get("/api/serve")[2])
+        assert serve["queue"]["done"] == serve["queue"]["pending"] == 1
+        sched = _strict(get("/api/sched")[2])
+        assert sched["leases"]["lapsed"] == 0
+        trace = _strict(get(f"/api/trace/{served.id}")[2])
+        assert trace["found"] and trace["workers"] == ["w_vis"]
+        assert "published" in [e["event"] for e in trace["events"]]
+        assert not _strict(get("/api/trace/abc123")[2])["found"]
     with _serving(run_app, db, "", device="cpu") as get, \
             _serving(jax_run_app, db, "") as jget:
         for route in ("/api/fleet", "/api/serve", "/api/sched",
                       "/api/trace/abc123", "/metrics"):
             assert get(route) == jget(route)
+
+
+def _serve_model(generator, theta):
+    import torch
+    noise = 0.1 * torch.randn(theta.shape[0], 1, generator=generator,
+                              device=theta.device)
+    return {"y": theta[:, :1] + noise}
 
 
 def test_cli_parses_the_jax_packages_options(monkeypatch):
