@@ -375,10 +375,11 @@ ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "capacity1e7", "telemetry1e6", "chaos1e6", "recover1e6",
               "cudafaults", "quickstart1e4", "envknobs1e6", "refexport1e5",
               "hostsamplers", "aggregatedlv1e5", "analysis1e6", "serve1e4",
-              "servecb", "kernels")
+              "servecb", "sharded1e6", "pod1e5", "sched1e4", "kernels")
 #: opt-in phases (``--phases``): not part of the default smoke
 EXTRA_PHASES = ("profile", "simprof", "k1perm", "repeat", "capacity1e8",
-                "capacityspread", "hostprof", "laddermem", "serveprof")
+                "capacityspread", "hostprof", "laddermem", "serveprof",
+                "detprof")
 TOL_ABS = 1e-4
 TOL_REL = 1e-5
 #: largest [M, N] float32 block the library yardstick may materialize
@@ -688,7 +689,7 @@ def phase_kernels(torch, state):
                                + fidelity_capacity_cases(state)
                                + host_aggregated_cases(state)
                                + analysis_cases(state)
-                               + serve_cases(state)):
+                               + serve_cases(state) + pod_cases(state)):
         kw = dict(kw)
         main_launches = kw.pop("main_launches", None)
         c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
@@ -782,13 +783,14 @@ def phase_k1perm(torch, state):
 
 
 def run_main_path(torch, pop: int, gens: int, seed: int = 0, fuse: int = 1,
-                  seq_probe_s=None) -> dict:
+                  seq_probe_s=None, sampler=None, keep=None) -> dict:
     """Config #2 through the port's entry points on the card, held to the
     analytic posterior as the JAX package's ``run_gate`` holds it;
     ``fuse`` K > 1 runs fused blocks, ``seq_probe_s`` hands the engine
     probe a sequential baseline (seconds per generation).  The classic
     loop and eager rows are pinned (the pipelined1e6 phase runs the
-    defaults)."""
+    defaults).  ``sampler`` replaces the ``VectorizedSampler``; a
+    ``keep`` dict receives the run's ``abc``."""
     import numpy as np
 
     import pyabc_tpu_torch as pt
@@ -797,14 +799,17 @@ def run_main_path(torch, pop: int, gens: int, seed: int = 0, fuse: int = 1,
 
     models, priors, distance, observed, posterior_fn = \
         make_two_gaussians_problem()
+    if sampler is None:
+        sampler = pt.VectorizedSampler(max_batch_size=1 << 19,
+                                       max_rounds_per_call=16, device="cuda")
     abc = pt.ABCSMC(
         models, priors, distance, population_size=pop,
-        eps=pt.MedianEpsilon(),
-        sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
-                                     max_rounds_per_call=16, device="cuda"),
+        eps=pt.MedianEpsilon(), sampler=sampler,
         stores_sum_stats=False, fuse_generations=fuse, seed=seed,
         ingest_mode="sequential", history_mode="eager", device="cuda")
     abc.new("sqlite://", observed)
+    if keep is not None:
+        keep["abc"] = abc
     if seq_probe_s is not None:
         abc._note_sequential_gen_s(seq_probe_s)
     weighted_kde_logpdf_cuda.launches = 0
@@ -926,7 +931,8 @@ def paths_follow_the_rule(paths, blocks, K, engine, t_max) -> bool:
 
 
 def _phase_pop(torch, state, name: str, pop: int, gens: int):
-    row = run_main_path(torch, pop, gens)
+    kept = {}
+    row = run_main_path(torch, pop, gens, keep=kept)
     if pop >= 1 << 18:
         # every model keeps >= 2^14 particles at this size, so from t = 1
         # on each KDE must run against the grid-compressed support
@@ -939,6 +945,9 @@ def _phase_pop(torch, state, name: str, pop: int, gens: int):
     # generation (median from t = 3, bench.py's warmup-3 protocol)
     state[f"{name}_seq_s"] = statistics.median(
         g["wall_s"] for g in row["generations"] if g["t"] >= 3)
+    # the run and its History: sharded1e6's VectorizedSampler twin
+    # (the same configuration, seed and sampler) at pop 1e6
+    state[f"{name}_run"] = (row, kept["abc"].history)
     emit({"phase": name, **row})
     if not row["ok"]:
         raise RuntimeError(f"main path at pop {pop} failed its gate")
@@ -5357,6 +5366,763 @@ def phase_laddermem(torch, state):
                            for name in ("envknobs1e6", "chaos1e6")}})
 
 
+# ---- scale-out and the fleet scheduler --------------------------------------
+
+#: sharded1e6: run_gate's configuration (config #2, pop 1e6, 11
+#: generations) through ShardedSampler
+SHARDED_POP = 1_000_000
+SHARDED_GENS = 11
+
+
+def phase_sharded1e6(torch, state):
+    """Config #2 at pop 1e6 through ``ShardedSampler``: (a) over
+    ``make_mesh()``, one rank and one shard, bit-identical to its
+    ``VectorizedSampler`` twin of the same seed (the pop1e6 phase's run
+    where it ran in this invocation, else run here), and (b) over two
+    shards on the one card; all held to ``run_gate``, (b)'s K1 launches
+    per generation equal to (a)'s."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.parallel.mesh import make_mesh
+
+    def sharded(mesh):
+        return pt.ShardedSampler(mesh=mesh, max_batch_size=1 << 19,
+                                 max_rounds_per_call=16)
+
+    runs, hist = {}, {}
+    arms = [("one_shard", lambda: sharded(make_mesh())),
+            ("two_shards", lambda: sharded(make_mesh(
+                [torch.device("cuda")] * 2)))]
+    twin = state.pop("pop1e6_run", None)
+    if twin is not None and (SHARDED_POP, SHARDED_GENS) == (1_000_000, 11):
+        runs["vectorized"], hist["vectorized"] = twin
+    else:
+        twin = None
+        arms.insert(0, ("vectorized", lambda: None))
+    n_sharded = {}
+    for arm, make in arms:
+        kept = {}
+        runs[arm] = run_main_path(torch, SHARDED_POP, SHARDED_GENS,
+                                  sampler=make(), keep=kept)
+        hist[arm] = kept["abc"].history
+        n_sharded[arm] = getattr(kept["abc"].sampler, "n_devices", 1)
+    per_gen = {arm: [g["kde_launches"] for g in r["generations"]]
+               for arm, r in runs.items()}
+    diff = population_difference(hist["vectorized"], hist["one_shard"])
+    checks = {
+        "one_shard_run_gate": runs["one_shard"]["ok"],
+        "two_shards_run_gate": runs["two_shards"]["ok"],
+        "vectorized_run_gate": runs["vectorized"]["ok"],
+        "one_shard_bit_identical": diff is None,
+        "k1_per_gen_equal": per_gen["two_shards"] == per_gen["one_shard"],
+        "shards": n_sharded == {**({} if twin else {"vectorized": 1}),
+                                "one_shard": 1, "two_shards": 2},
+    }
+    state.setdefault("launches", {})["sharded1e6"] = sum(
+        runs[arm]["kde_launches"] for arm, _ in arms)
+    row = {"phase": "sharded1e6", "ok": all(checks.values()),
+           "checks": checks, "first_difference": diff,
+           "vectorized_twin": "pop1e6" if twin else "run here",
+           "kde_launches_per_gen": per_gen,
+           **{arm: {k: r[k] for k in ("p_model_b", "p_analytic", "tol_p",
+                                      "mu_b", "tol_mu", "wall_s",
+                                      "gens_run", "kde_launches",
+                                      "peak_mem_gb")}
+              for arm, r in runs.items()},
+           "generations": {arm: r["generations"]
+                           for arm, r in runs.items()}}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"sharded1e6 failed its checks: {checks}")
+
+
+#: pod1e5: config #2 at pop 1e5 and a constant ε of 0.1, two ranks
+#: sharing the one card over gloo, held to run_gate's tolerances.  The
+#: one-dispatch engine's round ceiling (64 rounds a generation, the JAX
+#: package's) cannot follow MedianEpsilon's halving acceptance through
+#: 11 generations in one dispatch (it undershoots and redispatches); at
+#: ε = 0.1 the ABC posterior is within 4.2e-4 of the analytic p(B) and
+#: 1.1e-5 of its mean (a CPU run of the port at pop 1e5, seed 0)
+POD_POP = 100_000
+POD_GENS = 11
+POD_EPS = 0.1
+#: one child's seconds at most (its import, the collective set-up and
+#: both arms)
+POD_TIMEOUT_S = 300
+
+#: the pod child: run through the worker CLI, one shard per rank; the
+#: one-dispatch arm (lazy History), the sequential arm, and the
+#: one-dispatch arm again in the warm process (its time without the
+#: process's first-run set-up, its populations those of the first)
+_POD_CHILD = """
+import json, os, sys, time
+for name in ("jax", "jaxlib", "pyabc_tpu"):
+    sys.modules[name] = None
+import numpy as np
+import torch
+import pyabc_tpu_torch as pt
+from pyabc_tpu_torch.models import make_two_gaussians_problem
+from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+from pyabc_tpu_torch.parallel.mesh import world
+from pyabc_tpu_torch.wire import transfer
+
+out_dir = os.environ["POD_OUT"]
+rank, size = world()
+report = {"rank": rank, "world": size, "backend":
+          torch.distributed.get_backend(), "arms": {}}
+for arm in ("onedispatch", "sequential", "onedispatch_warm"):
+    models, priors, distance, observed, posterior_fn = \\
+        make_two_gaussians_problem()
+    engine = ({"run_mode": "onedispatch", "fuse_generations": 4,
+               "history_mode": "lazy"} if arm != "sequential" else
+              {"ingest_mode": "sequential", "history_mode": "eager"})
+    abc = pt.ABCSMC(models, priors, distance,
+                    population_size=int(os.environ["POD_POP"]),
+                    eps=pt.ConstantEpsilon(float(os.environ["POD_EPS"])),
+                    sampler=pt.ShardedSampler(max_batch_size=1 << 19,
+                                              max_rounds_per_call=16),
+                    stores_sum_stats=False, seed=0, device="cuda",
+                    **engine)
+    abc.new("sqlite:///" + os.path.join(out_dir,
+            f"{arm}_h{rank}.db"), observed)
+    c0 = transfer.snapshot()["collective_s"]
+    weighted_kde_logpdf_cuda.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    h = abc.run(max_nr_populations=int(os.environ["POD_GENS"]))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    arrays = {}
+    for t in range(h.max_t + 1):
+        pop = h.get_population(t)
+        for key in ("m", "theta", "distance", "weight"):
+            arrays[f"{t}_{key}"] = np.asarray(getattr(pop, key))
+    np.savez(os.path.join(out_dir, f"{arm}_h{rank}.npz"), **arrays)
+    t = h.max_t
+    df, w = h.get_distribution(m=1, t=t)
+    report["arms"][arm] = {
+        "wall_s": wall,
+        "collective_s": transfer.snapshot()["collective_s"] - c0,
+        "kde_launches": weighted_kde_logpdf_cuda.launches,
+        "dispatches": int(abc.run_dispatches), "max_t": int(t),
+        "paths": [r["path"] for r in abc.timeline],
+        "gen_wall_s": [r["wall_s"] for r in abc.timeline],
+        "kde_support": [r.get("kde_support") for r in abc.timeline],
+        "p_model_b": float(h.get_model_probabilities(t).get(1, 0.0)),
+        "p_analytic": float(posterior_fn(1.0)),
+        "mu_b": float(np.sum(df["mu"].to_numpy() * w)),
+        "shards": abc.sampler.n_devices}
+with open(os.path.join(out_dir, f"report_h{rank}.json"), "w") as f:
+    json.dump(report, f)
+"""
+
+#: what NCCL does with two ranks on one card: one all_gather, then stop
+_NCCL_PROBE = """
+import os, sys
+import torch, torch.distributed as dist
+rank = int(sys.argv[1])
+torch.cuda.set_device(0)
+dist.init_process_group("nccl", init_method="tcp://" + sys.argv[2],
+                        world_size=2, rank=rank)
+x = torch.full((4,), float(rank), device="cuda")
+out = [torch.empty_like(x) for _ in range(2)]
+dist.all_gather(out, x)
+torch.cuda.synchronize()
+print("gathered", [float(o[0]) for o in out], flush=True)
+dist.destroy_process_group()
+"""
+
+
+def _free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def _nccl_two_ranks_one_card(root) -> dict:
+    """Two NCCL ranks on the one card: the outcome, recorded (the pod
+    runs on gloo; NCCL's duplicate-GPU check is expected to refuse)."""
+    import subprocess as sp
+    port = _free_port()
+    procs = [sp.Popen([sys.executable, "-c", _NCCL_PROBE, str(i),
+                       f"127.0.0.1:{port}"], cwd=root, stdout=sp.PIPE,
+                      stderr=sp.PIPE, text=True) for i in range(2)]
+    out = []
+    for p in procs:
+        try:
+            so, se = p.communicate(timeout=90)
+        except sp.TimeoutExpired:
+            p.kill()
+            so, se = p.communicate()
+        # NCCL names the cause on the line after "Last error:"
+        lines = [ln.strip() for ln in se.splitlines() if ln.strip()]
+        said = [ln for ln in lines if "Duplicate GPU" in ln
+                or "ncclInvalidUsage" in ln or "Error:" in ln]
+        out.append({"rc": p.returncode, "stdout": so.strip()[-200:],
+                    "error": [ln[-300:] for ln in said[-3:]]
+                    or lines[-3:]})
+    return {"ranks": out,
+            "refused": any(o["rc"] != 0 for o in out)}
+
+
+def _load_pops(path) -> dict:
+    import numpy as np
+    with np.load(path) as z:
+        return {k: z[k] for k in z.files}
+
+
+def _history_arrays(h) -> dict:
+    import numpy as np
+    out = {}
+    for t in range(h.max_t + 1):
+        pop = h.get_population(t)
+        for key in ("m", "theta", "distance", "weight"):
+            out[f"{t}_{key}"] = np.asarray(getattr(pop, key))
+    return out
+
+
+def _same_arrays(a: dict, b: dict) -> bool:
+    import numpy as np
+    return set(a) == set(b) and all(
+        np.array_equal(a[k], b[k]) and a[k].dtype == b[k].dtype for k in a)
+
+
+def _pod_twin(torch, arm: str, det: bool, db: str, gens: int = POD_GENS,
+              prof=None) -> tuple:
+    """``(abc, posterior_fn, wall_s)`` of ``pod1e5``'s one-process twin:
+    the arm's engine over two shards on the card, its History in the
+    file ``db``, inside ``deterministic_kernels`` when ``det`` and under
+    the profiler context ``prof`` when given."""
+    import contextlib
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.parallel.mesh import (deterministic_kernels,
+                                               make_mesh)
+
+    models, priors, distance, observed, posterior_fn = \
+        make_two_gaussians_problem()
+    engine = ({"run_mode": "onedispatch", "fuse_generations": 4,
+               "history_mode": "lazy"} if arm == "onedispatch" else
+              {"ingest_mode": "sequential", "history_mode": "eager"})
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=POD_POP,
+        eps=pt.ConstantEpsilon(POD_EPS),
+        sampler=pt.ShardedSampler(
+            mesh=make_mesh([torch.device("cuda")] * 2),
+            max_batch_size=1 << 19, max_rounds_per_call=16),
+        stores_sum_stats=False, seed=0, device="cuda", **engine)
+    abc.new("sqlite:///" + db, observed)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as stack:
+        if det:
+            stack.enter_context(deterministic_kernels())
+        if prof is not None:
+            stack.enter_context(prof)
+        abc.run(max_nr_populations=gens)
+        torch.cuda.synchronize()
+    return abc, posterior_fn, time.perf_counter() - t0
+
+
+#: detprof: generations of the profiled pod1e5 twin
+DETPROF_GENS = 4
+
+
+def phase_detprof(torch, state):
+    """Where the deterministic kernels' time goes: ``pod1e5``'s
+    one-dispatch twin for ``DETPROF_GENS`` generations under
+    ``torch.profiler``, with and without ``deterministic_kernels`` (each
+    after an unprofiled warm run): wall, device busy time, and the top
+    operators by host time and kernels by device time."""
+    import os
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    work = tempfile.mkdtemp(prefix="detprof_")
+
+    def dev_us(evt):
+        return getattr(evt, "self_device_time_total",
+                       getattr(evt, "self_cuda_time_total", 0.0))
+
+    out = {}
+    for det in (True, False):
+        key = "deterministic" if det else "default"
+        _pod_twin(torch, "onedispatch", det,
+                  os.path.join(work, f"{key}_warm.db"), DETPROF_GENS)
+        prof = profile(activities=[ProfilerActivity.CPU,
+                                   ProfilerActivity.CUDA])
+        _, _, wall = _pod_twin(torch, "onedispatch", det,
+                               os.path.join(work, f"{key}.db"),
+                               DETPROF_GENS, prof=prof)
+        events = prof.key_averages()
+        kernels = [e for e in events
+                   if e.device_type == DeviceType.CUDA and dev_us(e) > 0]
+        ops = [e for e in events if e.device_type == DeviceType.CPU]
+        out[key] = {
+            "wall_s": wall,
+            "device_busy_s": sum(dev_us(e) for e in kernels) * 1e-6,
+            "device_launches": sum(e.count for e in kernels),
+            "top_device": [{"name": e.key[:80], "calls": e.count,
+                            "device_s": dev_us(e) * 1e-6} for e in sorted(
+                                kernels, key=dev_us, reverse=True)[:10]],
+            "top_host": [{"name": e.key[:80], "calls": e.count,
+                          "self_host_s": e.self_cpu_time_total * 1e-6,
+                          "host_s": e.cpu_time_total * 1e-6}
+                         for e in sorted(ops, key=lambda e:
+                                         e.self_cpu_time_total,
+                                         reverse=True)[:12]]}
+    emit({"phase": "detprof", "ok": True, "gens": DETPROF_GENS, **out})
+
+
+def phase_pod1e5(torch, state):
+    """Two ranks on the one card through ``python -m
+    pyabc_tpu_torch.parallel.cli`` (gloo, one shard each): config #2 at
+    pop 1e5 (``POD_EPS``) in the pod posture (one dispatch, lazy History)
+    and as a sequential arm, against a one-process two-shard twin of
+    each arm (with the deterministic kernels, and timed again without
+    them)."""
+    import os
+    import subprocess as sp
+    import tempfile
+
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.parallel import cli, health
+
+    root = Path(__file__).resolve().parent
+    work = tempfile.mkdtemp(prefix="pod1e5_")
+    run_dir = os.path.join(work, "run")
+    script = os.path.join(work, "pod_child.py")
+    with open(script, "w") as f:
+        f.write(_POD_CHILD)
+    nccl = _nccl_two_ranks_one_card(root)
+    port = _free_port()
+    env = dict(os.environ, PYTHONPATH=str(root), POD_OUT=work,
+               POD_POP=str(POD_POP), POD_GENS=str(POD_GENS),
+               POD_EPS=str(POD_EPS))
+    for k in ("PYABC_TPU_FAULTS", "PYABC_TPU_STORE_GENS",
+              health.RUN_DIR_ENV):
+        env.pop(k, None)
+    t0 = time.perf_counter()
+    procs = [sp.Popen([sys.executable, "-m", "pyabc_tpu_torch.parallel.cli",
+                       "--coordinator", f"127.0.0.1:{port}",
+                       "--num-processes", "2", "--process-id", str(i),
+                       "--run-dir", run_dir, script],
+                      cwd=str(root), env=env, stdout=sp.PIPE,
+                      stderr=sp.PIPE, text=True) for i in range(2)]
+    # while both run: both heartbeats in the run dir, and `info` on them
+    live, info_text = 0, ""
+    while any(p.poll() is None for p in procs):
+        if time.perf_counter() - t0 > POD_TIMEOUT_S:
+            break
+        status = health.worker_status(run_dir)
+        if len(status) >= 2 and all(e["alive"] for e in status) and not live:
+            live = len(status)
+            info_text = cli.info(run_dir)
+        time.sleep(0.2)
+    errs = []
+    for p in procs:
+        try:
+            _, se = p.communicate(timeout=max(
+                POD_TIMEOUT_S - (time.perf_counter() - t0), 1))
+        except sp.TimeoutExpired:
+            p.kill()
+            _, se = p.communicate()
+        errs.append(se[-3000:])
+    rcs = [p.returncode for p in procs]
+    if any(rcs):
+        raise RuntimeError(f"pod1e5 ranks exited {rcs}: {errs}")
+    reports = []
+    for i in range(2):
+        with open(os.path.join(work, f"report_h{i}.json")) as f:
+            reports.append(json.load(f))
+
+    # the one-process twins: two shards on the card, the same engines,
+    # with the kernels a multi-rank run takes ("deterministic", held to
+    # the ranks' bits), then timed again with the default kernels: what
+    # the deterministic forms cost
+    twins = {}
+    twin_launches = 0
+
+    def twin(arm, det):
+        return _pod_twin(torch, arm, det, os.path.join(
+            work, f"{arm}_twin_{'det' if det else 'default'}.db"))
+
+    for arm in ("onedispatch", "sequential"):
+        weighted_kde_logpdf_cuda.launches = 0
+        abc, posterior_fn, det_s = twin(arm, True)
+        twin_launches += weighted_kde_logpdf_cuda.launches
+        twins[arm] = {"arrays": _history_arrays(abc.history),
+                      "max_t": int(abc.history.max_t),
+                      "stop": abc.timeline.stop_reason,
+                      "gate": _gate_run_gate(abc, posterior_fn, POD_POP),
+                      "wall_s": {"deterministic": det_s}}
+        del abc
+        weighted_kde_logpdf_cuda.launches = 0
+        twins[arm]["wall_s"]["default"] = twin(arm, False)[2]
+        twin_launches += weighted_kde_logpdf_cuda.launches
+    checks = {"heartbeats_live": live == 2,
+              "info_lists_both": info_text.startswith(
+                  "Workers=2 Alive=2"),
+              "heartbeats_removed": health.worker_status(run_dir) == [],
+              "gloo": all(r["backend"] == "gloo" for r in reports)}
+    arms = {}
+    for arm in ("onedispatch", "sequential"):
+        per = [r["arms"][arm] for r in reports]
+        pops = [_load_pops(os.path.join(work, f"{arm}_h{i}.npz"))
+                for i in range(2)]
+        tol_p = max(2.5e-3, 2.5 / POD_POP ** 0.5)
+        tol_mu = max(3e-3, 3.0 / POD_POP ** 0.5)
+        gate = [abs(a["p_model_b"] - a["p_analytic"]) < tol_p
+                and abs(a["mu_b"] - 1.0) < tol_mu for a in per]
+        checks[f"{arm}_ranks_bit_identical"] = (
+            _same_arrays(pops[0], pops[1])
+            and per[0]["p_model_b"] == per[1]["p_model_b"])
+        checks[f"{arm}_twin_bit_identical"] = _same_arrays(
+            pops[0], twins[arm]["arrays"])
+        checks[f"{arm}_run_gate"] = all(gate) and twins[arm]["gate"]["ok"]
+        checks[f"{arm}_depth"] = (per[0]["max_t"] == per[1]["max_t"]
+                                  == twins[arm]["max_t"] == POD_GENS - 1)
+        if arm == "onedispatch":
+            checks["one_dispatch_per_rank"] = all(
+                a["dispatches"] == 1 and a["paths"][1:]
+                == ["onedispatch"] * a["max_t"] for a in per)
+            warm = [r["arms"]["onedispatch_warm"] for r in reports]
+            checks["onedispatch_warm_bit_identical"] = all(
+                _same_arrays(pops[0], _load_pops(os.path.join(
+                    work, f"onedispatch_warm_h{i}.npz"))) for i in range(2))
+        arms[arm] = {
+            "wall_s": [a["wall_s"] for a in per],
+            "gen_wall_s": [a["gen_wall_s"] for a in per],
+            "twin_wall_s": twins[arm]["wall_s"],
+            **({"warm_wall_s": [a["wall_s"] for a in warm],
+                "warm_gen_wall_s": [a["gen_wall_s"] for a in warm]}
+               if arm == "onedispatch" else {}),
+            "collective_s": [a["collective_s"] for a in per],
+            "kde_launches": [a["kde_launches"] for a in per],
+            "p_model_b": per[0]["p_model_b"], "mu_b": per[0]["mu_b"],
+            "p_analytic": per[0]["p_analytic"], "tol_p": tol_p,
+            "tol_mu": tol_mu, "paths": per[0]["paths"],
+            "dispatches": [a["dispatches"] for a in per],
+            "twin_gate": twins[arm]["gate"]}
+    od = reports[0]["arms"]["onedispatch"]
+    sup = [s for s in od["kde_support"] if s]
+    if sup:
+        state["pod_finalize_shape"] = (POD_POP, max(
+            x["rows"] for x in sup[-1]), any(x["compressed"]
+                                             for x in sup[-1]))
+    launches = sum(a["kde_launches"] for r in reports
+                   for a in r["arms"].values()) + twin_launches
+    state.setdefault("launches", {})["pod1e5"] = launches
+    state["pod_launches"] = launches
+    row = {"phase": "pod1e5", "ok": all(checks.values()), "checks": checks,
+           "pop": POD_POP, "gens": POD_GENS, "arms": arms,
+           "info": info_text.splitlines(), "nccl_two_ranks_one_card": nccl,
+           "kde_launches": launches,
+           "wall_s": time.perf_counter() - t0}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"pod1e5 failed its checks: {checks}")
+
+
+def pod_cases(state) -> list:
+    """Row (z): a pod1e5 finalize, the pop-1e5 population against its
+    grid-compressed support (d = 1), from the run or its stated default
+    (the 2^14-cell grid)."""
+    m, n, grid = state.get("pod_finalize_shape", (POD_POP, 1 << 14, True))
+    source = "run" if "pod_finalize_shape" in state else "default"
+    return [(f"z pod1e5 finalize ({source})", m, n, 1,
+             {"grid": grid, "main_launches": state.get("pod_launches")})]
+
+
+#: sched1e4: the fleet scheduler over platform-managed serve workers
+SCHED_STUDIES = 48
+SCHED_CLIENTS = 4
+SCHED_DURABLE_POP = 10_000
+SCHED_DURABLE_GENS = 10
+SCHED_MAX_BOUNCES = 3
+#: a dead worker's heartbeat is stale after this (it beats every 5 s)
+SCHED_STALE_S = 8.0
+SCHED_TICK_S = 0.25
+SCHED_TIMEOUT_S = 420
+
+#: the durable and the poison study's models, importable by the workers
+_SCHED_MODELS = '''
+import os
+import signal
+import time
+
+import torch
+
+
+def slow_model(generator, theta):
+    """The serve family's model, y = mu + 0.1 N(0, 1), at 0.2 s a call:
+    a durable study that is still running when its worker is killed."""
+    time.sleep(0.2)
+    noise = 0.1 * torch.randn(theta.shape[0], 1, generator=generator,
+                              device=theta.device)
+    return {"y": theta[:, :1] + noise}
+
+
+def poison_model(generator, theta):
+    """A model that takes its worker down (a Python exception would be
+    failed by the worker itself and never reach the scheduler)."""
+    os.kill(os.getpid(), signal.SIGKILL)
+'''
+
+
+#: the phase's serve worker: the port's ``ServeWorker`` with classic
+#: solo engines, which append (and journal) a durable study block by
+#: block, so the kill below lands between its blocks (the default
+#: one-dispatch engine drains its generations when the dispatch returns)
+_SCHED_WORKER = """
+import argparse
+from pyabc_tpu_torch.serve import ServeWorker, StudyQueue
+ap = argparse.ArgumentParser()
+ap.add_argument("--serve-dir")
+ap.add_argument("--poll-s", type=float)
+args = ap.parse_args()
+worker = ServeWorker(root=args.serve_dir, run_mode="classic")
+worker.install_signal_handlers()
+worker.run_forever(StudyQueue(root=worker.root), poll_s=args.poll_s)
+"""
+
+
+def phase_sched1e4(torch, state):
+    """The fleet scheduler with a subprocess platform over serve workers
+    on the card (autoscaler 1 to 2), the port's load generator driving
+    48 pop-100 studies of serve1e4's family from 4 clients, one durable
+    pop-1e4 study whose worker is killed (-9) after its second journaled
+    generation, and one poison study."""
+    import os
+    import signal
+    import sqlite3
+    import subprocess as sp
+    import tempfile
+    import threading
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.sched import Autoscaler, Scheduler
+    from pyabc_tpu_torch.sched.platform import SubprocessPlatform, _Managed
+    from pyabc_tpu_torch.serve import StudyQueue, StudySpec, study_digest
+    from pyabc_tpu_torch.serve.cache import SharedResultStore
+    from pyabc_tpu_torch.telemetry import aggregate
+    from pyabc_tpu_torch.telemetry.metrics import REGISTRY
+    from pyabc_tpu_torch.tools import loadgen
+
+    root = Path(__file__).resolve().parent
+    work = tempfile.mkdtemp(prefix="sched1e4_")
+    serve, run_dir = os.path.join(work, "serve"), os.path.join(work, "run")
+    os.makedirs(run_dir)
+    with open(os.path.join(work, "sched_models.py"), "w") as f:
+        f.write(_SCHED_MODELS)
+    worker_py = os.path.join(work, "sched_worker.py")
+    with open(worker_py, "w") as f:
+        f.write(_SCHED_WORKER)
+    sys.path.insert(0, work)
+    import sched_models
+
+    logs = []
+
+    class Platform(SubprocessPlatform):
+        """The subprocess platform, each worker's output in a file (the
+        smoke's own output stays its lines)."""
+
+        def _spawn(self):
+            log = open(os.path.join(work, f"worker{len(logs)}.log"), "w")
+            m = _Managed(sp.Popen(self.argv, env=self.env, stdout=log,
+                                  stderr=sp.STDOUT))
+            logs.append((m.proc, log))
+            self._procs.append(m)
+            REGISTRY.counter("sched_platform_starts_total",
+                             "worker processes started by the "
+                             "platform").inc()
+            return m
+
+    env = {"PYTHONPATH": os.pathsep.join([str(root), work]),
+           "PYABC_TPU_RUN_DIR": run_dir, "PYABC_TPU_SERVE_DIR": serve,
+           "PYABC_TPU_SERVE_DURABLE": "1", "PYABC_TPU_STORE_GENS": "1",
+           "PYABC_TPU_SERVE_CB": "0", "PYABC_TPU_SERVE_TRACE": "1"}
+    platform = Platform(serve_dir=serve, env=env, backoff_s=0.5,
+                        argv=[sys.executable, worker_py, "--serve-dir",
+                              serve, "--poll-s", "0.05"])
+    for k in ("PYABC_TPU_FAULTS", "PYABC_TPU_SERVE_MULTIPLEX"):
+        platform.env.pop(k, None)
+    queue = StudyQueue(root=serve)
+    sched = Scheduler(run_dir=run_dir, queue=queue,
+                      max_bounces=SCHED_MAX_BOUNCES,
+                      stale_after_s=SCHED_STALE_S,
+                      autoscaler=Autoscaler(min_replicas=1, max_replicas=2,
+                                            studies_per_worker=2),
+                      platform=platform)
+    reports, stop = [], threading.Event()
+
+    def ticking():
+        while not stop.is_set():
+            rep = sched.tick()
+            rep["unix"] = time.time()
+            reports.append(rep)
+            stop.wait(SCHED_TICK_S)
+
+    def spec(pop, seed, model, gens, y=0.4, tenant="t_small"):
+        return StudySpec(model=model, prior=pt.Distribution(
+            mu=pt.RV("uniform", -1.0, 2.0)), observed={"y": float(y)},
+            population_size=pop, seed=seed, tenant=tenant,
+            max_generations=gens)
+
+    studies = [spec(100, s, loadgen._model, SERVE_GENS,
+                    y=(0.2, 0.3, 0.4, 0.5)[s % 4]) for s in range(
+                        SCHED_STUDIES)]
+    durable = spec(SCHED_DURABLE_POP, 7, sched_models.slow_model,
+                   SCHED_DURABLE_GENS, tenant="t_large")
+    poison = spec(100, 99, sched_models.poison_model, SERVE_GENS,
+                  tenant="t_poison")
+    t0 = time.perf_counter()
+    ticker = threading.Thread(target=ticking, daemon=True)
+    ticker.start()
+    result = {}
+    kill = {}
+    try:
+        d_ticket = queue.submit(durable)
+        gen = loadgen.ClosedLoopLoadGen(queue, studies,
+                                        n_studies=SCHED_STUDIES,
+                                        clients=SCHED_CLIENTS, seed=0,
+                                        poll_s=0.02, study_timeout_s=300.0,
+                                        unique=True)
+        lg = threading.Thread(target=lambda: result.update(gen.run()),
+                              daemon=True)
+        lg.start()
+        # kill -9 the worker serving the durable study once its database
+        # holds three generations: generation 1 is then in the journal
+        db = os.path.join(serve, "studies",
+                          f"{study_digest(durable)}.solo.db")
+        deadline = time.perf_counter() + SCHED_TIMEOUT_S
+        claimed = os.path.join(queue.root, "claimed")
+        d_done = os.path.join(queue.root, "done", f"{d_ticket.id}.json")
+        while (not kill and time.perf_counter() < deadline
+               and not os.path.exists(d_done)):
+            rows = 0
+            if os.path.exists(db):
+                try:
+                    with sqlite3.connect(db, timeout=1.0) as conn:
+                        rows = conn.execute(
+                            "SELECT COUNT(*) FROM populations "
+                            "WHERE t >= 0").fetchone()[0]
+                except sqlite3.Error:
+                    rows = 0
+            holder = [w for w in os.listdir(claimed) if os.path.exists(
+                os.path.join(claimed, w, f"{d_ticket.id}.json"))]
+            if rows >= 3 and holder:
+                pid = int(holder[0].rsplit("_", 1)[1])
+                os.kill(pid, signal.SIGKILL)
+                kill = {"unix": time.time(), "pid": pid, "rows": rows,
+                        "worker": holder[0]}
+            time.sleep(0.05)
+        lg.join(timeout=max(deadline - time.perf_counter(), 1))
+        while time.perf_counter() < deadline and not os.path.exists(d_done):
+            time.sleep(0.2)
+        load_wall = time.perf_counter() - t0
+        # the poison study last, alone in the queue
+        p_ticket = queue.submit(poison)
+        while (time.perf_counter() < deadline
+               and not os.path.exists(os.path.join(
+                   queue.root, "failed", f"{p_ticket.id}.json"))):
+            time.sleep(0.2)
+        # the idle fleet scales back to one worker
+        while (time.perf_counter() < deadline
+               and not (reports and reports[-1].get("platform", {}).get(
+                   "running") == 1 and platform.replicas() == 1)):
+            time.sleep(0.2)
+    finally:
+        stop.set()
+        ticker.join(timeout=30)
+        platform.shutdown(timeout_s=60.0)
+        for _p, log in logs:
+            log.close()
+        sys.path.remove(work)
+    wall = time.perf_counter() - t0
+
+    # what the queue, the shared cache and the workers' snapshots say
+    store = SharedResultStore(os.path.join(serve, "cache", "shared"))
+
+    def tomb(state_dir, ticket):
+        path = os.path.join(queue.root, state_dir, f"{ticket.id}.json")
+        if not os.path.exists(path):
+            return None
+        with open(path, encoding="utf-8") as f:
+            return json.load(f)
+
+    stats = queue.stats()
+    means = {}
+    for s in studies:
+        summary = store.get(f"{study_digest(s)}.multiplex")
+        means[s.seed] = (None if summary is None
+                         else summary["posterior_mean"]["mu"])
+    d_tomb = tomb("done", d_ticket)
+    d_summary = store.get(f"{study_digest(durable)}.solo") or {}
+    p_tomb = tomb("failed", p_ticket) or {}
+    # every worker's last snapshot, the killed ones' included: a worker
+    # bumps both lane counters at the end of a batch and publishes from
+    # the same thread, so any snapshot it wrote holds a matching pair
+    pids = {p.pid for p, _ in logs}
+    snaps = [s for s in aggregate.read_snapshots(run_dir)
+             if s.get("pid") in pids]
+    lane_k1 = sum(int((s.get("metrics") or {}).get(
+        "serve_lane_kde_launches_total", 0)) for s in snaps)
+    lane_gens = sum(int((s.get("metrics") or {}).get(
+        "serve_lane_generations_total", 0)) for s in snaps)
+    requeue_unix = next((r["unix"] for r in reports
+                         if d_ticket.id in r["requeued"]), None)
+    running = [r["platform"]["running"] for r in reports
+               if r.get("platform")]
+    crashes = sum(r["platform"]["crashed"] for r in reports
+                  if r.get("platform"))
+    checks = {
+        "no_study_lost": (stats["done"] == SCHED_STUDIES + 1
+                          and stats["failed"] == 1
+                          and stats["pending"] == stats["claimed"] == 0
+                          and result.get("completed") == SCHED_STUDIES),
+        "killed_mid_study": bool(kill),
+        "durable_resumed": (d_summary.get("resumed_from_gen", 0) >= 1
+                            and d_summary.get("gens", 0)
+                            >= SCHED_DURABLE_GENS),
+        "durable_breadcrumbs": bool(
+            d_tomb and d_tomb.get("last_worker") == kill.get("worker")
+            and d_tomb.get("bounce_history")),
+        "poison_quarantined": bool(
+            p_tomb.get("quarantined") and p_tomb.get("flight_path")
+            and os.path.exists(p_tomb["flight_path"])
+            and len(p_tomb.get("bounce_history", []))
+            < SCHED_MAX_BOUNCES),
+        "scaled_up_and_down": (max(running, default=0) == 2
+                               and running[-1:] == [1]),
+        "posterior": all(m is not None and abs(m - s.observed["y"])
+                         < SERVE_MEAN_TOL for s, m in zip(
+                             studies, means.values())),
+        "k1_once_per_lane_generation": lane_k1 == lane_gens > 0,
+    }
+    state.setdefault("launches", {})["sched1e4"] = lane_k1
+    row = {"phase": "sched1e4", "ok": all(checks.values()),
+           "checks": checks, "studies_per_s": result.get("studies_per_s"),
+           "p50_ms": result.get("p50_ms"), "p99_ms": result.get("p99_ms"),
+           "loadgen": result, "load_wall_s": load_wall, "wall_s": wall,
+           "reschedule_s": (None if requeue_unix is None
+                            else requeue_unix - kill.get("unix", 0.0)),
+           "kill": kill, "durable": {k: d_summary.get(k) for k in (
+               "resumed_from_gen", "gens", "posterior_mean")},
+           "poison_bounces": len(p_tomb.get("bounce_history", [])),
+           "platform_crashes": crashes, "replicas_max": max(
+               running, default=0), "ticks": len(reports),
+           "lane_kde_launches": lane_k1, "lane_generations": lane_gens,
+           "workers": [{"pid": p.pid, "rc": p.returncode} for p, _ in logs],
+           "queue": stats}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"sched1e4 failed its checks: {checks}")
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -5411,7 +6177,10 @@ PHASES = {"card": phase_card, "build": phase_build,
           "aggregatedlv1e5": phase_aggregatedlv1e5,
           "analysis1e6": phase_analysis1e6,
           "serve1e4": phase_serve1e4, "servecb": phase_servecb,
+          "sharded1e6": phase_sharded1e6, "pod1e5": phase_pod1e5,
+          "sched1e4": phase_sched1e4,
           "laddermem": phase_laddermem, "serveprof": phase_serveprof,
+          "detprof": phase_detprof,
           "hostprof": phase_hostprof,
           "profile": phase_profile, "repeat": phase_repeat,
           "simprof": phase_simprof, "k1perm": phase_k1perm}

@@ -16,7 +16,9 @@ and range distances, ``IntegratedModel`` and the host bridges of
 (``ABCSMC(show_progress=True)``), ``DefaultSampler``, the host samplers
 over a map, an executor or a dask client, ``AggregatedTransition``, the
 pyABC ORM-schema export and the parity classes of the JAX package's
-``__all__``.
+``__all__``; and scale-out: ``ShardedSampler`` over a mesh of ranks
+(:mod:`.parallel`), the pod one-dispatch posture, the serving tier
+(:mod:`.serve`) and its fleet scheduler (:mod:`.sched`).
 Entry points run on the card unless the caller passes ``device="cpu"``
 (see :mod:`.device`).  Nothing here imports JAX or the JAX package.
 """
@@ -58,8 +60,9 @@ from .random_variables import (RV, Distribution, LowerBoundDecorator,
                                ScipyRV, TabulatedRV, TruncatedRV)
 from .sampler import (ConcurrentFutureSampler, DaskDistributedSampler,
                       MappingSampler, MulticoreEvalParallelSampler,
-                      MulticoreParticleParallelSampler, RoundKernel, Sample,
-                      Sampler, SingleCoreSampler, VectorizedSampler)
+                      MulticoreParticleParallelSampler,
+                      RedisEvalParallelSampler, RoundKernel, Sample, Sampler,
+                      ShardedSampler, SingleCoreSampler, VectorizedSampler)
 from .smc import ABCSMC
 from .storage import History, create_sqlite_db_id
 from .sumstat import SumStatSpec
@@ -97,6 +100,7 @@ __all__ = [
     "SingleCoreSampler", "MulticoreEvalParallelSampler",
     "MulticoreParticleParallelSampler", "MappingSampler",
     "ConcurrentFutureSampler", "DaskDistributedSampler", "RoundKernel",
+    "ShardedSampler", "RedisEvalParallelSampler",
     "resolve_device", "__version__",
 ]
 

@@ -8,9 +8,13 @@ package does (engine ``"fused"``, batch ``min(population, 4096)``): under
 an active memory budget a shape no (precision, rung) point can fit raises
 :class:`~.capacity.CapacityError` here, at construction, with its ledger.
 
-The JAX package returns its ``ShardedSampler`` when several devices are
-visible.  The port has no sharded sampler yet, so more than one visible
-card raises ``NotImplementedError``.
+With more than one device — several visible cards, or a
+``torch.distributed`` world above one rank — it returns
+:class:`~.sampler.sharded.ShardedSampler` over
+:func:`~.parallel.mesh.make_mesh` (one shard per rank on this rank's
+device), as the JAX package does (``pyabc_tpu/platform_factory.py:41``).
+A process drives one card: to use every card of a host, run one rank
+per card (``python -m pyabc_tpu_torch.parallel.cli``).
 """
 
 from __future__ import annotations
@@ -19,6 +23,8 @@ import torch
 
 from .capacity import model as _capacity
 from .device import resolve_device
+from .parallel.mesh import world_size
+from .sampler.sharded import ShardedSampler
 from .sampler.vectorized import VectorizedSampler
 
 
@@ -35,10 +41,6 @@ def DefaultSampler(population=None, param_dim=None, stat_dim=None,
             batch=min(int(population), 4096),
             devices=max(n_dev, 1),
             device=dev)
-    if n_dev > 1:
-        raise NotImplementedError(
-            f"{n_dev} CUDA devices are visible: the JAX package would "
-            "return its ShardedSampler, which the port does not have yet; "
-            "make one card visible (CUDA_VISIBLE_DEVICES) or construct "
-            "VectorizedSampler(device=...) yourself")
+    if n_dev > 1 or world_size() > 1:
+        return ShardedSampler(device=dev, **kwargs)
     return VectorizedSampler(device=dev, **kwargs)

@@ -1,6 +1,10 @@
 """Write-ahead spill journal + content digests for the lazy History.
 
-Port of ``pyabc_tpu/resilience/journal.py`` without its pod functions.
+Port of ``pyabc_tpu/resilience/journal.py``, its pod functions
+included (``_pod_suffix``, :func:`pod_sibling_dirs`,
+:func:`merge_shard_wires`, :func:`pod_pending`: each rank of a
+``torch.distributed`` pod journals its own rows into an ``h<rank>``
+directory, and recovery reassembles whole generations from them).
 In ``history_mode="lazy"`` accepted populations stay on the card
 (``wire/store.py``) and the sqlite History keeps blob-less ``lazy=1``
 summary rows until something asks for real bytes.  Between a deposit and
@@ -177,14 +181,32 @@ def _fsync_enabled() -> bool:
         "0", "off", "false", "no")
 
 
+def _pod_suffix() -> str:
+    """Per-rank namespace under a ``torch.distributed`` world of more
+    than one rank (``pyabc_tpu/resilience/journal.py:179``): pod ranks
+    may share a filesystem, so each journals into its own
+    ``h<rank>`` subdirectory — shard-local bytes, no cross-rank
+    clobbering, and the sibling layout :func:`pod_sibling_dirs`
+    reassembles whole generations from."""
+    from ..parallel.mesh import world
+    rank, size = world()
+    return f"h{rank:03d}" if size > 1 else ""
+
+
 def journal_dir_for(db_path: str, in_memory: bool) -> Optional[str]:
     """Resolve the journal directory for a History: the env override
     wins, else ``<db>.journal`` next to a file-backed DB; None (journal
-    off) for in-memory DBs without an override or when disabled."""
+    off) for in-memory DBs without an override or when disabled.  Under
+    a multi-rank pod every rank gets its own ``h<rank>`` subdirectory of
+    the resolved location."""
     if not journal_enabled():
         return None
     override = os.environ.get(JOURNAL_DIR_ENV, "").strip()
-    return override or (None if in_memory else db_path + ".journal")
+    base = override or (None if in_memory else db_path + ".journal")
+    if base is None:
+        return None
+    suffix = _pod_suffix()
+    return os.path.join(base, suffix) if suffix else base
 
 
 def purge_for_db(db_path: str):
@@ -199,6 +221,90 @@ def purge_for_db(db_path: str):
     if os.path.isdir(base):
         import shutil
         shutil.rmtree(base, ignore_errors=True)
+
+
+def pod_sibling_dirs(directory: str) -> list:
+    """All per-rank journal directories of the pod run ``directory``
+    belongs to, rank-major (``h000``, ``h001``, ...); ``[directory]``
+    when it is not pod-namespaced.  Only meaningful on a filesystem the
+    ranks share — ranks with private disks see their own shard."""
+    head, tail = os.path.split(os.path.normpath(directory))
+    if not (len(tail) == 4 and tail[0] == "h" and tail[1:].isdigit()):
+        return [directory]
+    try:
+        sibs = sorted(n for n in os.listdir(head)
+                      if len(n) == 4 and n[0] == "h" and n[1:].isdigit()
+                      and os.path.isdir(os.path.join(head, n)))
+    except OSError:
+        return [directory]
+    return [os.path.join(head, n) for n in sibs] or [directory]
+
+
+def merge_shard_wires(shards: list, global_manifest: Optional[dict]
+                      ) -> Dict[str, np.ndarray]:
+    """One generation's whole host wire from per-rank shard payloads
+    (rank-major order).  Row lanes are concatenated, replicated lanes
+    (scalars, summary lanes) taken from the first shard; the
+    deposit-time GLOBAL manifest decides which is which: a key whose
+    recorded leading dim differs from the shard's is row-sharded.  The
+    caller verifies the merged wire against that manifest."""
+    first = shards[0]
+    out: Dict[str, np.ndarray] = {}
+    for k in sorted(first):
+        want = (global_manifest or {}).get(k)
+        v0 = np.asarray(first[k])
+        sharded = (want is not None and len(want[1]) >= 1
+                   and v0.ndim >= 1
+                   and int(want[1][0]) != int(v0.shape[0]))
+        if sharded:
+            out[k] = np.concatenate(
+                [np.asarray(s[k]) for s in shards], axis=0)
+        else:
+            out[k] = v0
+    return out
+
+
+def pod_pending(journal) -> Dict[int, dict]:
+    """``journal.pending()``, pod-aware: when the journal lives in a
+    per-rank ``h<rank>`` namespace, scan every sibling rank's journal
+    and reassemble whole generations from their shard payloads
+    (rank-major row concat, :func:`merge_shard_wires`).  A generation
+    missing a shard is logged and left out (its summary row is then
+    purged, as any unrecoverable loss).  Merged entries carry a
+    manifest-only digest, the deposit-time GLOBAL manifest: each shard's
+    CRC was checked by its own ``pending()`` scan."""
+    dirs = pod_sibling_dirs(journal.dir)
+    if len(dirs) <= 1:
+        return journal.pending()
+    mine = os.path.normpath(journal.dir)
+    per = []
+    for d in dirs:
+        j = journal if os.path.normpath(d) == mine else SpillJournal(d)
+        per.append(j.pending())
+    out: Dict[int, dict] = {}
+    for t in sorted(set().union(*map(set, per))):
+        recs = [p[t] for p in per if t in p]
+        shards = sorted((r for r in recs if r.get("shard")),
+                        key=lambda r: int(r["shard"][0]))
+        if not shards:
+            out[t] = recs[0]  # un-sharded payload (a one-rank write)
+            continue
+        want = int(shards[0]["shard"][1])
+        if len(shards) < want:
+            _counter("resilience_journal_bad_records_total").inc()
+            logger.warning(
+                "pod journal replay: generation %d has %d/%d shard "
+                "payload(s) — left for purge", t, len(shards), want)
+            continue
+        gm = shards[0].get("global_manifest")
+        out[t] = {
+            "t": t, "n": shards[0]["n"], "count": shards[0]["count"],
+            "eps": shards[0]["eps"], "norm": shards[0]["norm"],
+            "host_wire": merge_shard_wires(
+                [r["host_wire"] for r in shards], gm),
+            "digest": {"crc": None, "manifest": gm} if gm else None,
+        }
+    return out
 
 
 def _pack_payload(host_wire: Dict[str, np.ndarray], keys) -> bytes:
@@ -448,6 +554,13 @@ class SpillJournal:
                     "host_wire": wire,
                     "digest": rec.get("digest"),
                 }
+                if rec.get("shard") is not None:
+                    # a pod shard payload holds one rank's rows;
+                    # pod_pending() reassembles the generation
+                    out[t]["shard"] = [int(rec["shard"][0]),
+                                       int(rec["shard"][1])]
+                    out[t]["global_manifest"] = rec.get(
+                        "global_manifest")
         for t in mat:
             out.pop(t, None)
         return out

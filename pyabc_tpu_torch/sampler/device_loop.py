@@ -42,6 +42,46 @@ from .base import RECORD_KEYS
 _KEYS = ("m", "theta", "distance", "log_weight", "stats")
 
 
+def append_accepted(pairs, acc: torch.Tensor, count: torch.Tensor,
+                    cap: int) -> None:
+    """Write each ``(buf, rows)`` pair's accepted rows to ``buf`` from
+    row ``count`` on, in order, dropping rows at or past ``cap`` (``buf``
+    holds ``cap + 1`` rows: the last one takes the dropped writes).  The
+    round starts below its target, so ``count + len(acc) <= cap``.
+
+    Under PyTorch's deterministic mode on the card (a multi-rank run:
+    ``parallel.mesh.deterministic_kernels``) the scatter's index write
+    sorts its indices and writes each index's rows one after another, and
+    every rejected row shares the dump row: ~21 ms a key and round at
+    ``pod1e5``'s 2^18 rows on an H100, 98 % of its device time
+    (``chip_smoke.py --phases detprof``).  There each slot gathers its
+    row instead (:func:`_gather_accepted`), so the write has one row per
+    index; the rows kept are the same."""
+    if acc.is_cuda and torch.are_deterministic_algorithms_enabled():
+        return _gather_accepted(pairs, acc, count, cap)
+    pos = count + torch.cumsum(acc.to(torch.int64), 0) - 1
+    idx = torch.where(acc & (pos < cap), pos, torch.full_like(pos, cap))
+    for buf, rows in pairs:
+        buf[idx] = rows
+
+
+def _gather_accepted(pairs, acc: torch.Tensor, count: torch.Tensor,
+                     cap: int) -> None:
+    """:func:`append_accepted` as a gather: slot ``count + k`` takes the
+    k-th accepted row while ``k`` is below the round's acceptances and
+    the slot below ``cap``, else keeps its value; the dump row is left
+    alone."""
+    pos = count + torch.cumsum(acc.to(torch.int64), 0) - 1
+    k = torch.arange(acc.shape[0], device=acc.device)
+    n_acc = pos[-1] + 1 - count
+    src = torch.clamp(torch.searchsorted(pos - count, k), max=k.shape[0] - 1)
+    dst = torch.clamp(count + k, max=cap)
+    keep = (k < n_acc) & (dst < cap)
+    for buf, rows in pairs:
+        mask = keep.view((-1,) + (1,) * (rows.dim() - 1))
+        buf[dst] = torch.where(mask, rows[src], buf[dst])
+
+
 def _fill_records(rec: dict) -> dict:
     """Record buffers back to empty: NaN floats, False, model 0."""
     for k, v in rec.items():
@@ -93,11 +133,9 @@ def build_stateful_loop(raw_round: Callable, B: int, n_target: int,
             state["count"] = torch.zeros((), dtype=torch.int64, device=dev)
         acc = rr.accepted
         count = state["count"]
-        pos = count + torch.cumsum(acc.to(torch.int64), 0) - 1
-        idx = torch.where(acc & (pos < cap), pos, cap)
         bufs = state["bufs"]
-        for k in _KEYS:
-            bufs[k][idx] = getattr(rr, k)
+        append_accepted([(bufs[k], getattr(rr, k)) for k in _KEYS], acc,
+                        count, cap)
         state["count"] = torch.clamp(count + acc.sum(), max=cap)
         if record_cap:
             if state["rec"] is None:

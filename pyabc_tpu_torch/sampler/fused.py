@@ -99,6 +99,7 @@ from ..telemetry.lanes import (phase_cost_model, phase_wire_lanes,
 from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
 from ..wire.store import summary_wire_lanes
+from .device_loop import append_accepted
 
 # Stop codes of the JAX package's device stop chain, in the order the
 # host loop checks them; ``smc.STOP_REASONS`` maps each to its string.
@@ -545,11 +546,8 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                 rr, pairs = rr
                 npass = npass + pairs[2].sum()
             acc = rr.accepted
-            pos = count + torch.cumsum(acc.to(torch.int64), 0) - 1
-            idx = torch.where(acc & (pos < cap), pos,
-                              torch.full_like(pos, cap))
-            for key in POP_LANES:
-                bufs[key][idx] = getattr(rr, key)
+            append_accepted([(bufs[key], getattr(rr, key))
+                             for key in POP_LANES], acc, count, cap)
             count = torch.clamp(count + acc.sum(), max=cap)
             rounds += 1
             # the last round's candidates feed the refit / the rings

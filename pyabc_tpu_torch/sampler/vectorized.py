@@ -124,15 +124,21 @@ class VectorizedSampler(Sampler):
         autotuner (its rate was observed per sampler call)."""
         self._tuner.observe_timing(compute_s, overlap_s)
 
-    @staticmethod
-    def raw_round(round_fn, B: int, **round_kwargs):
+    def round_at(self, round_fn, B: int, **round_kwargs):
+        """``round_fn`` at batch ``B`` as ``(generator, params) ->
+        RoundResult``, ``round_kwargs`` passed to every call: the building
+        block a :class:`~.sharded.ShardedSampler` splits over its mesh
+        (``pyabc_tpu/sampler/vectorized.py:104``)."""
+        return lambda gen, p: round_fn(gen, p, B, **round_kwargs)
+
+    def raw_round(self, round_fn, B: int, **round_kwargs):
         """The deferred round of ``round_fn`` at batch ``B``: ``(generator,
         params) -> RoundResult`` with partial weights (the proposal
         density is left to the caller, once per generation);
         ``round_kwargs`` go to every call (the staged round's
         ``full_fraction``)."""
-        return lambda gen, p: round_fn(gen, p, B, with_proposal=False,
-                                       **round_kwargs)
+        return self.round_at(round_fn, B, with_proposal=False,
+                             **round_kwargs)
 
     def _round_to_valid_batch(self, b: float) -> int:
         return int(np.clip(_pow2_at_least(b), self.min_batch_size,
@@ -167,12 +173,12 @@ class VectorizedSampler(Sampler):
             # calibration: exact-size rounds; failed simulations (NaN
             # distance) are dropped, so top up until n
             B = self.last_batch = self._round_to_valid_batch(n)
+            calibrate = self.round_at(round_fn, B, all_accepted=True)
             zero_rounds = 0
             while sample.n_accepted < n:
                 before = sample.n_accepted
                 sample.append_round(self._dispatch(
-                    lambda: round_fn(generator, params, B,
-                                     all_accepted=True), rng=generator))
+                    lambda: calibrate(generator, params), rng=generator))
                 zero_rounds = (zero_rounds + 1
                                if sample.n_accepted == before else 0)
                 if zero_rounds >= 3:
@@ -205,7 +211,7 @@ class VectorizedSampler(Sampler):
                 record_density_fn = (
                     lambda m, th: weight_fn(m, th, params))  # noqa: E731
         else:
-            raw = lambda gen, p: round_fn(gen, p, B)  # noqa: E731
+            raw = self.round_at(round_fn, B)
             weight_fn = None
         owner = getattr(round_fn, "__self__", round_fn)
         loop_key = (getattr(owner, "_uid", id(owner)),

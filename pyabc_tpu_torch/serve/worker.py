@@ -46,6 +46,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 
 from ..device import resolve_device
+from ..ops.kde_cuda import weighted_kde_logpdf_cuda
 from ..resilience.faults import SITE_SERVE_WINDOW, fault_point
 from ..telemetry import studytrace
 from ..telemetry.metrics import REGISTRY
@@ -541,12 +542,24 @@ class ServeWorker:
                     self._emit(spec, "batched", engine="multiplex",
                                batch_key=batch_key(spec)[:12],
                                width=len(group))
+                k1 = weighted_kde_logpdf_cuda.launches
                 results = self._run_batch(
                     group,
                     on_built=lambda b: [
                         self._emit(s, "dispatched", **b.trace_info())
                         for s in b.specs])
                 wall = time.perf_counter() - t0
+                # K1 launches beside the generations that needed one
+                # (one per lane and successful generation): equal sums in
+                # a worker's snapshot say every lane weight ran on K1
+                REGISTRY.counter(
+                    "serve_lane_kde_launches_total",
+                    "K1 launches of the study axis (static batches)"
+                ).inc(weighted_kde_logpdf_cuda.launches - k1)
+                REGISTRY.counter(
+                    "serve_lane_generations_total",
+                    "lane generations after the first (static batches)"
+                ).inc(sum(int(r["gens"]) - 1 for r in results))
                 for spec in group:
                     self._emit(spec, "drained")
                 REGISTRY.counter(

@@ -106,6 +106,7 @@ replays after a kill.
 
 from __future__ import annotations
 
+import contextlib
 import functools
 import logging
 import math
@@ -132,6 +133,8 @@ from .model import Model, SimpleModel
 from .ops import precision as _precision
 from .ops.kde_cuda import weighted_kde_logpdf_cuda
 from .parallel.health import stop_requested
+from .parallel.mesh import deterministic_kernels, world_size
+from .platform_factory import DefaultSampler
 from .population import Population
 from .populationstrategy import ConstantPopulationSize, PopulationStrategy
 from .random_variables import Distribution, ModelPerturbationKernel
@@ -142,6 +145,7 @@ from .resilience.journal import IntegrityError
 from .sampler import fused as _fused
 from .sampler.base import Sample, Sampler, fetch_to_host
 from .sampler.rounds import RoundKernel
+from .sampler.sharded import ShardedSampler
 from .sampler.vectorized import VectorizedSampler, _pow2_at_least
 from .storage.history import PRE_TIME, History
 from .sumstat import SumStatSpec
@@ -261,7 +265,7 @@ class ABCSMC:
         else:
             self.device = resolve_device(device)
         if sampler is None:
-            sampler = VectorizedSampler(device=self.device)
+            sampler = DefaultSampler(device=self.device)
         elif sampler.device != self.device:
             raise ValueError(f"sampler runs on {sampler.device}, the run on "
                              f"{self.device}")
@@ -736,6 +740,15 @@ class ABCSMC:
         s = self.sampler
         if not isinstance(s, VectorizedSampler):
             return False
+        if isinstance(s, ShardedSampler) and world_size() > 1:
+            # pod posture (``pyabc_tpu/smc.py:755-767``): the device
+            # engines run across ranks only as one dispatch with the lazy
+            # store armed, over a mesh spanning every rank; every other
+            # multi-rank run takes the sequential loop
+            if self.run_mode != "onedispatch" or self._store is None:
+                return False
+            if s.mesh.world_size != world_size():
+                return False
         if not getattr(self.acceptor, "device_accept_ok", False):
             return False
         if not getattr(self.eps, "device_schedule_ok", False):
@@ -2212,6 +2225,13 @@ class ABCSMC:
         if self.history is None:
             raise RuntimeError("call new(db, observed) or load(db) first")
         self._configure_telemetry()
+        # every rank of a multi-rank run computes the replicated carry
+        # itself, so every rank must compute the same bits: kernels with
+        # an order-dependent float reduction (``index_add_`` on the card)
+        # take their deterministic forms for the run
+        determinism = contextlib.ExitStack()
+        if world_size() > 1:
+            determinism.enter_context(deterministic_kernels())
         # the run span covers everything (calibration included); flushed
         # in the finally so a crashed run still leaves a loadable trace
         run_span = _spans.span("run", path=self.ingest_mode)
@@ -2234,6 +2254,7 @@ class ABCSMC:
                 except Exception:
                     logger.exception("lazy-tail persist at run exit "
                                      "failed")
+            determinism.close()
             _spans.TRACER.flush()
             self._publish_fleet(force=True)
             if len(self.timeline):
@@ -2269,8 +2290,11 @@ class ABCSMC:
         self.sampler.max_records = self.max_nr_recorded_particles
         # the accepted stats go to the host only for a reader there: the
         # History blob, or an adaptive refit that has no record stream
+        # (a multi-rank run keeps the stats on the wire, as the JAX
+        # package's multi-host runs do: ``pyabc_tpu/smc.py:3064-3067``)
         records_cover_refit = (self.sampler.record_rejected
-                               and self.max_nr_recorded_particles > 0)
+                               and self.max_nr_recorded_particles > 0
+                               and world_size() == 1)
         self.sampler.fetch_stats = (
             self.stores_sum_stats
             or (self._distance_is_adaptive() and not records_cover_refit))

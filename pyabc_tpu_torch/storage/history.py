@@ -483,7 +483,7 @@ class History:
     def _append_population_lazy_once(self, t, current_epsilon,
                                      nr_simulations, summary, model_names,
                                      param_names, stat_spec, summary_grid):
-        self._drain_spills()
+        self._drain_spills(defer_pod=True)
         grid_blob = None
         if summary_grid:
             grid_blob = _pack(np.stack(
@@ -603,15 +603,26 @@ class History:
                     pass
             raise
 
-    def _drain_spills(self):
+    def _drain_spills(self, defer_pod: bool = False):
         """Materialize the entries the store's ring evicted, each under
         its own retry (``history.materialize`` site): a failure requeues
         THAT entry and the drain moves on.  An entry whose summary row is
         not appended yet (a worker deposited ahead of the harvest) is
-        requeued too."""
+        requeued too.
+
+        ``defer_pod``: the per-generation call site
+        (``pyabc_tpu/storage/history.py:717-735``).  A multi-rank run
+        leaves its spills queued there (their shard bytes are journaled
+        at eviction) and materializes only at the explicit drain points
+        — flush, a reader's hydration, recovery — which every rank
+        reaches at the same point of the program."""
         store = self._store
         if store is None:
             return
+        if defer_pod:
+            from ..parallel.mesh import world_size
+            if world_size() > 1:
+                return
         from ..resilience import faults as _faults
         from ..resilience import retry as _retry
         from ..resilience.journal import IntegrityError
@@ -753,11 +764,15 @@ class History:
         generations a crash stranded on the card are restored, not
         discarded — then purge whatever is still summary-only.  Returns
         ``{"recovered": n, "purged": m}``."""
+        from ..resilience.journal import pod_pending
         from ..telemetry.metrics import REGISTRY
         recovered = 0
         journal = self._existing_journal()
         if journal is not None:
-            for t, entry in sorted(journal.pending().items()):
+            # pod runs journal per-rank shards into sibling h<NNN>
+            # directories; pod_pending reassembles whole generations
+            # (``pyabc_tpu/storage/history.py:905-916``)
+            for t, entry in sorted(pod_pending(journal).items()):
                 row = self._lazy_flag(t)
                 if row is None or not row[0]:
                     # nothing to fill: no summary row committed, or the

@@ -292,3 +292,20 @@ def heartbeat_summary() -> dict:
         "checkpoints": int(d.get("resilience_checkpoints_total", 0)),
     }
 
+
+
+def render_worker_prometheus(status: list) -> str:
+    """Prometheus text over ``parallel.health.worker_status()`` entries
+    (``pyabc_tpu/telemetry/metrics.py:300``): each worker's heartbeat
+    metrics become ``pyabc_tpu_worker_<key>`` samples labeled by
+    host/pid, so a run directory scrapes like an exporter."""
+    rows = []
+    for e in status:
+        metrics = e.get("metrics") or {}
+        labels = f'host="{e.get("host", "?")}",pid="{e.get("pid", "?")}"'
+        for k in sorted(metrics):
+            v = metrics[k]
+            if isinstance(v, bool) or not isinstance(v, (int, float)):
+                continue
+            rows.append(f"pyabc_tpu_worker_{k}{{{labels}}} {v}")
+    return "\n".join(rows) + ("\n" if rows else "")

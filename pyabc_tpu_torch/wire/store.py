@@ -345,8 +345,34 @@ class DeviceRunStore:
 
     @staticmethod
     def _spill_once(entry: dict, journal):
+        from ..parallel.mesh import host_shard_slice, world
         from ..sampler.base import fetch_to_host
 
+        rank, size = world()
+        if size > 1:
+            # pod posture (``pyabc_tpu/wire/store.py:440-454``): journal
+            # only this rank's rows, with no cross-rank traffic.  The
+            # port's wire is replicated, so the shard is a slice of the
+            # whole; recovery reassembles the generation rank-major from
+            # the sibling journals (``resilience/journal.py``
+            # pod_pending), and the entry keeps its deposit-time GLOBAL
+            # manifest so a later hydration of the whole wire verifies
+            wire = _population_wire(entry)
+            rows = int(wire["m"].shape[0])
+            cut = host_shard_slice(None, rows)
+            shard_wire = {k: (v[cut] if v.dim() >= 1
+                              and v.shape[0] == rows else v)
+                          for k, v in wire.items()}
+            with transfer.egress("history"):
+                shard = fetch_to_host(shard_wire, entry.get("ready"))
+            journal.append_payload(
+                entry["t"], shard,
+                {"n": entry["n"], "count": entry["count"],
+                 "eps": entry["eps"], "norm": entry["norm"],
+                 "shard": [rank, size],
+                 "global_manifest": entry["digest"]["manifest"]})
+            entry["host_shard"] = shard
+            return
         # the fetch has completed (its copy stream synchronized) before
         # the bytes are framed and fsynced
         with transfer.egress("history"):

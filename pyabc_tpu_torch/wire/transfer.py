@@ -30,6 +30,9 @@ Ledger keys (cumulative since process start):
   the caller thread was not blocked on them (``wire.streaming``).
 - ``rewinds`` — speculative generations the pipelined engine discarded
   (``ABCSMC._run_pipelined``'s ``rewind_to_frontier``).
+- ``collective_s`` — host seconds in cross-process collectives
+  (``parallel.mesh.all_gather_rows``: a sharded round's rows); 0 in a
+  one-process run.
 
 ``snapshot()``/``delta()`` also report the derived ``d2h_mb_per_s``.
 Every fetched byte is attributed to one ``EGRESS_SUBSYSTEMS`` bucket, the
@@ -56,7 +59,7 @@ from ..telemetry.metrics import REGISTRY
 #: ledger keys, in the order snapshots report them; ``d2h_s`` and
 #: ``fetch_s`` read the same counter
 _KEYS = ("d2h_bytes", "d2h_s", "d2h_calls", "h2d_bytes", "compute_s",
-         "fetch_s", "decode_s", "overlap_s", "rewinds")
+         "fetch_s", "decode_s", "overlap_s", "rewinds", "collective_s")
 _INT_KEYS = frozenset({"d2h_bytes", "d2h_calls", "h2d_bytes", "rewinds"})
 #: the registry counter behind each key (the JAX package's names)
 _METRIC = {
@@ -69,6 +72,7 @@ _METRIC = {
     "decode_s": "wire_decode_seconds_total",
     "overlap_s": "wire_overlap_seconds_total",
     "rewinds": "wire_rewinds_total",
+    "collective_s": "wire_collective_seconds_total",
 }
 
 #: d2h egress subsystems: every fetched byte is booked to one of them
@@ -142,6 +146,15 @@ def record_overlap(seconds: float):
 def record_rewind(count: int = 1):
     """Count speculative generations a pipeline rewind discarded."""
     _c("wire_rewinds_total").inc(int(count))
+
+
+def record_collective(seconds: float):
+    """Charge a host-side cross-process synchronization
+    (``pyabc_tpu/wire/transfer.py:181``).  Under gloo the seconds are
+    the whole exchange; under NCCL the host's share of the call (the
+    gather itself runs on the card's stream).  The fleet rollup reads it
+    as ``collective_s_per_gen``."""
+    _c("wire_collective_seconds_total").inc(float(seconds))
 
 
 def _read(key: str):

@@ -1,7 +1,6 @@
 """Public-API parity of the port with the JAX package.
 
-Every name of ``pyabc_tpu.__all__`` resolves in ``pyabc_tpu_torch``
-except the listed scale-out names, and the parity classes compute what
+Every name of ``pyabc_tpu.__all__`` resolves in ``pyabc_tpu_torch``, and the parity classes compute what
 the JAX ones compute on the same numpy inputs (exactly, or to float32
 rounding where a density is evaluated).
 """
@@ -17,12 +16,8 @@ import pyabc_tpu as jpt
 import pyabc_tpu_torch as pt
 
 #: names of ``pyabc_tpu.__all__`` the port leaves out, with the reason
-LEFT_OUT = {
-    "ShardedSampler": "the sharded data plane over a device mesh is "
-                      "ROADMAP Queue 1 item 4 (parallel/, torch.distributed)",
-    "RedisEvalParallelSampler": "an alias of ShardedSampler in the JAX "
-                                "package; goes with it (Queue 1 item 4)",
-}
+#: (none since the sharded data plane was ported)
+LEFT_OUT = {}
 
 
 @pytest.mark.parametrize("name", sorted(jpt.__all__))

@@ -73,7 +73,11 @@ def test_port_files_exist():
                 "serve/__init__.py", "serve/spec.py", "serve/shards.py",
                 "serve/tracing.py", "serve/queue.py", "serve/cache.py",
                 "serve/admission.py", "serve/multiplex.py",
-                "serve/worker.py"):
+                "serve/worker.py", "parallel/mesh.py", "parallel/cli.py",
+                "sampler/sharded.py", "sched/__init__.py",
+                "sched/autoscale.py", "sched/platform.py",
+                "sched/scheduler.py", "tools/__init__.py",
+                "tools/loadgen.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 

@@ -139,20 +139,21 @@ def test_ledger_counters_and_egress_attribution():
     transfer.record_compute(0.125)
     transfer.record_decode(0.0625)
     transfer.record_rewind(2)
+    transfer.record_collective(0.5)
     d = transfer.delta(before)
     assert d["d2h_bytes"] == 118 and d["d2h_calls"] == 3
     assert d["h2d_bytes"] == 3 and d["rewinds"] == 2
     assert d["d2h_s"] == d["fetch_s"] == pytest.approx(1.0)
     assert d["compute_s"] == pytest.approx(0.125)
     assert d["decode_s"] == pytest.approx(0.0625)
+    assert d["collective_s"] == pytest.approx(0.5)
     assert d["d2h_mb_per_s"] == pytest.approx(118 / 1e6)
     eg = transfer.egress_breakdown()
     grew = {k: eg[k] - eg0[k] for k in eg}
     assert grew["summary"] == 100 and grew["other"] == 7
     assert grew["population"] == 11
     assert sum(grew.values()) == d["d2h_bytes"]
-    assert set(transfer.snapshot()) == set(jax_transfer.snapshot()) - {
-        "collective_s"}
+    assert set(transfer.snapshot()) == set(jax_transfer.snapshot())
     assert transfer.EGRESS_SUBSYSTEMS == jax_transfer.EGRESS_SUBSYSTEMS
 
 
