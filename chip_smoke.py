@@ -89,7 +89,19 @@ Phases, each printed as one JSON line and each fatal on failure:
    ``fusedpetab1e5`` with ``run_mode="onedispatch"``: the device stop
    chain must end the run on "temperature reached 1" at the fused twin's
    generation, with identical temperatures and populations, and hold
-   ``petab1e5``'s quadrature gate.
+   ``petab1e5``'s quadrature gate.  ``lanes1e6`` is the JAX package's
+   ``bench_kernel`` row: config #2 at pop 1e6 with
+   ``MedianEpsilon(device_sketch=True)``, batch up to 2^19, 16 rounds
+   per call, K = 4, ``run_mode="onedispatch"``, seed 0, for ``run_gate``'s
+   11 generations under ``PYABC_TPU_PRECISION_LANES=bf16`` (the frozen
+   policy dropped before and after, the environment restored), then its
+   float32 twin.  Each arm holds ``run_gate``'s tolerances, a final ε
+   below 0.05 and the sketch's error on its last weighted distances
+   within ``sketch_error_bound``; K1 launches per generation equal the
+   twin's; the lane was on: every stored distance of the bf16 arm is a
+   bf16 value (none of the twin's is), and fresh statistics at the last
+   population's parameters move under the bf16 distance by at most 2^-8
+   relative from the float32 formula (not at all in the twin).
 
 9. ``pipelined1e6`` / ``pipelinedsir1e6`` — the pipelined engine with
    lazy History rows, as ``ABCSMC``'s defaults run a device-eligible
@@ -235,7 +247,9 @@ Phases, each printed as one JSON line and each fatal on failure:
    import's seconds and rows.  ``hostsamplers`` runs config #2 through
    ``ConcurrentFutureSampler`` and ``DaskDistributedSampler`` (over a
    thread-pool client; 4 jobs, 1024 candidates a task) at pop 1000 for
-   11 generations, each against ``run_gate``'s tolerances at that pop and
+   9 generations (``run_gate``'s 11 cut by two: the last two held ~2 850
+   of a run's ~3 700 tasks), each against ``run_gate``'s tolerances at
+   that pop and
    again with the seed for 6 generations (bit-identical to the first
    run's), and through
    ``MappingSampler(map_=map)`` at pop 100 for 3 generations (max_t >= 1,
@@ -272,7 +286,12 @@ Phases, each printed as one JSON line and each fatal on failure:
    ``/abc/1`` and a population page each 200 and parsed, ``/api/kde``
    against ``kde_1d``, ``/plot`` a PNG where matplotlib is installed
    (``"matplotlib"`` in the line says whether).  It reports each call's
-   and route's milliseconds and launches and the snapshots seen.
+   and route's milliseconds and launches and the snapshots seen.  The
+   twin writes under ``PYABC_TPU_WIRE_CODEC=raw`` (``.npy`` blobs) and
+   still reads back bit-identical; ``codec`` reports the History write
+   seconds per generation and the database's bytes with the PTW1 codec
+   and with ``raw``, the run's populations appended again to a fresh
+   file under each.
 
 15. ``serve1e4`` / ``servecb`` — the serving path (``serve/``).
    ``serve1e4`` is bench.py's ``bench_serve`` mix through one
@@ -369,7 +388,8 @@ from pathlib import Path
 
 ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "petab1e5", "sbml1e5", "fused16384", "fused1e6", "fusedlv1e5",
-              "fusedpetab1e5", "onedispatch1e6", "onedispatchpetab1e5",
+              "fusedpetab1e5", "onedispatch1e6", "lanes1e6",
+              "onedispatchpetab1e5",
               "pipelined1e6", "pipelinedsir1e6", "library", "stats1e5",
               "adaptivepop", "local1e4", "fidelitysir5e4", "fidelitylv5e4",
               "capacity1e7", "telemetry1e6", "chaos1e6", "recover1e6",
@@ -864,6 +884,15 @@ def generation_row(r: dict) -> dict:
     return out
 
 
+def wire_per_gen(abc) -> list:
+    """Each generation's device-to-host copy from the run's wire ledger
+    (``ABCSMC.generation_transfer``): bytes and seconds, the port's own
+    numbers behind the f16 wire codec it does not port."""
+    return [{"t": t, "d2h_bytes": tr.get("d2h_bytes"),
+             "d2h_s": tr.get("d2h_s")}
+            for t, tr in sorted(abc.generation_transfer.items())]
+
+
 def fused_report(abc, rows) -> dict:
     """The fused blocks of a run (``ABCSMC.blocks``: every block run,
     those that wrote nothing included) and the gates every fused phase
@@ -1166,6 +1195,7 @@ def phase_onedispatch1e6(torch, state):
            "fused_blocks": [{k: b[k] for k in ("t", "written", "rounds",
                                                "host_reads", "wall_s")}
                             for b in a_f.blocks],
+           "wire": wire_per_gen(a_o),
            "peak_mem_gb": max(r["peak_mem_gb"] for r in rows),
            "generations": [
                {**generation_row(r), "accepted_per_s": r["n"] / r["wall_s"]}
@@ -1178,6 +1208,148 @@ def phase_onedispatch1e6(torch, state):
     emit({"phase": "onedispatch1e6", **row})
     if not row["ok"]:
         raise RuntimeError(f"onedispatch1e6 failed its checks: {checks}")
+
+
+LANES_POP = 1_000_000
+LANES_GENS = 11
+
+
+def lanes_run(torch, lanes: str) -> dict:
+    """The JAX package's ``bench_kernel`` configuration (config #2 at pop
+    1e6, ``MedianEpsilon(device_sketch=True)``, batch up to 2^19, 16
+    rounds per call, ``stores_sum_stats=False``, K = 4, one-dispatch,
+    seed 0) for ``run_gate``'s 11 generations under
+    ``$PYABC_TPU_PRECISION_LANES=lanes``.  The frozen policy is dropped
+    before and after the run and the environment restored, so every other
+    phase runs at float32.  Returns the run's gate, walls, K1 launches,
+    the last population's sketch error and, under the bf16 distance lane,
+    the lane's effect on the last population's statistics on the card."""
+    import numpy as np
+
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch import weighted_statistics as ws
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+    from pyabc_tpu_torch.ops import precision
+    from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
+    from pyabc_tpu_torch.ops.quantile_sketch import (
+        sketch_error_bound, sketch_weighted_quantile)
+
+    precision._reset_for_testing()
+    try:
+        with _Env(**{precision.PRECISION_ENV: lanes}):
+            policy = {c: precision.lanes(c) for c in precision.COMPONENTS}
+            models, priors, distance, observed, posterior_fn = \
+                make_two_gaussians_problem()
+            abc = pt.ABCSMC(
+                models, priors, distance, population_size=LANES_POP,
+                eps=pt.MedianEpsilon(device_sketch=True),
+                sampler=pt.VectorizedSampler(max_batch_size=1 << 19,
+                                             max_rounds_per_call=16,
+                                             device="cuda"),
+                stores_sum_stats=False, fuse_generations=FUSE_K,
+                run_mode="onedispatch", seed=0, device="cuda")
+            abc.new("sqlite://", observed)
+            weighted_kde_logpdf_cuda.launches = 0
+            t0 = time.perf_counter()
+            abc.run(max_nr_populations=LANES_GENS)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            launches = weighted_kde_logpdf_cuda.launches
+            h = abc.history
+            t = h.max_t
+            pop = h.get_population(t)
+            # the lane on the last population's statistics: fresh
+            # simulations at its parameters, on the card, through the
+            # distance under the frozen policy and in float32
+            gen = torch.Generator(device="cuda").manual_seed(1)
+            obs = abc.spec.flatten_single(observed, device="cuda")
+            params = {k: torch.as_tensor(v, device="cuda")
+                      for k, v in abc.distance_function.get_params(t).items()}
+            theta = torch.as_tensor(pop.theta, device="cuda")
+            m = torch.as_tensor(pop.m, device="cuda")
+            stats = torch.empty(len(pop), obs.shape[0], device="cuda")
+            for k, model in enumerate(abc.models):
+                rows = (m == k).nonzero().squeeze(1)
+                stats[rows] = abc.spec.flatten(model.simulate(gen,
+                                                              theta[rows]))
+            d_lane = abc.distance_function.compute(stats, obs, params)
+            # the float32 lane's arithmetic (PNormDistance.compute)
+            diff = torch.abs(params["w"] * (stats - obs))
+            d_f32 = (diff.max(-1).values if math.isinf(distance.p) else
+                     torch.sum(diff ** distance.p, -1) ** (1.0 / distance.p))
+            rel = ((d_lane - d_f32).abs() / d_f32.clamp_min(1e-30))
+            d_hist = np.asarray(pop.distance, np.float32)
+            as_bf16 = torch.from_numpy(d_hist).to(torch.bfloat16).float()
+    finally:
+        precision._reset_for_testing()
+    p_b = float(h.get_model_probabilities(t).get(1, 0.0))
+    df, w = h.get_distribution(m=1, t=t)
+    mu = float(np.sum(df["mu"].to_numpy() * w)) if len(df) else math.nan
+    pops = h.get_all_populations()
+    # the sketch on the run's own final weighted distances
+    wn = np.asarray(pop.weight, np.float64)
+    exact = float(ws.weighted_quantile(d_hist, wn / wn.sum(), 0.5))
+    sketch = float(sketch_weighted_quantile(
+        torch.as_tensor(d_hist, device="cuda"),
+        torch.as_tensor(wn / wn.sum(), dtype=torch.float32, device="cuda"),
+        0.5))
+    finite = d_hist[np.isfinite(d_hist)]
+    bound = float(sketch_error_bound(float(finite.min()),
+                                     float(finite.max())))
+    return {"lanes": lanes, "policy": policy, "wall_s": wall,
+            "gens_run": t + 1, "p_model_b": p_b,
+            "p_analytic": float(posterior_fn(1.0)), "mu_b": mu,
+            "final_eps": float(pops.epsilon.iloc[-1]),
+            "kde_launches": launches,
+            "kde_launches_per_gen": [r["kde_launches"]
+                                     for r in abc.timeline],
+            "paths": [r["path"] for r in abc.timeline],
+            "run_dispatches": abc.run_dispatches,
+            "sketch_err": abs(sketch - exact), "sketch_bound": bound,
+            "lane_rel_max": float(rel.max()),
+            "lane_rows_moved": int((d_lane != d_f32).sum()),
+            "history_distances_bf16": bool(
+                np.array_equal(as_bf16.numpy(), d_hist)),
+            "generations": [generation_row(r) for r in abc.timeline]}
+
+
+def phase_lanes1e6(torch, state):
+    """The JAX package's tuned one-dispatch row on the card: the bf16
+    compute lanes, then the float32 twin that differs only in the lane."""
+    lane = lanes_run(torch, "bf16")
+    twin = lanes_run(torch, "f32")
+    tol_p = max(2.5e-3, 2.5 / LANES_POP ** 0.5)
+    tol_mu = max(3e-3, 3.0 / LANES_POP ** 0.5)
+    checks = {}
+    for name, arm in (("bf16", lane), ("f32", twin)):
+        checks[f"{name}_gens"] = arm["gens_run"] == LANES_GENS
+        checks[f"{name}_gate"] = (
+            abs(arm["p_model_b"] - arm["p_analytic"]) < tol_p
+            and abs(arm["mu_b"] - 1.0) < tol_mu)
+        checks[f"{name}_final_eps"] = arm["final_eps"] < 0.05
+        checks[f"{name}_sketch"] = arm["sketch_err"] <= arm["sketch_bound"]
+        checks[f"{name}_onedispatch"] = "onedispatch" in arm["paths"]
+    checks["policy"] = (lane["policy"] == {"kde": "bf16", "distance": "bf16"}
+                        and twin["policy"] == {"kde": "f32",
+                                               "distance": "f32"})
+    checks["launches_equal_twin"] = (lane["kde_launches_per_gen"]
+                                     == twin["kde_launches_per_gen"])
+    checks["lane_on"] = (lane["lane_rows_moved"] > 0
+                         and 0 < lane["lane_rel_max"] <= 2.0 ** -8
+                         and lane["history_distances_bf16"])
+    checks["twin_f32"] = (twin["lane_rows_moved"] == 0
+                          and not twin["history_distances_bf16"])
+    launches = state.setdefault("launches", {})
+    launches["lanes1e6"] = lane["kde_launches"]
+    launches["lanes1e6_f32"] = twin["kde_launches"]
+    row = {"phase": "lanes1e6", "ok": all(checks.values()),
+           "checks": checks, "pop": LANES_POP, "gens": LANES_GENS,
+           "tol_p": tol_p, "tol_mu": tol_mu,
+           "wall_s": lane["wall_s"], "twin_wall_s": twin["wall_s"],
+           "bf16": lane, "f32": twin}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"lanes1e6 failed its checks: {checks}")
 
 
 def phase_onedispatchpetab1e5(torch, state):
@@ -2846,6 +3018,7 @@ def capacity_run(torch, prec: str, seed: int = 0, budget=None) -> dict:
                "moments": posterior_moments(abc, priors, truth),
                "rows": list(abc.timeline), "stop": abc.stop_reason,
                "max_t": abc.history.max_t, "precision": abc._carry_mode,
+               "wire": wire_per_gen(abc),
                "theta": pop.theta, "distance": pop.distance,
                "weight": pop.weight}
     finally:
@@ -2983,6 +3156,7 @@ def phase_capacity1e7(torch, state):
         "truth": np.asarray(moments["truth"]).tolist(),
         "generations": [generation_row(r) for r in rows],
         "twin_generations": [generation_row(r) for r in twin["rows"]],
+        "wire": run["wire"], "twin_wire": twin["wire"],
     }
     emit(row)
     if not row["ok"]:
@@ -4132,7 +4306,9 @@ def phase_refexport1e5(torch, state):
 
 
 HOST_POP = 1000
-HOST_GENS = 11
+#: run_gate's 11 generations cut by two, the smoke's first depth to cut
+#: (the last two generations held ~2 850 of a run's ~3 700 tasks)
+HOST_GENS = 9
 HOST_BATCH = 1024
 #: the same-seed repeat runs the first generations again (t = 5 already
 #: has ~50 tasks in flight four at a time; t = 10 alone ~1 900)
@@ -4237,7 +4413,7 @@ def _host_report(runs, checks: dict, launches: dict, name: str) -> dict:
 def phase_hostsamplers(torch, state):
     """Config #2 through ``ConcurrentFutureSampler`` (4 jobs, 1024
     candidates a task) and ``DaskDistributedSampler`` (over a thread-pool
-    client) at pop 1000 for ``run_gate``'s 11 generations, each held to
+    client) at pop 1000 for ``HOST_GENS`` generations, each held to
     ``run_gate``'s tolerances at that pop, and again with the same seed
     for 6 generations (bit-identical to the first run's); and
     ``MappingSampler(map_=map)`` at pop 100 for 3 generations (the JAX
@@ -4649,6 +4825,46 @@ def analysis_viewer(torch, state, db: str, run_dir: str, h_main,
     return {"routes": routes, "checks": checks}
 
 
+def codec_writes(history, root: str) -> dict:
+    """History write seconds per generation and the database's bytes
+    under each blob codec: the run's populations appended again,
+    generation by generation, to a fresh file database with PTW1 (the
+    default) and with ``$PYABC_TPU_WIRE_CODEC=raw``."""
+    import os
+    import sqlite3
+
+    from pyabc_tpu_torch.storage import History
+    from pyabc_tpu_torch.wire import transfer
+
+    names = history.model_names()
+    pops = history.get_all_populations()
+    gens = [(int(r.t), float(r.epsilon), int(r.samples),
+             history.get_population(int(r.t)))
+            for r in pops.itertuples() if r.t >= 0]
+    out = {}
+    for label, value in (("ptw1", None), ("raw", "raw")):
+        path = os.path.join(root, f"codec_{label}.db")
+        with _Env(**{transfer.WIRE_CODEC_ENV: value}):
+            h = History("sqlite:///" + path)
+            h.store_initial_data(None, {}, {"y": 1.0}, None, names)
+            seconds = []
+            for t, eps, evals, pop in gens:
+                t0 = time.perf_counter()
+                h.append_population(t, eps, pop, evals, names,
+                                    [["mu"]] * len(names))
+                seconds.append(time.perf_counter() - t0)
+            h.close()
+        with sqlite3.connect(path) as conn:
+            blob = conn.execute("SELECT theta FROM model_populations "
+                                "LIMIT 1").fetchone()[0]
+        out[label] = {"write_s_per_gen": seconds,
+                      "write_s_median": statistics.median(seconds),
+                      "db_bytes": os.path.getsize(path),
+                      "rows_per_gen": len(gens[0][3]),
+                      "ptw1_blobs": transfer.is_ptw1(blob)}
+    return out
+
+
 def phase_analysis1e6(torch, state):
     """Looking at a run on the card: config #2 at pop 1e6 in
     ``onedispatch1e6``'s configuration with lazy rows, a run directory
@@ -4665,7 +4881,7 @@ def phase_analysis1e6(torch, state):
     from pyabc_tpu_torch.parallel import health
     from pyabc_tpu_torch.storage.history import _unpack
     from pyabc_tpu_torch.telemetry import aggregate, lanes, spans
-    from pyabc_tpu_torch.wire import store
+    from pyabc_tpu_torch.wire import store, transfer
 
     matplotlib = importlib.util.find_spec("matplotlib") is not None
     if matplotlib:
@@ -4687,8 +4903,11 @@ def phase_analysis1e6(torch, state):
         spans.TRACER.reset()
         if tracer[1]:
             spans.TRACER.configure(trace_path=tracer[1])
+        # the twin also writes plain .npy blobs: the codec changes bytes,
+        # never what reads back
         with _Env(**{health.RUN_DIR_ENV: None,
-                     store.SUMMARY_GRID_ENV: None}):
+                     store.SUMMARY_GRID_ENV: None,
+                     transfer.WIRE_CODEC_ENV: "raw"}):
             a_twin, wall_twin, launches_twin = onedispatch_main_run(
                 torch, "onedispatch", "lazy",
                 db=os.path.join(tmp, "twin.db"))
@@ -4696,6 +4915,9 @@ def phase_analysis1e6(torch, state):
         checks.update(report["onedispatch_checks"])
         difference = population_difference(a_run.history, a_twin.history)
         checks["bit_identical_to_twin"] = difference is None
+        codec = codec_writes(a_run.history, tmp)
+        checks["codec_blobs"] = codec["ptw1"]["ptw1_blobs"] and \
+            not codec["raw"]["ptw1_blobs"]
         checks["twin_has_no_fleet"] = a_twin._fleet is None
         # the fleet view
         snaps = aggregate.read_snapshots(run_dir)
@@ -4785,6 +5007,7 @@ def phase_analysis1e6(torch, state):
            "poll_s": float(ANALYSIS_POLL_S),
            "engine_builds": roll["metrics"].get(
                "xla_compiles_total", {}).get("sum"),
+           "codec": codec,
            "summary_grids": grids, "calls": viz["calls"],
            "routes": viewer["routes"],
            "paths": report["paths"]}
@@ -6159,6 +6382,7 @@ PHASES = {"card": phase_card, "build": phase_build,
           "fused1e6": phase_fused1e6, "fusedlv1e5": phase_fusedlv1e5,
           "fusedpetab1e5": phase_fusedpetab1e5,
           "onedispatch1e6": phase_onedispatch1e6,
+          "lanes1e6": phase_lanes1e6,
           "onedispatchpetab1e5": phase_onedispatchpetab1e5,
           "pipelined1e6": phase_pipelined1e6,
           "pipelinedsir1e6": phase_pipelinedsir1e6,

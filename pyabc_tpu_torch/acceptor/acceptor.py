@@ -33,6 +33,12 @@ class AcceptorResult:
 class Acceptor:
     """Abstract acceptor."""
 
+    #: fused-chain capability flag: True when :meth:`get_params` can be
+    #: reproduced on the device for every generation of a fused block
+    #: (the in-block ε or temperature, at most baked constants); concrete
+    #: classes opt in, and ``ABCSMC._device_chain_eligible`` reads it
+    device_accept_ok = False
+
     #: fidelity-cascade capability flag: True when the accept decision is
     #: a deterministic threshold on the distance (d <= eps), the decision
     #: the screen's calibration bounds; a randomized acceptor's depends on
@@ -50,6 +56,9 @@ class Acceptor:
 
     def get_epsilon_config(self, t: int) -> dict:
         return {}
+
+    def requires_calibration(self) -> bool:
+        return False
 
     def get_params(self, t: int, epsilon) -> dict:
         """Host params for :meth:`accept` (float32 scalars)."""
@@ -151,6 +160,9 @@ class StochasticAcceptor(Acceptor):
         self.installed_norms: dict = {}
         self.kernel_scale: str = SCALE_LOG
         self.kernel_pdf_max: Optional[float] = None
+
+    def requires_calibration(self) -> bool:
+        return True
 
     @property
     def device_accept_ok(self) -> bool:

@@ -13,7 +13,11 @@ from .kernel import (SCALE_LIN, SCALE_LOG, BinomialKernel,
                      IndependentLaplaceKernel, IndependentNormalKernel,
                      NegativeBinomialKernel, NormalKernel, PoissonKernel,
                      SimpleFunctionKernel, StochasticKernel)
-from .scale import SCALE_FUNCTIONS
+from . import scale
+from .scale import (SCALE_FUNCTIONS, combined_mean_absolute_deviation,
+                    combined_median_absolute_deviation,
+                    mean_absolute_deviation, median_absolute_deviation,
+                    root_mean_square_deviation, standard_deviation)
 
 __all__ = ["Distance", "NoDistance", "AcceptAllDistance",
            "IdentityFakeDistance", "SimpleFunctionDistance", "to_distance",
@@ -24,4 +28,7 @@ __all__ = ["Distance", "NoDistance", "AcceptAllDistance",
            "SCALE_FUNCTIONS", "SCALE_LIN", "SCALE_LOG", "StochasticKernel",
            "SimpleFunctionKernel", "NormalKernel", "IndependentNormalKernel",
            "IndependentLaplaceKernel", "BinomialKernel", "PoissonKernel",
-           "NegativeBinomialKernel"]
+           "NegativeBinomialKernel", "scale", "standard_deviation",
+           "median_absolute_deviation", "mean_absolute_deviation",
+           "root_mean_square_deviation", "combined_mean_absolute_deviation",
+           "combined_median_absolute_deviation"]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from ..convert import to_torch
+from ..ops import precision as _precision
 from .base import Distance, to_distance
 from .scale import SCALE_FUNCTIONS, median_absolute_deviation, span
 
@@ -79,6 +80,14 @@ class PNormDistance(Distance):
 
     def compute(self, stats, obs, params):
         diff = torch.abs(params["w"] * (stats - obs))
+        if _precision.lanes("distance") == "bf16":
+            # the residual is formed in float32 (the subtraction cancels);
+            # the bf16 lane rounds it (relative error 2^-8) and the norm
+            # accumulates in float32
+            diff = diff.to(torch.bfloat16)
+            if np.isinf(self.p):
+                return torch.max(diff, dim=-1).values.to(torch.float32)
+            diff = diff.to(torch.float32)
         if np.isinf(self.p):
             return torch.max(diff, dim=-1).values
         return torch.sum(diff ** self.p, dim=-1) ** (1.0 / self.p)

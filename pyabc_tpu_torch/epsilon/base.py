@@ -47,6 +47,10 @@ class Epsilon:
     def __call__(self, t: int) -> float:
         raise NotImplementedError
 
+    def requires_calibration(self) -> bool:
+        """Whether ``initialize`` needs a calibration sample at t = 0."""
+        return False
+
     def get_config(self) -> dict:
         return {"name": type(self).__name__}
 

@@ -63,6 +63,9 @@ class QuantileEpsilon(Epsilon):
         self.device_sketch_ok = bool(device_sketch)
         self._look_up: dict = {}
 
+    def requires_calibration(self) -> bool:
+        return self.initial_epsilon == "from_sample"
+
     def initialize(self, t, get_weighted_distances=None, get_all_records=None,
                    max_nr_populations=None, acceptor_config=None):
         if self.initial_epsilon == "from_sample":

@@ -75,6 +75,9 @@ class Temperature(TemperatureBase):
         self.installed: dict = {}
         self._max_nr_populations: Optional[int] = None
 
+    def requires_calibration(self) -> bool:
+        return self.initial_temperature is None
+
     def configure_sampler(self, sampler):
         for scheme in self.schemes:
             if getattr(scheme, "requires_all_records", False):
@@ -302,6 +305,11 @@ def acceptance_rate_solve(log_dens: torch.Tensor, log_ratio: torch.Tensor,
                                                              hi)
     return (0.5 * (lo + hi), rate(torch.zeros((), dtype=f32, device=dev)),
             rate(torch.full((), SOLVE_MIN_B, dtype=f32, device=dev)))
+
+
+#: the JAX package's name of the same core (its traceable form, shared by
+#: the host call and the fused engine's in-block solve, as here)
+acceptance_rate_solve_trace = acceptance_rate_solve
 
 
 class AcceptanceRateScheme(TemperatureScheme):

@@ -150,3 +150,7 @@ class FidelityConfig:
                              f"(expected 'off' or 'screen')")
         raise TypeError(f"fidelity must be None, bool, str or "
                         f"FidelityConfig, got {type(value).__name__}")
+
+    def mode_str(self) -> str:
+        """The digest-facing mode string (``StudySpec.fidelity``)."""
+        return "screen"

@@ -17,6 +17,8 @@ from typing import Callable, Dict, Mapping, Optional
 
 import torch
 
+from .device import device_of, resolve_device
+
 
 class ModelResult:
     """What a model hands the round: summary statistics and, for an
@@ -70,6 +72,26 @@ class Model:
     def simulate(self, generator: torch.Generator,
                  theta: torch.Tensor) -> Dict[str, torch.Tensor]:
         return self.summary_statistics(self.sample(generator, theta))
+
+    def accept(self, generator: torch.Generator, theta, distance_fn, eps,
+               acceptor, x_0, device=None) -> ModelResult:
+        """One batch through the reference's accept chain (simulate,
+        ``distance_fn(stats, x_0)``, ``acceptor.accept``), eagerly — for
+        the reference's interface and tests; the sampler's rounds run
+        the same chain on whole batches.  ``theta`` and ε go to
+        ``device`` (default: the generator's), where the generator draws
+        the simulation and then the acceptor's uniforms."""
+        dev = (device_of(generator) if device is None
+               else resolve_device(device))
+        theta = torch.as_tensor(theta, dtype=torch.float32, device=dev)
+        stats = self.simulate(generator, theta)
+        d = distance_fn(stats, x_0)
+        acc, w = acceptor.accept(
+            generator, d,
+            {"eps": torch.tensor(float(eps), dtype=torch.float32,
+                                 device=dev)})
+        return ModelResult(sum_stats=stats, distance=d, accepted=acc,
+                           weight=w)
 
 
 class SimpleModel(Model):

@@ -1,7 +1,27 @@
-"""At-rest precision of a device engine's population carry.
+"""Precision policies: the compute lanes and the at-rest carry.
 
-Port of the ``CARRY_*`` policy and its codec from
-``pyabc_tpu/ops/precision.py``.  Between two generations of a fused
+Port of ``pyabc_tpu/ops/precision.py``.
+
+**Compute lanes** (``$PYABC_TPU_PRECISION_LANES``): a per-component
+policy, never a global cast — ABC acceptance is a threshold test, and a
+distance on the wrong side of ε flips a particle.
+
+- ``kde``: the plain KDE's cross product (:mod:`.kde`).  The ``bf16``
+  lane forms it as the three-pass split product :func:`bf16x3_matmul`
+  with float32 accumulation (logit error ~2^-20 of the exponent).  On
+  the card every shape goes to K1 in float32 whatever the lane (the JAX
+  package's accelerator kernel is the split already; K1's float32
+  products are the more exact of the two).
+- ``distance``: ``PNormDistance.compute`` rounds the weighted residual
+  to bf16 (relative error 2^-8) and accumulates the norm in float32.
+
+The value is ``f32`` (the default: every component exact), ``bf16``
+(every component on its bf16 lane) or comma-separated
+``component=mode`` pairs (``kde=bf16,distance=f32``).  It is resolved
+once per process, at first use, and frozen: set it before the run is
+built.  ``_reset_for_testing()`` drops the frozen policy.
+
+**At-rest carry** (``$PYABC_TPU_CARRY_PRECISION``).  Between two generations of a fused
 block or a one-dispatch run the population carry rests on the card; its
 bulk lanes (``theta``, ``distance``, ``stats``) may rest narrowed and are
 promoted back to float32 at the start of every generation, where the
@@ -22,16 +42,20 @@ mode lane (``count``, ``eps``, ``rate``, ``safety``, ``dist_w``, the
 record and calibration rings) are never narrowed.  The mode is read per
 call (``resolve_carry_precision``), never cached: it keys every engine
 the orchestrator builds.
-
-Not ported (ROADMAP Queue 2): the ``PYABC_TPU_PRECISION_LANES`` compute
-lanes and their bf16x3 product.
 """
 
 from __future__ import annotations
 
 import os
+from functools import lru_cache
 
 import torch
+
+PRECISION_ENV = "PYABC_TPU_PRECISION_LANES"
+
+#: components a policy may address
+COMPONENTS = ("kde", "distance")
+_MODES = ("f32", "bf16")
 
 CARRY_PRECISION_ENV = "PYABC_TPU_CARRY_PRECISION"
 
@@ -130,3 +154,57 @@ def decode_carry(carry: dict, mode: str) -> dict:
             lo = out.pop(k + "_qm")
             out[k] = (v.to(torch.float32) + 127.0) * scale + lo
     return out
+
+
+@lru_cache(maxsize=None)
+def _resolve() -> dict:
+    raw = os.environ.get(PRECISION_ENV, "f32").strip().lower()
+    if raw in _MODES:
+        return {c: raw for c in COMPONENTS}
+    policy = {c: "f32" for c in COMPONENTS}
+    for part in raw.split(","):
+        part = part.strip()
+        if not part:
+            continue
+        key, sep, mode = part.partition("=")
+        key, mode = key.strip(), mode.strip()
+        if not sep or key not in COMPONENTS or mode not in _MODES:
+            raise ValueError(
+                f"{PRECISION_ENV}={raw!r}: expected 'f32', 'bf16', or "
+                f"comma-separated component=mode pairs with components "
+                f"in {COMPONENTS} and modes in {_MODES}")
+        policy[key] = mode
+    return policy
+
+
+def lanes(component: str) -> str:
+    """The frozen precision mode ('f32' | 'bf16') for ``component``."""
+    if component not in COMPONENTS:
+        raise ValueError(f"unknown precision component {component!r}; "
+                         f"expected one of {COMPONENTS}")
+    return _resolve()[component]
+
+
+def _reset_for_testing():
+    """Drop the frozen policy so tests can exercise both lanes."""
+    _resolve.cache_clear()
+
+
+def split_bf16(a: torch.Tensor):
+    """High/low bf16 split of a float32 tensor: ``hi + lo == a`` to
+    about 2^-17 relative.  ``hi`` rounds to nearest even, as the JAX package's
+    ``reduce_precision``; ``lo`` is the bf16 rounding of the remainder."""
+    hi = a.to(torch.bfloat16)
+    return hi, (a - hi.to(torch.float32)).to(torch.bfloat16)
+
+
+def bf16x3_matmul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``a @ b`` as three products of bf16 parts accumulated in float32:
+    ``ah·bh + ah·bl + al·bh``.  The dropped ``al·bl`` is O(2^-16)
+    relative.  Each part is widened to float32 before its product, which
+    is then exact, so only the accumulation rounds."""
+    ah, al = split_bf16(a)
+    bh, bl = split_bf16(b)
+    f32 = torch.float32
+    ah, al, bh, bl = (t.to(f32) for t in (ah, al, bh, bl))
+    return ah @ bh + ah @ bl + al @ bh

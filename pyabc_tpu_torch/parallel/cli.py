@@ -378,6 +378,22 @@ def top(run_dir: str, watch: float = 0.0, trace: bool = False,
         print("\033[2J\033[H", end="", file=out)
 
 
+def stop(run_dir: str) -> str:
+    """Clean stop: every host's run exits after its current generation
+    (the reference's ``abc-redis-manager stop``)."""
+    from . import health
+    health.request_stop(run_dir)
+    return "stop requested"
+
+
+def reset_workers(run_dir: str) -> str:
+    """Clear stale heartbeats after a crash (the reference's
+    ``reset-workers``)."""
+    from . import health
+    removed = health.reset_workers(run_dir)
+    return f"removed {removed} stale worker record(s)"
+
+
 def manage(argv: Optional[List[str]] = None) -> int:
     """The manager commands: ``info``, ``metrics``, ``top``, ``stop``,
     ``reset-workers``."""
@@ -409,7 +425,6 @@ def manage(argv: Optional[List[str]] = None) -> int:
     p.add_argument("--run-dir", required=True)
     args = ap.parse_args(argv)
 
-    from . import health
     if args.command == "info":
         print(info(args.run_dir))
     elif args.command == "metrics":
@@ -418,11 +433,9 @@ def manage(argv: Optional[List[str]] = None) -> int:
         top(args.run_dir, args.watch, args.trace, args.study,
             args.serve_dir, args.export)
     elif args.command == "stop":
-        health.request_stop(args.run_dir)
-        print("stop requested")
+        print(stop(args.run_dir))
     else:
-        removed = health.reset_workers(args.run_dir)
-        print(f"removed {removed} stale worker record(s)")
+        print(reset_workers(args.run_dir))
     return 0
 
 

@@ -8,9 +8,12 @@ a dict view of one particle for user-facing scalar access.
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Sequence
+from typing import Dict, Iterable, Mapping, Sequence, Union
 
 import numpy as np
+import torch
+
+from .device import resolve_device
 
 
 def flatten_dict(dct: Mapping, sep: str = ".") -> dict:
@@ -23,6 +26,12 @@ def flatten_dict(dct: Mapping, sep: str = ".") -> dict:
         else:
             out[key] = value
     return out
+
+
+def _host(a) -> np.ndarray:
+    if isinstance(a, torch.Tensor):
+        return a.detach().cpu().numpy()
+    return np.asarray(a)
 
 
 class Parameter(dict):
@@ -87,7 +96,47 @@ class ParameterSpace:
     def __repr__(self):
         return f"ParameterSpace({list(self.names)})"
 
+    def dict_to_array(self, par: Mapping[str, Union[float, np.ndarray]],
+                      device=None) -> torch.Tensor:
+        """Pack a name -> scalar dict into a float32 ``[dim]`` tensor (a
+        row of theta) on ``device`` (default: the card)."""
+        par = flatten_dict(par)
+        return torch.as_tensor(
+            np.asarray([par[name] for name in self.names], np.float32),
+            device=resolve_device(device))
+
+    def dicts_to_array(self, pars: Iterable[Mapping[str, float]],
+                       device=None) -> torch.Tensor:
+        """Pack an iterable of dicts into a float32 ``[N, dim]`` tensor on
+        ``device`` (default: the card)."""
+        rows = [[flatten_dict(p)[name] for name in self.names] for p in pars]
+        return torch.as_tensor(np.asarray(rows, dtype=np.float32),
+                               device=resolve_device(device))
+
     def array_to_dict(self, row) -> Parameter:
         """Unpack a ``[dim]`` row into a :class:`Parameter`."""
-        row = np.asarray(row)
+        row = _host(row)
         return Parameter({n: float(row[i]) for i, n in enumerate(self.names)})
+
+    def array_to_dicts(self, theta) -> list:
+        """Unpack ``[N, dim]`` into a list of :class:`Parameter`."""
+        theta = _host(theta)
+        return [Parameter({n: float(theta[j, i])
+                           for i, n in enumerate(self.names)})
+                for j in range(theta.shape[0])]
+
+    def columns(self, theta) -> dict:
+        """``[..., dim]`` as name -> ``[...]`` column views."""
+        return {name: theta[..., i] for i, name in enumerate(self.names)}
+
+    def pad_to(self, theta, dim: int):
+        """Zero-pad the trailing parameter axis of ``theta`` (a tensor or
+        an array) up to ``dim``."""
+        d = theta.shape[-1]
+        if d == dim:
+            return theta
+        if d > dim:
+            raise ValueError(f"cannot pad dim {d} down to {dim}")
+        if isinstance(theta, torch.Tensor):
+            return torch.nn.functional.pad(theta, (0, dim - d))
+        return np.pad(theta, [(0, 0)] * (theta.ndim - 1) + [(0, dim - d)])

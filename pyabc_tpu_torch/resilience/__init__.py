@@ -23,8 +23,9 @@ Port of ``pyabc_tpu/resilience`` without its pod half:
 from . import checkpoint, faults, journal, retry  # noqa: F401
 from .checkpoint import GenCheckpointer, Preempted
 from .faults import (FAULTS_ENV, SITE_APPEND, SITE_DISPATCH, SITE_DRAIN,
-                     SITE_FETCH, SITE_FIDELITY_CALIBRATE, SITE_JOURNAL,
-                     SITE_MATERIALIZE, SITE_PREEMPT, SITE_STORE_DEPOSIT,
+                     SITE_FETCH, SITE_FIDELITY_CALIBRATE, SITE_HEARTBEAT,
+                     SITE_JOURNAL, SITE_MATERIALIZE, SITE_PREEMPT,
+                     SITE_STORE_DEPOSIT,
                      SITE_STORE_HYDRATE, SITE_STORE_SPILL, SITES, FaultPlan,
                      FaultSpec, active_plan, fault_point, install,
                      install_from_env, uninstall)
@@ -40,7 +41,8 @@ install_from_env()
 __all__ = [
     "FaultPlan", "FaultSpec", "active_plan", "fault_point", "install",
     "install_from_env", "uninstall", "FAULTS_ENV", "SITES",
-    "SITE_DISPATCH", "SITE_FETCH", "SITE_APPEND", "SITE_PREEMPT",
+    "SITE_DISPATCH", "SITE_FETCH", "SITE_APPEND", "SITE_HEARTBEAT",
+    "SITE_PREEMPT",
     "SITE_STORE_DEPOSIT", "SITE_STORE_SPILL", "SITE_STORE_HYDRATE",
     "SITE_MATERIALIZE", "SITE_JOURNAL", "SITE_DRAIN",
     "SITE_FIDELITY_CALIBRATE",

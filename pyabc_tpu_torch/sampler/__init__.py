@@ -5,6 +5,7 @@ that farm rounds out over a map, an executor or a dask client)."""
 
 from .base import RoundResult, Sample, Sampler, SamplingError
 from .dask_sampler import DaskDistributedSampler
+from .eps_mixin import EPSMixin
 from .mapping import ConcurrentFutureSampler, MappingSampler
 from .rounds import RoundKernel
 from .sharded import RedisEvalParallelSampler, ShardedSampler
@@ -17,4 +18,4 @@ __all__ = ["Sampler", "Sample", "SamplingError", "RoundResult",
            "MulticoreEvalParallelSampler",
            "MulticoreParticleParallelSampler", "MappingSampler",
            "ConcurrentFutureSampler", "DaskDistributedSampler",
-           "ShardedSampler", "RedisEvalParallelSampler"]
+           "ShardedSampler", "RedisEvalParallelSampler", "EPSMixin"]

@@ -36,6 +36,7 @@ from __future__ import annotations
 
 import threading
 import time
+import warnings
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
@@ -368,6 +369,18 @@ class Sample:
             return None
         return {k: torch.cat([r[k] for r in self._rec]) for k in keys}
 
+    def get_records_arrays(self, keys=None) -> Optional[dict]:
+        """The record columns ``keys`` (default all) as host numpy arrays
+        of the exact record count, or None without records: one fetch of
+        every requested column (``egress("summary")``).  The ``[R, S]``
+        stats block is the big one; ask only for what is read."""
+        recs = self.get_records(tuple(keys) if keys is not None
+                                else RECORD_KEYS)
+        if recs is None:
+            return None
+        with transfer.egress("summary"):
+            return fetch_to_host(recs)
+
     def get_records_columns(self) -> Optional[Dict[str, np.ndarray]]:
         """Host record columns for the temperature schemes: ``distance``
         (the kernel value), ``transition_pd_prev`` (density of the
@@ -409,6 +422,24 @@ class Sample:
         log_new = self.transition_log_pdf_device(recs["m"], recs["theta"])
         return {"log_dens": recs["distance"],
                 "log_ratio": log_new - recs["log_proposal"]}
+
+    def get_all_records(self) -> List[dict]:
+        """The reference's list-of-dicts view of
+        :meth:`get_records_columns`: one dict per record, O(R) Python —
+        nothing in this package calls it, and above 1e5 records it warns
+        and points at the column view."""
+        cols = self.get_records_columns()
+        if cols is None:
+            return []
+        n = cols["distance"].shape[0]
+        if n > 100_000:
+            warnings.warn(
+                f"Sample.get_all_records materializes {n} per-record "
+                "dicts (O(R) Python); use get_records_columns() for "
+                "vectorized access at this scale", RuntimeWarning,
+                stacklevel=2)
+        return [{k: v[i].item() for k, v in cols.items()}
+                for i in range(n)]
 
 
 class Sampler:
@@ -452,3 +483,7 @@ class Sampler:
                                 all_accepted: bool = False,
                                 defer_wire_fetch: bool = False) -> Sample:
         raise NotImplementedError
+
+    def stop(self):
+        """Teardown hook: release what the sampler holds (the reference's
+        interface; a no-op here)."""

@@ -94,8 +94,8 @@ from ..ops.choice import ordered_cumsum, systematic_weighted_choice
 from ..ops.kde_cuda import weighted_kde_logpdf_cuda
 from ..ops.precision import decode_carry, encode_carry
 from ..ops.quantile_sketch import sketch_weighted_quantile
-from ..telemetry.lanes import (phase_cost_model, phase_wire_lanes,
-                               progress_update)
+from ..telemetry.lanes import (device_progress_update, phase_cost_model,
+                               phase_wire_lanes)
 from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
 from ..wire.store import summary_wire_lanes
@@ -931,8 +931,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                 slots.write(wire)
                 t += 1
                 if run_tag is not None:
-                    progress_update(t, eps_host, count, rounds_tot,
-                                    run_tag=run_tag)
+                    device_progress_update(t, eps_host, count, rounds_tot,
+                                           True, run_tag)
                 if on_generation is not None:
                     on_generation(t, count)
                 if stop != STOP_NONE or t >= t_limit:

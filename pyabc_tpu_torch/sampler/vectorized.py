@@ -74,6 +74,12 @@ def _pow2_at_least(x: float) -> int:
 class VectorizedSampler(Sampler):
     """On-device rejection-loop sampler."""
 
+    #: the JAX package's budget (query × support pairs) for prefetching
+    #: a deferred-mode finalize inside its device loop; the port's loop
+    #: finalizes once, after its last round, and prefetches nothing, so
+    #: no port code reads it
+    MAX_PREFETCH_PAIRS = 1 << 36
+
     def __init__(self,
                  min_batch_size: int = 256,
                  max_batch_size: int = 1 << 18,
@@ -198,7 +204,8 @@ class VectorizedSampler(Sampler):
             from ..utils.progress import ProgressBar
             bar = ProgressBar(n, desc="sampling")
         B = self.last_batch = self.choose_batch(n)
-        record_cap = (min(self.max_records, B * self.max_rounds_per_call)
+        record_cap = (min(self.max_records_cap(),
+                          B * self.max_rounds_per_call)
                       if self.record_rejected else 0)
         defer = (getattr(round_fn, "supports_deferred_proposal", False)
                  and hasattr(round_fn, "__self__"))
@@ -291,6 +298,10 @@ class VectorizedSampler(Sampler):
             bar.finish()
         self.nr_evaluations_ = sample.nr_evaluations
         return sample
+
+    def max_records_cap(self) -> int:
+        """Recorded candidates kept per generation at most."""
+        return self.max_records
 
 
 # The reference's local sampler flavours, as aliases: on the card every

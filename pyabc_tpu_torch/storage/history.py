@@ -3,9 +3,11 @@
 Port of ``pyabc_tpu/storage/history.py``: stdlib sqlite3 with one row
 per (run, generation, model) holding that model's particles as array
 blobs — one INSERT per model per generation at any population size.
-Blobs are written as plain ``.npy`` (``allow_pickle=False``) and read
-as either that or the JAX package's PTW1 codec (``wire.transfer.
-decode_array``), so a database that ``pyabc_tpu`` wrote loads here.
+Blobs are written with the PTW1 codec (``wire.transfer.encode_array``:
+delta + zlib, byte for byte the JAX package's blobs, so the CRC column
+is too) unless ``$PYABC_TPU_WIRE_CODEC`` is ``raw``, which writes plain
+``.npy`` (``allow_pickle=False``); both forms are read, so each
+package reads the other's databases.
 ``db`` may be a path, ``"sqlite:///path"`` or ``"sqlite://"`` (in
 memory).
 
@@ -45,6 +47,7 @@ import os
 import sqlite3
 import time
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
@@ -153,9 +156,42 @@ def _blob_crc(blob: Optional[bytes]) -> Optional[int]:
 
 
 def _pack(arr: np.ndarray) -> bytes:
+    """Array -> blob: PTW1 (delta + zlib, the JAX package's bytes) unless
+    ``$PYABC_TPU_WIRE_CODEC`` is ``raw``; plain ``np.save`` for that and
+    for anything the codec refuses."""
+    arr = np.asarray(arr)
+    if transfer.wire_codec() != "raw":
+        try:
+            return transfer.encode_array(arr)
+        except (ValueError, TypeError):
+            pass
     buf = io.BytesIO()
-    np.save(buf, np.asarray(arr), allow_pickle=False)
+    np.save(buf, arr, allow_pickle=False)
     return buf.getvalue()
+
+
+#: total array bytes from which a write's blobs are packed on threads: a
+#: thread costs ~0.1 ms to start, zlib at level 1 packs ~25 MB/s of
+#: float32 on one core
+PACK_PARALLEL_MIN_BYTES = 1 << 20
+
+
+def _pack_all(arrays: Dict[str, Optional[np.ndarray]]
+              ) -> Dict[str, Optional[bytes]]:
+    """``_pack`` of every array (None stays None).  One write's blobs are
+    independent, and the delta and zlib release the interpreter lock, so
+    from ``PACK_PARALLEL_MIN_BYTES`` in all they are packed on threads,
+    one per blob; the bytes are the same either way."""
+    keys = [k for k, v in arrays.items() if v is not None]
+    if len(keys) < 2 or sum(np.asarray(arrays[k]).nbytes
+                            for k in keys) < PACK_PARALLEL_MIN_BYTES:
+        return {k: (None if v is None else _pack(v))
+                for k, v in arrays.items()}
+    with ThreadPoolExecutor(max_workers=min(len(keys), os.cpu_count() or 1),
+                            thread_name_prefix="history-pack") as pool:
+        futures = {k: pool.submit(_pack, arrays[k]) for k in keys}
+        return {k: (futures[k].result() if k in futures else None)
+                for k in arrays}
 
 
 def _unpack(blob: bytes) -> np.ndarray:
@@ -329,16 +365,17 @@ class History:
                  if self.stores_sum_stats else None)
         per_model = (param_names
                      and isinstance(param_names[0], (list, tuple)))
-        for m in range(len(model_names)):
-            idx = np.nonzero(m_arr == m)[0]
-            if idx.size == 0:
-                continue
+        rows = {m: np.nonzero(m_arr == m)[0]
+                for m in range(len(model_names))}
+        rows = {m: idx for m, idx in rows.items() if idx.size}
+        columns = {"theta": population.theta, "weight": population.weight,
+                   "distance": population.distance, "stats": stats}
+        packed = _pack_all({(m, k): (None if col is None else col[idx])
+                            for m, idx in rows.items()
+                            for k, col in columns.items()})
+        for m, idx in rows.items():
             names_m = param_names[m] if per_model else param_names
-            blobs = {"theta": _pack(population.theta[idx]),
-                     "weight": _pack(population.weight[idx]),
-                     "distance": _pack(population.distance[idx]),
-                     "stats": (_pack(stats[idx]) if stats is not None
-                               else None)}
+            blobs = {k: packed[(m, k)] for k in columns}
             digest = json.dumps({k: _blob_crc(v) for k, v in blobs.items()
                                  if v is not None})
             self._conn.execute(
@@ -376,10 +413,10 @@ class History:
         from ..resilience import retry as _retry
 
         def _write():
-            blobs = {k: (_pack(batch[k]) if batch is not None
-                         and batch.get(k) is not None else None)
-                     for k in ("m", "theta", "distance", "log_weight",
-                               "stats")}
+            blobs = _pack_all({k: (batch.get(k) if batch is not None
+                                   else None)
+                               for k in ("m", "theta", "distance",
+                                         "log_weight", "stats")})
             digest = json.dumps({k: _blob_crc(v) for k, v in blobs.items()
                                  if v is not None})
             self._conn.execute(

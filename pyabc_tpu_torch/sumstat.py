@@ -75,5 +75,14 @@ class SumStatSpec:
             vec[o:o + s] = np.asarray(val, dtype=np.float32).reshape(-1)
         return vec
 
+    def collapse_to_keys(self, vec) -> Dict[str, np.ndarray]:
+        """Per-component ``[S]`` vector -> per-key arrays (the inverse of
+        :meth:`expand_key_values`, for logging and provenance)."""
+        vec = (vec.detach().cpu().numpy() if isinstance(vec, torch.Tensor)
+               else np.asarray(vec))
+        return {k: vec[self.offsets[k]:self.offsets[k] + self.sizes[k]
+                       ].reshape(self.shapes[k] if self.shapes[k] else ())
+                for k in self.keys}
+
     def __repr__(self):
         return f"SumStatSpec({self.shapes})"

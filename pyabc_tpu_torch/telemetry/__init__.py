@@ -27,7 +27,7 @@ from __future__ import annotations
 import contextlib
 import os
 
-from . import flight, lanes, metrics, spans, timeline
+from . import aggregate, flight, lanes, metrics, spans, timeline
 from .flight import RECORDER
 from .metrics import REGISTRY
 from .spans import TRACER, begin, end, span
@@ -70,7 +70,7 @@ def profile_generation(t: int):
 
 
 __all__ = [
-    "GenerationTimeline", "RECORDER", "REGISTRY", "TRACER", "begin", "end",
-    "flight", "lanes", "metrics", "profile_generation", "span", "spans",
-    "timeline",
+    "GenerationTimeline", "RECORDER", "REGISTRY", "TRACER", "aggregate",
+    "begin", "end", "flight", "lanes", "metrics", "profile_generation",
+    "span", "spans", "timeline",
 ]

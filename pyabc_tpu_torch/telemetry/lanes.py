@@ -27,7 +27,7 @@ counters themselves (rounds, simulations) are exact.
 callback inside its device while-loop.  The port's one-dispatch engine
 is driven from the host and reads one packed control tensor per
 generation anyway, so the word is advanced by a plain call after that
-read (:func:`progress_update`): no extra host read.  The flight recorder
+read (:func:`device_progress_update`): no extra host read.  The flight recorder
 embeds the last word in its dump, so a post-mortem names the generation
 that died.
 
@@ -273,14 +273,20 @@ class RunProgress:
 PROGRESS = RunProgress()
 
 
-def progress_update(gens_done: int, eps: float, accepted: int,
-                    rounds: int, run_tag: Optional[int] = None):
-    """Advance the run's word after a generation's control read (host
-    values already read).  Never raises: an observability hook that ends
-    the run it observes is worse than none."""
+def device_progress_update(gens_done, eps, accepted, rounds, written,
+                           run_tag=None):
+    """Advance the run's word (``run_tag``'s, or the most recently armed
+    one for 0/None) at a generation boundary of the one-dispatch engine,
+    after the generation's control read.  ``written`` false skips the
+    update (a generation that wrote no row is no progress).  Never
+    raises: an observability hook that ends the run it observes is worse
+    than none."""
     try:
+        if not bool(written):
+            return
         PROGRESS.update(int(gens_done), float(eps), int(accepted),
-                        int(rounds), tag=run_tag)
+                        int(rounds),
+                        tag=None if run_tag is None else int(run_tag))
     except Exception:
         pass
 

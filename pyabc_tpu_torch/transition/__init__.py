@@ -8,7 +8,7 @@ from .local_transition import LocalTransition
 from .model_selection import GridSearchCV
 from .multivariatenormal import (MultivariateNormalTransition,
                                  scott_rule_of_thumb,
-                                 silverman_rule_of_thumb)
+                                 silverman_rule_of_thumb, smart_cov)
 from .predict_population_size import fit_powerlaw, predict_population_size
 from .randomwalk import DiscreteRandomWalkTransition
 
@@ -16,4 +16,4 @@ __all__ = ["Transition", "AggregatedTransition", "NotFittedError",
            "MultivariateNormalTransition",
            "LocalTransition", "DiscreteRandomWalkTransition",
            "GridSearchCV", "silverman_rule_of_thumb", "scott_rule_of_thumb",
-           "fit_powerlaw", "predict_population_size"]
+           "smart_cov", "fit_powerlaw", "predict_population_size"]

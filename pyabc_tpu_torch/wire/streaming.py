@@ -28,7 +28,13 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 
+from ..telemetry.metrics import REGISTRY
 from . import transfer
+
+
+def _inflight():
+    return REGISTRY.gauge("wire_ingest_inflight",
+                          "ingest tickets queued or running")
 
 
 class WireError(RuntimeError):
@@ -98,6 +104,7 @@ class StreamingIngest:
         with self._lock:
             if ticket in self._outstanding:
                 self._outstanding.remove(ticket)
+                _inflight().dec()
         if self._sem is not None:
             self._sem.release()
 
@@ -130,6 +137,7 @@ class StreamingIngest:
             ticket.wait_s += time.perf_counter() - t0
         with self._lock:
             self._outstanding.append(ticket)
+            _inflight().inc()
         if self.depth <= 0:
             self._run(ticket, fn)
             # the caller ran the work itself: nothing of it overlapped

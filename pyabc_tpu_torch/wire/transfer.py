@@ -39,18 +39,21 @@ Every fetched byte is attributed to one ``EGRESS_SUBSYSTEMS`` bucket, the
 calling thread's :func:`egress` label (``population`` by default).
 
 The PTW1 blob codec (:func:`encode_array` / :func:`decode_array`) is
-here too, so that the port's History reads a database that ``pyabc_tpu``
-wrote; the port itself goes on writing plain ``.npy`` blobs.
+here too: History packs every blob with it (the same bytes as the JAX
+package's) unless ``$PYABC_TPU_WIRE_CODEC`` says ``raw``
+(:func:`wire_codec`), and reads both forms.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import struct
 import threading
 import time
 import zlib
 from contextlib import contextmanager
+from typing import Optional
 
 import numpy as np
 
@@ -214,18 +217,28 @@ class timed_d2h:
 # same-width unsigned delta along axis 0 (exactly invertible), "plain"
 # the raw bytes.
 
+WIRE_CODEC_ENV = "PYABC_TPU_WIRE_CODEC"
 _CODEC_MAGIC = b"PTW1"
 _UINT_FOR_SIZE = {1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}
 
 
-def encode_array(arr: np.ndarray, codec: str = "delta") -> bytes:
-    """One array as a self-describing PTW1 blob.  ``codec="delta"``
-    deltas along axis 0 before compression; arrays the delta cannot help
-    (0-d, single-row, exotic itemsizes) are stored plain."""
+def wire_codec() -> str:
+    """The storage codec from ``$PYABC_TPU_WIRE_CODEC``, read per call:
+    ``delta`` (the default) or ``raw`` (plain ``.npy`` History blobs)."""
+    v = os.environ.get(WIRE_CODEC_ENV, "delta").lower()
+    return "raw" if v in ("raw", "off", "none", "0") else "delta"
+
+
+def encode_array(arr: np.ndarray, codec: Optional[str] = None) -> bytes:
+    """One array as a self-describing PTW1 blob.  ``codec`` (default
+    :func:`wire_codec`) ``"delta"`` deltas along axis 0 before
+    compression; any other codec, and arrays the delta cannot help (0-d,
+    single-row, exotic itemsizes), are stored plain."""
     shape = np.asarray(arr).shape  # before ascontiguousarray: it
     arr = np.ascontiguousarray(arr)  # promotes 0-d to (1,)
     if arr.dtype.hasobject:
         raise ValueError("object arrays cannot ride the wire codec")
+    codec = codec or wire_codec()
     u_dtype = _UINT_FOR_SIZE.get(arr.dtype.itemsize)
     if codec == "delta" and u_dtype is not None and arr.ndim >= 1 \
             and arr.shape[0] >= 2:

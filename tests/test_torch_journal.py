@@ -8,6 +8,7 @@ column the JAX package wrote verifies in the port, and the kill -9 /
 SIGTERM recoveries run in child processes that import no JAX."""
 
 import os
+import signal
 import sqlite3
 import subprocess
 import sys
@@ -27,6 +28,20 @@ from pyabc_tpu_torch.resilience import journal
 from pyabc_tpu_torch.telemetry import REGISTRY
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.fixture(autouse=True)
+def _restore_sigterm():
+    """A resumed run with sub-checkpoints arms the port's SIGTERM handler
+    for the process: put it back, so that an in-process SIGTERM of a
+    later test (the JAX package's preemption tests) cannot set the
+    port's flag and stop every later port run in this worker."""
+    handler = (signal.getsignal(signal.SIGTERM), ckpt._INSTALLED,
+               ckpt._PREV_HANDLER)
+    yield
+    signal.signal(signal.SIGTERM, handler[0])
+    ckpt._INSTALLED, ckpt._PREV_HANDLER = handler[1:]
+    ckpt.clear_preempt()
 
 
 def _wire(seed):

@@ -162,7 +162,7 @@ def test_progress_word_monotone_tagged_and_evicted():
 def test_flight_dump_embeds_the_progress_word(tmp_path):
     rec = flight.FlightRecorder()
     tag = lanes.PROGRESS.begin(t0=3, t_limit=4, run_id="r1")
-    lanes.progress_update(2, 0.25, 300, 11, run_tag=tag)
+    lanes.device_progress_update(2, 0.25, 300, 11, True, run_tag=tag)
     rec.note("retry", site="device.dispatch", attempt=1)
     path = rec.dump(reason="test", run_id="r1", directory=str(tmp_path))
     import json
