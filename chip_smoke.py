@@ -9,6 +9,23 @@ Phases, each printed as one JSON line and each fatal on failure:
 1. ``card``    — the card's name, power limit and maximum SM clock.
 2. ``build``   — create the CUDA context and compile every CUDA kernel of
    the port from its source.
+   ``graphs`` (run right after) — the compiled round: for config #2 at
+   the pop-16384 rung and at the pop-1e6 rung (B = 2^19), configs #3/#4
+   (``lv1e5``, ``sir1e5``) at 2^19 and ``fidelitysir5e4``'s staged round,
+   each from two generations of its own run on the card (whose rows must
+   say ``round_graph``), the round captured as a CUDA graph against the
+   eager round from one generator state, 4 rounds bit for bit (the
+   first eager on the graph route too, the capture after it, then 3
+   replays; every output, the buffers without their dump row, the count,
+   the generator's state), then host launches and device kernels per round
+   each way (``torch.profiler``), ms per round each way (CUDA events,
+   median of 20), capture seconds and the graph pool's bytes; the
+   loop's captured finalize at row (b)'s shape against the same work
+   eager, bit for bit, with K1 launched once per replay and within 4e-4
+   of the plain KDE; an ``AotGuard`` called off its spec (one counted
+   miss, the eager result).  Every phase's rows carry ``round_graph``,
+   and the phases of the sequential, fused, one-dispatch and pipelined
+   engines on configs #2–#4 fail where a round did not replay a graph.
 3. ``kernels`` — each kernel against its plain PyTorch version on the card
    at the shapes the main path gives it (tolerance ``1e-4 + 1e-5·|ref|``),
    with the kernels' own time (``kernel_only_ms``: back-to-back launches
@@ -215,12 +232,16 @@ Phases, each printed as one JSON line and each fatal on failure:
    one round is SIGTERM'd at the second call of generation 1: ``Preempted``,
    1 ≤ n < pop rows flushed, the resume splices them with their
    evaluations counted once.  ``cudafaults`` (a) caps the process with
-   ``torch.cuda.set_per_process_memory_fraction`` between the sequential
-   engine's reserved peaks at batches 2^21 and 2^20 (the ledger's midpoint
-   where it separates them): the OOM is retried, the batch halved, the
-   generation restarted, the run completed; (b) a child whose model gathers
-   out of bounds inside a one-dispatch run: one attempt, sticky, no retry
-   or latch, a non-zero exit naming the device-side assert.  Every other
+   ``torch.cuda.set_per_process_memory_fraction`` on the sequential
+   engine's default route (captured rounds), between what its run at
+   batch 2^21 reserved before its second generation (and what an eager
+   run at 2^20 reserved) and what that second generation holds at once:
+   the OOM is retried, the batch halved, the graphs dropped, the
+   generation restarted eagerly, the run completed, with ``round_graph``
+   true on every row before the drop and false after it; (b) a child
+   whose model gathers out of bounds inside a one-dispatch run: one
+   attempt, sticky, no retry or latch, a non-zero exit naming the
+   device-side assert.  Every other
    phase must leave the retry and degradation counters where they were.
 
 13. ``quickstart1e4`` / ``envknobs1e6`` / ``refexport1e5`` /
@@ -368,7 +389,9 @@ engines a ladder held.
 task with 1, 4 and again 1 job in flight (config #2, pop 1000, 8
 generations).
 
-The ``kernels`` summary line and the ``nvidia-smi`` name/power-limit
+The ``kernels`` summary line (K1, and K1 inside the captured finalize:
+its launches by graph replays on the main path, its times from the
+``graphs`` phase) and the ``nvidia-smi`` name/power-limit
 line come just before the last line, which is ``{"ok": true, "device":
 {...}}``.  The script imports nothing of JAX or of the JAX package, exits
 non-zero without a result when no CUDA device is present, and builds the
@@ -386,7 +409,7 @@ import sys
 import time
 from pathlib import Path
 
-ALL_PHASES = ("card", "build", "pop16384", "pop1e6", "lv1e5", "sir1e5",
+ALL_PHASES = ("card", "build", "graphs", "pop16384", "pop1e6", "lv1e5", "sir1e5",
               "petab1e5", "sbml1e5", "fused16384", "fused1e6", "fusedlv1e5",
               "fusedpetab1e5", "onedispatch1e6", "lanes1e6",
               "onedispatchpetab1e5",
@@ -848,12 +871,15 @@ def run_main_path(torch, pop: int, gens: int, seed: int = 0, fuse: int = 1,
     rows = abc.timeline
     launches_ok = all(r["kde_launches"] >= 2 for r in rows if r["t"] >= 1)
     gate_ok = abs(p_b - p_true) < tol_p and abs(mu - 1.0) < tol_mu
+    graph_ok = graphs_ok(rows) if sampler is None else True
     gens_run = t + 1
     return {
         "pop": pop, "gens_asked": gens, "gens_run": gens_run,
         "ok": bool(gate_ok and launches_ok and gens_run == gens
-                   and math.isfinite(p_b) and math.isfinite(mu)),
+                   and graph_ok and math.isfinite(p_b)
+                   and math.isfinite(mu)),
         "gate_ok": bool(gate_ok), "launches_ok": bool(launches_ok),
+        "round_graph_ok": bool(graph_ok),
         "p_model_b": p_b, "p_analytic": p_true, "tol_p": tol_p,
         "mu_b": mu, "tol_mu": tol_mu, "kde_launches": launches,
         "wall_s": wall,
@@ -874,7 +900,8 @@ def generation_row(r: dict) -> dict:
     keys = ("t", "path", "engine", "wall_s", "sample_s", "eps",
             "evaluations", "acceptance_rate", "ess", "batch",
             "kde_launches", "kde_support", "peak_mem_gb", "compute_s",
-            "d2h_s", "overlap_s", "history_mode")
+            "d2h_s", "overlap_s", "history_mode", "round_graph",
+            "round_replays")
     out = {k: r[k] for k in keys}
     if r["path"] in ("fused", "onedispatch", "pipelined"):
         out.update({k: r[k] for k in ("rounds", "host_reads",
@@ -882,6 +909,13 @@ def generation_row(r: dict) -> dict:
     else:
         out["host_s"] = r["wall_s"] - r["sample_s"]
     return out
+
+
+def graphs_ok(rows) -> bool:
+    """Every generation's rounds replayed a captured CUDA graph (a
+    refused capture runs its rounds eagerly and reads False)."""
+    rows = list(rows)
+    return bool(rows) and all(r.get("round_graph") is True for r in rows)
 
 
 def wire_per_gen(abc) -> list:
@@ -1058,14 +1092,15 @@ def phase_fusedpetab1e5(torch, state):
             f"fusedpetab1e5 failed its checks: {row['checks']}")
 
 
-def onedispatch_report(abc, rows, wall: float) -> dict:
+def onedispatch_report(abc, rows, wall: float, graphs: bool = True) -> dict:
     """The gates every one-dispatch phase shares: one dispatch, the paths
     sequential then one-dispatch to the end of the run, K1 launched in
     each one-dispatch generation as often as the code gives, the host
     reads of each generation (its rounds, one ``grids_resolved`` where a
-    grid is, one control read), one History row of n per generation; and
-    the host time per generation (wall − device loop, the loop ending in
-    the control read) and ``control_roundtrip_s`` per generation."""
+    grid is, one control read), one History row of n per generation,
+    with ``graphs`` every round a graph replay; and the host time per
+    generation (wall − device loop, the loop ending in the control read)
+    and ``control_roundtrip_s`` per generation."""
     from pyabc_tpu_torch.sampler.fused import kde_launches_per_gen
 
     per_gen = kde_launches_per_gen(abc.M, abc._block_mode()["stoch"])
@@ -1081,6 +1116,7 @@ def onedispatch_report(abc, rows, wall: float) -> dict:
                                         for r in od),
         "host_reads": all(r["host_reads"] == r["rounds"] + 1
                           + (r["grids_resolved"] is not None) for r in od),
+        "round_graph": not graphs or graphs_ok(rows),
         "history_rows": (ts == list(range(len(rows)))
                          and list(abc.history.get_all_populations().t)
                          == [-1] + ts
@@ -1481,6 +1517,7 @@ def phase_pipelined1e6(torch, state):
                   and set(paths) <= {"sequential", "pipelined"}),
         "launches": all(r["kde_launches"] >= 2 for r in rows if r["t"] >= 1),
         "defaults": abc.ingest_mode == "auto" and abc.history_mode == "lazy",
+        "round_graph": graphs_ok(rows),
     }
     state.setdefault("launches", {})["pipelined1e6"] = gate["kde_launches"]
 
@@ -1629,6 +1666,9 @@ def run_adaptive(torch, name: str, fuse: int = 1, pop: int = ADAPTIVE_POP,
     # weights[0] from the calibration sample of pop rows
     checks = {
         "gens": len(rows) == gens,
+        # the Gaussian KDE's rounds are captured (a local or aggregated
+        # proposal's may be refused: it runs eagerly and says so)
+        "round_graph": transitions is not None or graphs_ok(rows),
         "eps": all(math.isfinite(r["eps"]) and r["eps"] > 0 for r in rows),
         "launches": (all(r["kde_launches"] >= 1 for r in rows
                          if r["t"] >= 1) if transitions is None
@@ -1919,7 +1959,9 @@ def run_stochastic(torch, name: str, fuse: int = 1,
         checks["quadrature"] = (f"{mu_q:.3g}", f"{sd_q:.3g}") == \
             ("0.685", "0.0523")
     if run_mode == "onedispatch":
-        fused = onedispatch_report(abc, rows, wall)
+        # config #5's models copy host constants to the card in every
+        # call: their rounds are refused a capture and run eagerly
+        fused = onedispatch_report(abc, rows, wall, graphs=False)
         checks.update(fused["onedispatch_checks"])
     else:
         fused = fused_report(abc, rows) if fuse > 1 else {}
@@ -2834,6 +2876,7 @@ def _phase_fidelity(torch, state, name: str):
     n_full = scr["cfg"].n_full(FID_BATCH)
     cfg = scr["cfg"]
     checks = {
+        "round_graph": graphs_ok(off["rows"]) and graphs_ok(scr["rows"]),
         "posterior_off": mo["gate"], "posterior_screen": ms["gate"],
         "screen_vs_off": bool((abs(ms["mean"] - mo["mean"])
                                <= noise).all()),
@@ -3008,6 +3051,10 @@ def capacity_run(torch, prec: str, seed: int = 0, budget=None) -> dict:
                  PYABC_TPU_HBM_BUDGET=(None if budget is None
                                        else str(budget)),
                  PYABC_TPU_CAPACITY_MEASURE="1")
+    # the measured peak is this run's: what earlier phases left for the
+    # collector goes first
+    gc.collect()
+    torch.cuda.empty_cache()
     try:
         abc, priors, truth = capacity_abc(CAPACITY_POP, CAPACITY_BATCH,
                                           seed=seed)
@@ -3110,6 +3157,7 @@ def phase_capacity1e7(torch, state):
         "f32_infeasible": f32_infeasible,
         "completed": [r["t"] for r in rows] == list(range(CAPACITY_GENS)),
         "onedispatch": len(od) == CAPACITY_GENS - 1,
+        "round_graph": graphs_ok(rows) and graphs_ok(twin["rows"]),
         "precision": plan["precision"] != "f32",
         "planned_within_budget": plan["predicted_bytes"] <= budget,
         "measured_within_budget": 0 < measured <= budget,
@@ -3348,6 +3396,8 @@ def phase_telemetry1e6(torch, state):
         by_name.setdefault(e["name"], set()).add(e["args"].get("gen"))
     gens = set(range(ONEDISPATCH_GENS))
     checks = {
+        "round_graph": all(graphs_ok(a.timeline)
+                           for a in (a_off, a_on, a_f, a_off2)),
         "no_host_sync_in_lanes": no_sync_ok,
         "bit_identical": all(population_difference(a.history,
                                                    a_on.history) is None
@@ -3824,7 +3874,7 @@ def phase_recover1e6(torch, state):
 
 
 #: cudafaults (a): config #2 at pop 1e6 on the sequential engine, batch
-#: between these rungs
+#: between these rungs (the top one and the next)
 OOM_POP = 1_000_000
 OOM_TOP = 1 << 21
 OOM_GENS = 4
@@ -3838,13 +3888,19 @@ from pyabc_tpu_torch.resilience import retry
 from pyabc_tpu_torch.telemetry import REGISTRY
 
 fn = models[1]._fn
-calls = {"n": 0}
+calls = {"n": 0, "captures": 0}
 
 
 def bad(generator, theta):
     calls["n"] += 1
     out = fn(generator, theta)
-    if calls["n"] == 8:
+    # an eager round's 8th call, or the second captured round (the first
+    # is generation 0's, the second the one-dispatch engine's): on the
+    # card a round is called in Python only to run it eagerly and to
+    # capture it, and every later round replays what the capture recorded
+    capturing = torch.cuda.is_current_stream_capturing()
+    calls["captures"] += capturing
+    if calls["n"] == 8 or (capturing and calls["captures"] == 2):
         idx = torch.arange(theta.shape[0], device=theta.device) \
             + theta.shape[0]
         out = {k: v[idx] for k, v in out.items()}
@@ -3881,39 +3937,94 @@ sys.exit(3)
 """
 
 
-def oom_abc(batch_min: int, batch_max: int):
+def oom_abc(batch_min: int, batch_max: int, graphs: bool = True):
+    """Config #2 at pop 1e6 on the sequential engine with the batch
+    between ``batch_min`` and ``batch_max``; ``graphs``: the sampler's
+    default route (captured rounds), else eager rounds (the route a rung
+    drop leaves)."""
     import pyabc_tpu_torch as pt
     from pyabc_tpu_torch.models import make_two_gaussians_problem
 
     models, priors, distance, observed, _ = make_two_gaussians_problem()
+    sampler = pt.VectorizedSampler(
+        min_batch_size=batch_min, max_batch_size=batch_max,
+        max_rounds_per_call=16, device="cuda")
+    sampler.round_graphs = graphs
     abc = pt.ABCSMC(models, priors, distance, population_size=OOM_POP,
-                    sampler=pt.VectorizedSampler(
-                        min_batch_size=batch_min, max_batch_size=batch_max,
-                        max_rounds_per_call=16, device="cuda"),
-                    stores_sum_stats=False, seed=0,
+                    sampler=sampler, stores_sum_stats=False, seed=0,
                     ingest_mode="sequential", history_mode="eager",
                     device="cuda")
     abc.new("sqlite://", observed)
     return abc
 
 
-def _reserved_peak(torch, batch: int) -> int:
-    """Peak reserved bytes of ``OOM_GENS`` sequential generations pinned
-    at ``batch`` (calibration included), from an empty cache."""
+def _memory_windows(torch, batch_min: int, batch_max: int,
+                    graphs: bool) -> list:
+    """``OOM_GENS`` generations of :func:`oom_abc` from an empty cache,
+    with no limit: one row per window of the run — each sampler call
+    (calibration, then a generation) and the host work before it — with
+    its reserved and allocated peaks (bytes over the run's start) and,
+    after a call, the graph pool's reserved and allocated bytes."""
     import gc
 
-    abc = oom_abc(batch, batch)
+    abc = oom_abc(batch_min, batch_max, graphs=graphs)
+    sampler = abc.sampler
+    call = sampler.sample_until_n_accepted
     gc.collect()
     torch.cuda.empty_cache()
-    torch.cuda.reset_peak_memory_stats()
     base = torch.cuda.memory_reserved()
+    windows = []
+
+    def close(kind, **extra):
+        torch.cuda.synchronize()
+        windows.append({
+            "window": kind,
+            "reserved_peak": torch.cuda.max_memory_reserved() - base,
+            "allocated_peak": torch.cuda.max_memory_allocated() - base,
+            **extra})
+        torch.cuda.reset_peak_memory_stats()
+
+    def measured(*args, **kwargs):
+        close("host")
+        sample = call(*args, **kwargs)
+        pool = sampler._ladder.pool_bytes()
+        close("calibration" if kwargs.get("all_accepted") else "generation",
+              batch=sampler.last_batch, round_graph=sample.round_graph,
+              pool_reserved=pool["reserved"],
+              pool_allocated=pool["allocated"])
+        return sample
+
+    sampler.sample_until_n_accepted = measured
+    torch.cuda.reset_peak_memory_stats()
     abc.run(max_nr_populations=OOM_GENS)
-    torch.cuda.synchronize()
-    peak = torch.cuda.max_memory_reserved() - base
-    del abc
+    close("host")
+    del abc, sampler, call, measured
     gc.collect()
     torch.cuda.empty_cache()
-    return peak
+    return windows
+
+
+def oom_limit(windows: list, eager_windows: list) -> dict:
+    """The limit for cudafaults (a): above what every window before the
+    second generation at the top rung reserved (those run whole) and what
+    the eager run at the next rung reserved (the route and rung a drop
+    restarts on), below what the second generation at the top rung holds
+    at once — its allocated peak, a lower bound of its need, so it runs
+    out of memory.  Where those do not separate, the upper end is the
+    allocated peak plus the graph pool's unallocated bytes (the pool's
+    blocks serve captures only), and the source says so."""
+    second = [i for i, w in enumerate(windows)
+              if w["window"] == "generation"][1]
+    fits = max([w["reserved_peak"] for w in windows[:second]]
+               + [w["reserved_peak"] for w in eager_windows])
+    needs = windows[second]["allocated_peak"]
+    source = "allocated"
+    if needs <= fits:
+        w = windows[second]
+        needs += w["pool_reserved"] - w["pool_allocated"]
+        source = "allocated + pool"
+    return {"fits_bytes": fits, "needs_bytes": needs, "source": source,
+            "separated": fits < needs, "limit": (fits + needs) // 2}
 
 
 def phase_cudafaults(torch, state):
@@ -3923,29 +4034,29 @@ def phase_cudafaults(torch, state):
     from pyabc_tpu_torch.resilience import retry
 
     checks, row = {}, {}
-    # (a) a real out-of-memory at the top batch rung
+    # (a) a real out-of-memory at the top batch rung, on the default
+    # (captured) route; the drop restarts at the next rung, eagerly
     half = OOM_TOP // 2
     led = {B: sum(capacity.ledger(
         population=OOM_POP, param_dim=1, stat_dim=1, engine="sequential",
         batch=B, wire_stats=False, models=2,
         support_cap=1 << 14).values()) for B in (OOM_TOP, half)}
-    peak = {B: _reserved_peak(torch, B) for B in (OOM_TOP, half)}
-    mid_ledger = (led[OOM_TOP] + led[half]) // 2
-    # the ledger's midpoint where it separates the measured rungs, else
-    # the measured midpoint (reported)
-    if peak[half] < mid_ledger < peak[OOM_TOP]:
-        limit, source = mid_ledger, "ledger"
-    else:
-        limit, source = (peak[half] + peak[OOM_TOP]) // 2, "measured"
+    windows = _memory_windows(torch, half, OOM_TOP, graphs=True)
+    eager = _memory_windows(torch, half, half, graphs=False)
+    choice = oom_limit(windows, eager)
+    limit = choice["limit"]
     total = torch.cuda.get_device_properties(0).total_memory
     gc.collect()
     torch.cuda.empty_cache()
     base = torch.cuda.memory_reserved()
     fraction = (base + limit) / total
-    row.update({"ledger_bytes": led, "reserved_peak_bytes": peak,
-                "limit_bytes": limit, "limit_source": source,
-                "fraction": fraction, "base_reserved": base})
+    row.update({"ledger_bytes": led, "graph_windows": windows,
+                "eager_half_windows": eager, "limit": choice,
+                "limit_bytes": limit, "fraction": fraction,
+                "base_reserved": base})
+    checks["a_limit_separates"] = choice["separated"]
     abc = oom_abc(half, OOM_TOP)
+    checks["a_graphs_on_before"] = abc.sampler.graphs_on()
     before = resilience_counts()
     torch.cuda.set_per_process_memory_fraction(fraction)
     try:
@@ -3958,24 +4069,31 @@ def phase_cudafaults(torch, state):
     after = resilience_counts()
     d = {k: after[k] - before[k] for k in after}
     h = abc.history
-    row.update({"a_counters": d, "a_batches": [r["batch"]
-                                               for r in abc.timeline],
+    rows = abc.timeline
+    row.update({"a_counters": d, "a_batches": [r["batch"] for r in rows],
+                "a_round_graph": [r["round_graph"] for r in rows],
                 "a_max_batch_after": abc.sampler.max_batch_size})
     checks["a_oom_is_transient"] = retry.is_transient(
         torch.cuda.OutOfMemoryError("CUDA out of memory."))
     checks["a_retries_used_up"] = d["resilience_retries_total"] >= 3
     checks["a_degraded"] = (d["resilience_degrade_total"] >= 1
-                            and abc.sampler.max_batch_size == half)
+                            and abc.sampler.max_batch_size == half
+                            and not abc.sampler.graphs_on())
     checks["a_completed"] = (h.max_t + 1 == OOM_GENS and all(
         len(h.get_population(t)) == OOM_POP for t in range(OOM_GENS)))
-    # generations before the failing one ran at the top rung; the
-    # failing one restarted, and every one after it ran, at the next
+    # generations before the failing one ran at the top rung on captured
+    # rounds; the failing one restarted, and every one after it ran, at
+    # the next rung, eagerly
     batches = row["a_batches"]
     k = batches.index(half) if half in batches else len(batches)
     checks["a_restarted_at_next_rung"] = (
-        0 < len(batches) - k
+        0 < k < len(batches)
         and batches == [OOM_TOP] * k + [half] * (len(batches) - k))
-    del abc
+    checks["a_graphs_before_the_drop"] = bool(rows[:k]) and all(
+        r["round_graph"] for r in rows[:k])
+    checks["a_eager_after_the_drop"] = bool(rows[k:]) and not any(
+        r["round_graph"] for r in rows[k:])
+    del abc, h, rows
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -5556,21 +5674,29 @@ def phase_laddermem(torch, state):
     from pyabc_tpu_torch.autotune.ladder import CompiledLadder
     from pyabc_tpu_torch.sampler import vectorized
 
-    out, held = {}, {}
+    out, held, pools = {}, {}, {}
     port_capacity = vectorized.LADDER_CAPACITY
     insert = CompiledLadder._insert
-    sizes = []
+    graph_pool = CompiledLadder.graph_pool
+    sizes, ladders = [], []
 
     def counting_insert(self, key, value):
         insert(self, key, value)
         sizes.append(len(self))
 
+    def noting_pool(self):
+        if all(lad is not self for lad in ladders):
+            ladders.append(self)
+        return graph_pool(self)
+
     CompiledLadder._insert = counting_insert
+    CompiledLadder.graph_pool = noting_pool
     try:
         for cap in LADDERMEM_CAPACITIES:
             vectorized.LADDER_CAPACITY = cap
             for name in ("envknobs1e6", "chaos1e6"):
                 sizes.clear()
+                ladders.clear()
                 torch.cuda.synchronize()
                 torch.cuda.empty_cache()
                 torch.cuda.reset_peak_memory_stats()
@@ -5578,15 +5704,377 @@ def phase_laddermem(torch, state):
                 torch.cuda.synchronize()
                 out[f"{name} cap {cap}"] = torch.cuda.max_memory_allocated()
                 held[f"{name} cap {cap}"] = max(sizes, default=0)
+                # the graph pools of the phase's samplers' ladders
+                pools[f"{name} cap {cap}"] = sum(
+                    lad.pool_bytes()["reserved"] for lad in ladders)
     finally:
         vectorized.LADDER_CAPACITY = port_capacity
         CompiledLadder._insert = insert
+        CompiledLadder.graph_pool = graph_pool
+        ladders.clear()
     emit({"phase": "laddermem", "ok": True,
           "order": list(LADDERMEM_CAPACITIES),
           "max_memory_allocated": out, "most_engines_held": held,
+          "graph_pool_bytes": pools,
           "growth_bytes": {name: out[f"{name} cap 16"]
                            - out[f"{name} cap 4"]
                            for name in ("envknobs1e6", "chaos1e6")}})
+
+
+# ---- the compiled round ------------------------------------------------------
+
+#: rounds compared bit for bit per configuration (the first of a rung
+#: runs eagerly; the capture follows it, so every later one is a
+#: replay), and rounds timed
+GRAPH_ROUNDS = 4
+GRAPH_TIMED = 20
+_ROUND_FIELDS = ("m", "theta", "distance", "accepted", "log_weight", "stats",
+                 "valid", "log_proposal")
+
+
+def _bits_equal(torch, a, b) -> bool:
+    """Bit-for-bit equality (NaN payloads included)."""
+    if a is None or b is None:
+        return a is None and b is None
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    if a.is_floating_point():
+        ints = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+        a = a.contiguous().view(ints[a.element_size()])
+        b = b.contiguous().view(ints[b.element_size()])
+    return bool(torch.equal(a, b))
+
+
+def _round_tensors(out, staged: bool) -> dict:
+    rr, pairs = out if staged else (out, ())
+    tensors = {k: getattr(rr, k) for k in _ROUND_FIELDS}
+    tensors.update({f"pair{i}": p for i, p in enumerate(pairs)})
+    return tensors
+
+
+def _state_tensors(state: dict) -> dict:
+    """The loop's buffers without their dump row (every dropped write
+    lands there, in no set order) and its counts."""
+    out = {f"bufs.{k}": v[:-1] for k, v in state["bufs"].items()}
+    out.update({k: state[k] for k in ("count", "npass")
+                if state[k] is not None})
+    return out
+
+
+def launches_per_call(torch, fn) -> dict:
+    """One call of ``fn`` under ``torch.profiler``: the host's launch API
+    calls (kernels, memsets, copies; ``cudaGraphLaunch`` counted apart)
+    and the kernels the device ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    launch_api = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                  "cuLaunchKernelEx", "cudaMemsetAsync", "cudaMemcpyAsync")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    api = graph = kernels = 0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            kernels += 1
+        elif e.name in launch_api:
+            api += 1
+        elif e.name.startswith("cudaGraphLaunch"):
+            graph += 1
+    return {"host_launches": api + graph, "graph_launches": graph,
+            "device_kernels": kernels}
+
+
+def recorded_round(abc, gens: int) -> dict:
+    """Run ``abc`` for ``gens`` generations and keep its last generation
+    round's ``(round_fn, params, n, B)`` as the sampler was handed them."""
+    samp = abc.sampler
+    sample = samp.sample_until_n_accepted
+    rec = {}
+
+    def recording(n, round_fn, generator, params, *args, **kw):
+        out = sample(n, round_fn, generator, params, *args, **kw)
+        if getattr(round_fn, "__name__", "") == "generation_round":
+            rec.update(round_fn=round_fn, params=params, n=n,
+                       B=samp.last_batch, kernel=round_fn.__self__,
+                       rows=list(abc.timeline))
+        return out
+
+    samp.sample_until_n_accepted = recording
+    try:
+        abc.run(max_nr_populations=gens)
+    finally:
+        del samp.sample_until_n_accepted
+    return rec
+
+
+def graph_against_eager(torch, name: str, raw, B: int, n: int, params,
+                        staged: bool, ladder) -> dict:
+    """``raw``'s round as a captured program and as the eager one, from
+    one generator state: ``GRAPH_ROUNDS`` rounds compared bit for bit
+    (each round's outputs, the buffers and the count, the generator's
+    state after it), then launches and ms per round each way."""
+    from pyabc_tpu_torch.sampler.device_loop import RoundProgram
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(20261018)
+    gen_e = torch.Generator(device="cuda")
+    gen_e.set_state(gen.get_state())
+    pool0 = ladder.pool_bytes()["reserved"]
+    graph = RoundProgram(raw, B, n, staged=staged, graphs=True,
+                         pool=ladder.graph_pool, label=name)
+    eager = RoundProgram(raw, B, n, staged=staged, graphs=False, label=name)
+    rounds = []
+    for _ in range(GRAPH_ROUNDS):
+        out_g = _round_tensors(graph.run(gen, params), staged)
+        out_e = _round_tensors(eager.run(gen_e, params), staged)
+        st_g, st_e = (_state_tensors(graph.state),
+                      _state_tensors(eager.state))
+        rounds.append({
+            "outputs": all(_bits_equal(torch, out_g[k], out_e[k])
+                           for k in out_e),
+            "buffers": all(_bits_equal(torch, st_g[k], st_e[k])
+                           for k in st_e),
+            "generator": bool(torch.equal(gen.get_state(),
+                                          gen_e.get_state())),
+            "count": int(graph.state["count"])})
+    checks = {"captured": graph.route == "graph",
+              "replayed": graph.replays == GRAPH_ROUNDS - 1,
+              "same_bits": all(r["outputs"] and r["buffers"]
+                               and r["generator"] for r in rounds)}
+    launches = {}
+    for arm, prog, g in (("eager", eager, gen_e), ("graph", graph, gen)):
+        try:
+            launches[arm] = launches_per_call(
+                torch, lambda: prog.run(g, params))
+        except Exception as exc:  # a measurement: reported, not gated
+            launches[arm] = {"not_measured": f"{type(exc).__name__}: {exc}"}
+    eager_ms = time_cuda(torch, lambda: eager.run(gen_e, params),
+                         reps=GRAPH_TIMED)
+    replay_ms = time_cuda(torch, lambda: graph.run(gen, params),
+                          reps=GRAPH_TIMED)
+    return {"config": name, "B": B, "n_target": n, "staged": staged,
+            "ok": all(checks.values()), "checks": checks, "rounds": rounds,
+            "launches_per_round": launches, "eager_ms_per_round": eager_ms,
+            "replay_ms_per_round": replay_ms,
+            "capture_s": graph.capture_s,
+            "graph_pool_bytes": ladder.pool_bytes()["reserved"],
+            "graph_pool_growth_bytes": ladder.pool_bytes()["reserved"]
+            - pool0}
+
+
+def graph_configs(torch) -> list:
+    """``(name, raw round, B, n, params, staged)`` of each configuration
+    the graphs phase compares, each from two generations of its own run
+    on the card (the run's own rounds replay graphs)."""
+    import pyabc_tpu_torch as pt
+    from pyabc_tpu_torch.convert import to_torch
+    from pyabc_tpu_torch.fidelity import FidelityConfig
+    from pyabc_tpu_torch.models import make_two_gaussians_problem
+
+    out = []
+    for name, pop, pinned in (("config2 pop16384", 16384, None),
+                              ("config2 pop1e6", 1_000_000, 1 << 19)):
+        models, priors, distance, observed, _ = make_two_gaussians_problem()
+        batch = ({} if pinned is None
+                 else {"min_batch_size": pinned, "max_batch_size": pinned})
+        abc = pt.ABCSMC(
+            models, priors, distance, population_size=pop,
+            eps=pt.MedianEpsilon(),
+            sampler=pt.VectorizedSampler(max_rounds_per_call=16,
+                                         device="cuda",
+                                         **{"max_batch_size": 1 << 19,
+                                            **batch}),
+            stores_sum_stats=False, seed=0, ingest_mode="sequential",
+            history_mode="eager", device="cuda")
+        abc.new("sqlite://", observed)
+        out.append((name, abc, False))
+    for name in ("lv1e5", "sir1e5"):
+        abc, _, _, _ = adaptive_abc(name)
+        out.append((f"config4 {name}", abc, False))
+    models, priors, distance, observed, _ = fid_problem("sir")
+    abc = pt.ABCSMC(
+        models, priors, distance, population_size=FID_POP,
+        sampler=pt.VectorizedSampler(min_batch_size=FID_BATCH,
+                                     max_batch_size=FID_BATCH,
+                                     device="cuda"),
+        stores_sum_stats=False, eps=pt.QuantileEpsilon(alpha=0.15), seed=0,
+        history_mode="eager", device="cuda")
+    abc.new("sqlite://", observed)
+    out.append(("fidelitysir5e4 staged", abc, True))
+    configs = []
+    for name, abc, staged in out:
+        rec = recorded_round(abc, 2)
+        B, n = rec["B"], rec["n"]
+        params = to_torch(rec["params"], "cuda")
+        if staged:
+            cfg = FidelityConfig(full_fraction=0.15, cal_rows=4096)
+            # the screen at the generation's ε: some candidates pass it,
+            # some do not
+            params["fidelity"] = {"tau": params["acceptor"]["eps"].clone()}
+            raw = abc.sampler.raw_round(rec["kernel"].staged_generation_round,
+                                        B, full_fraction=cfg.full_fraction)
+        else:
+            raw = abc.sampler.raw_round(rec["round_fn"], B)
+        configs.append({"name": name, "raw": raw, "B": B, "n": n,
+                        "params": params, "staged": staged,
+                        "run_round_graph": graphs_ok(rec["rows"])})
+    return configs
+
+
+def finalize_against_eager(torch, state, ladder) -> dict:
+    """The loop's finalize at row (b)'s shape (1e6 queries against the
+    8192-cell grid support, d = 1): the captured finalize (K1's launches
+    inside the graph) against the same work eager, bit for bit; then K1
+    in it against the plain KDE; replay and eager ms, launches, and the
+    kernel row of the captured call."""
+    from pyabc_tpu_torch.ops import kde as kde_plain
+    from pyabc_tpu_torch.ops import kde_cuda
+    from pyabc_tpu_torch.sampler.base import RoundResult
+    from pyabc_tpu_torch.sampler.device_loop import build_stateful_loop
+
+    dev = torch.device("cuda", 0)
+    label, m, n, d, kw = KDE_CASES[1]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(20261016)
+    c = _kde_case(torch, gen, dev, label, m, n, d, **kw)
+    params = {"support": c["support"], "log_w": c["log_w"],
+              "chol": c["chol"], "log_norm": c["log_norm"]}
+
+    def density(_m, theta, p):
+        return kde_cuda.weighted_kde_logpdf_cuda(
+            theta, p["support"], p["log_w"], p["chol"], p["log_norm"])
+
+    B = 1 << 19
+
+    def no_round(generator, p):
+        z = torch.zeros(B, device=dev)
+        return RoundResult(m=torch.zeros(B, dtype=torch.int64, device=dev),
+                           theta=z[:, None], distance=z,
+                           accepted=torch.zeros(B, dtype=torch.bool,
+                                                device=dev),
+                           log_weight=z, stats=z[:, None])
+
+    loop = build_stateful_loop(no_round, B, m, 1, weight_correction=density,
+                               graphs=True, pool=ladder.graph_pool,
+                               label="finalize at row (b)")
+    _, _, finalize, _ = loop
+    # one round (nothing accepted) allocates the buffers and captures it
+    loop.program.run(gen, params)
+    st = loop.program.state
+    lw = torch.randn(m, generator=gen, device=dev)
+    lw[::7] = -math.inf
+    st["bufs"]["theta"][:m].copy_(c["x"])
+    st["bufs"]["log_weight"][:m].copy_(lw)
+    st["count"].fill_(m)
+    g0 = kde_cuda.weighted_kde_logpdf_cuda.graph_launches
+    got = finalize(st, params)["log_weight"]
+    replay_k1 = kde_cuda.weighted_kde_logpdf_cuda.graph_launches - g0
+
+    def eager_finalize():
+        return torch.where(torch.isfinite(lw), lw - density(None, c["x"],
+                                                            params), lw)
+
+    ref = eager_finalize()
+    plain_density = kde_plain.weighted_kde_logpdf(
+        c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"])
+    plain = torch.where(torch.isfinite(lw), lw - plain_density, lw)
+    fin = torch.isfinite(plain)
+    err = float((got[fin] - plain[fin]).abs().max())
+    launches = {}
+    for arm, fn in (("eager", eager_finalize),
+                    ("graph", lambda: finalize(st, params))):
+        try:
+            launches[arm] = launches_per_call(torch, fn)
+        except Exception as exc:  # a measurement: reported, not gated
+            launches[arm] = {"not_measured": f"{type(exc).__name__}: {exc}"}
+    replay_ms = time_cuda(torch, lambda: finalize(st, params),
+                          reps=GRAPH_TIMED)
+    eager_ms = time_cuda(torch, eager_finalize, reps=GRAPH_TIMED)
+    plain_ms = time_cuda(torch, lambda: torch.where(
+        torch.isfinite(lw), lw - kde_plain.weighted_kde_logpdf(
+            c["x"], c["support"], c["log_w"], c["chol"], c["log_norm"]),
+        lw), reps=3, warmup=0)
+    lib = library_logsumexp_ms(torch, kde_plain, c)
+    checks = {"captured": loop.program.route == "graph",
+              "k1_in_graph": replay_k1 == 1,
+              "same_bits": _bits_equal(torch, got, ref),
+              "infinite_rows_kept": bool(torch.equal(torch.isinf(got),
+                                                     torch.isinf(plain))),
+              "k1_vs_plain": err <= GRAPH_K1_TOL}
+    return {"shape": label, "M": m, "N": n, "d": d,
+            "ok": all(checks.values()), "checks": checks,
+            "max_abs_err": err, "tolerance": GRAPH_K1_TOL,
+            "k1_launches_per_replay": replay_k1,
+            "launches": launches, "replay_ms": replay_ms,
+            "eager_ms": eager_ms, "plain_ms": plain_ms,
+            "library_ms": lib.get("library_ms"),
+            "bound_ms": 1e3 * kde_cuda.bound_seconds(m, n, d,
+                                                     state["sm_clock_hz"]),
+            "capture_s": loop.program.capture_s}
+
+
+#: K1 inside the captured finalize against the plain KDE (log density)
+GRAPH_K1_TOL = 4e-4
+
+
+def guard_against_eager(torch) -> dict:
+    """An ``AotGuard`` captured at one spec and called at another: one
+    counted miss, and the eager function's result."""
+    from pyabc_tpu_torch.autotune import aot_compile, aval_of, jit_compile
+    from pyabc_tpu_torch.telemetry.metrics import REGISTRY
+
+    def fn(x, y):
+        return torch.cumsum(x * 2.0 + y, 0)
+
+    x = torch.randn(4096, device="cuda")
+    x2 = torch.randn(6144, device="cuda")
+    guard = aot_compile(jit_compile(fn), aval_of(x), 1.0)
+    misses = REGISTRY.counter("autotune_aot_signature_misses_total")
+    before = misses.value
+    same = _bits_equal(torch, guard(x, 1.0), fn(x, 1.0))
+    drifted = _bits_equal(torch, guard(x2, 1.0).clone(), fn(x2, 1.0))
+    checks = {"captured": guard.captured, "replay_equal": same,
+              "drift_equal": drifted,
+              "one_miss": misses.value - before == 1}
+    return {"ok": all(checks.values()), "checks": checks}
+
+
+def phase_graphs(torch, state):
+    """The compiled round: each configuration's round captured and eager
+    from one generator state, bit for bit, with launches and ms per round
+    each way, capture seconds and the graph pool's bytes; the captured
+    finalize with K1 at row (b); the guard on spec drift."""
+    from pyabc_tpu_torch.autotune import CompiledLadder
+
+    ladder = CompiledLadder()
+    t0 = time.perf_counter()
+    rows = []
+    for cfg in graph_configs(torch):
+        row = graph_against_eager(torch, cfg["name"], cfg["raw"], cfg["B"],
+                                  cfg["n"], cfg["params"], cfg["staged"],
+                                  ladder)
+        row["checks"]["run_round_graph"] = cfg["run_round_graph"]
+        row["ok"] = all(row["checks"].values())
+        rows.append(row)
+        emit({"phase": "graphs", **row})
+        del cfg
+        torch.cuda.empty_cache()
+    final = finalize_against_eager(torch, state, ladder)
+    emit({"phase": "graphs", "finalize": final})
+    guard = guard_against_eager(torch)
+    state["graph_finalize"] = final
+    row = {"phase": "graphs",
+           "ok": all(r["ok"] for r in rows) and final["ok"] and guard["ok"],
+           "configs": {r["config"]: r["ok"] for r in rows},
+           "finalize_ok": final["ok"], "guard": guard,
+           "graph_pool_bytes": ladder.pool_bytes(),
+           "seconds": time.perf_counter() - t0}
+    emit(row)
+    if not row["ok"]:
+        raise RuntimeError(f"graphs failed its checks: {row}")
 
 
 # ---- scale-out and the fleet scheduler --------------------------------------
@@ -6346,6 +6834,13 @@ def phase_sched1e4(torch, state):
         raise RuntimeError(f"sched1e4 failed its checks: {checks}")
 
 
+def graph_replay_launches() -> int:
+    """K1 launches made by replays of captured graphs in this process
+    (0 before the package is imported)."""
+    mod = sys.modules.get("pyabc_tpu_torch.ops.kde_cuda")
+    return 0 if mod is None else mod.weighted_kde_logpdf_cuda.graph_launches
+
+
 def kernels_line(state) -> dict:
     """The per-kernel summary: times at the pop-16384 finalize shape
     (``ms`` is the whole wrapper call, ``kernel_only_ms`` the launches
@@ -6357,6 +6852,20 @@ def kernels_line(state) -> dict:
     keys = ("kernel_only_ms", "call_ms", "plain_ms", "library_ms",
             "library_chunks", "bound_ms", "bound_share", "max_abs_err",
             "partial_kernel", "launches")
+    final = state.get("graph_finalize", {})
+    replays = state.get("graph_launches", {})
+    captured = {
+        "name": "kde_logpdf (captured finalize)", "route": "cuda",
+        "source": "pyabc_tpu_torch/csrc/kde_logpdf.cu",
+        "replaces": "pyabc_tpu/ops/kde_pallas.py:77",
+        # K1 launched by replays of captured finalizes on the main path
+        "launches": sum(replays.values()),
+        "launches_by_phase": replays,
+        "max_abs_err": final.get("max_abs_err"),
+        "ms": final.get("replay_ms"), "eager_ms": final.get("eager_ms"),
+        "plain_ms": final.get("plain_ms"),
+        "bound_ms": final.get("bound_ms"), "bound_by": "operations",
+        "library_ms": final.get("library_ms"), "shape": final.get("shape")}
     return {"kernels": [{
         "name": "kde_logpdf", "route": "cuda",
         "source": "pyabc_tpu_torch/csrc/kde_logpdf.cu",
@@ -6371,10 +6880,10 @@ def kernels_line(state) -> dict:
         "library_ms": main.get("library_ms"),
         "shape": main.get("shape"),
         "by_shape": [{"shape": r["shape"], **{k: r.get(k) for k in keys}}
-                     for r in rows]}]}
+                     for r in rows]}, captured]}
 
 
-PHASES = {"card": phase_card, "build": phase_build,
+PHASES = {"card": phase_card, "build": phase_build, "graphs": phase_graphs,
           "kernels": phase_kernels, "pop16384": phase_pop16384,
           "pop1e6": phase_pop1e6, "lv1e5": phase_lv1e5,
           "sir1e5": phase_sir1e5, "petab1e5": phase_petab1e5,
@@ -6437,8 +6946,12 @@ def main(argv=None) -> int:
     for name in phases:
         t0 = time.perf_counter()
         counts = resilience_counts()
+        replays0 = graph_replay_launches()
         try:
             PHASES[name](torch, state)
+            if name not in ("card", "build", "graphs", "kernels"):
+                state.setdefault("graph_launches", {})[name] = (
+                    graph_replay_launches() - replays0)
             if name not in FAULT_PHASES:
                 # no fault plan: no retry, no degradation, no fallback
                 # latch (every latch counts a degradation) carried it
@@ -6454,7 +6967,11 @@ def main(argv=None) -> int:
                   "seconds": time.perf_counter() - t0})
             raise
     if "kernels" in phases:
-        emit(kernels_line(state))
+        line = kernels_line(state)
+        if state.get("graph_launches") and not line["kernels"][1]["launches"]:
+            raise RuntimeError("no captured finalize launched K1 on the "
+                               "main path")
+        emit(line)
     print(state["smi"], flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),

@@ -125,8 +125,8 @@ def ledger(*, population: int, param_dim: int, stat_dim: int,
            devices: int = 1, wire_stats: bool = True, models: int = 1,
            support_cap: Optional[int] = None, record_rows: int = 0,
            cal_rows: int = 0, store_gens: int = 0, loop_states: int = 2,
-           sim_mult: int = 4,
-           wire_slots: Optional[int] = None) -> "OrderedDict[str, int]":
+           sim_mult: int = 4, wire_slots: Optional[int] = None,
+           graph_pool: bool = False) -> "OrderedDict[str, int]":
     """Peak-byte ledger of one device generation of the port.
 
     With ``n`` the population, ``B`` the batch, ``cap = n + B``, ``d``
@@ -137,18 +137,20 @@ def ledger(*, population: int, param_dim: int, stat_dim: int,
 
     - ``carry_at_rest`` — the previous generation's carry while this one
       runs (``sampler/fused.py`` ``build_one_gen``: ``carry`` in,
-      ``new_carry`` out).  At f32 its lanes are views of that
-      generation's accept buffers: ``(cap + 1)·row`` plus the corrected
-      log weights ``4n``.  Narrowed, its theta/distance/stats buffers are
-      freed and it keeps the model-index buffer ``(cap + 1)·8``, the log
-      weights ``4n`` and the narrowed lanes ``w·n·(d + 1 + s)``, counted
-      twice: the next carry's narrowed copy is written while the input is
+      ``new_carry`` out).  At f32 it is counted as ``(cap + 1)·row`` plus
+      the corrected log weights ``4n``: an upper bound, since the engine
+      copies its ``n`` rows out of the accept buffers it keeps.
+      Narrowed, its theta/distance/stats buffers are freed and it keeps
+      the model-index buffer ``(cap + 1)·8``, the log weights ``4n`` and
+      the narrowed lanes ``w·n·(d + 1 + s)``, counted twice: the next
+      carry's narrowed copy is written while the input is
       alive.  The float32 promotion of the narrowed lanes lives only
       while the generation refits its proposal and sets its epsilon,
       before ``accept_window`` and ``round_batch`` exist, and is smaller
       than they are, so it adds nothing to the peak.  The JAX package's
       column counts ``n`` rows at rest.
-    - ``accept_window`` — this generation's accept buffers ``bufs``:
+    - ``accept_window`` — the engine's accept buffers, refilled each
+      generation (the static inputs of its captured round on the card):
       ``(cap + 1)·row`` (one dump row).  The JAX package's column counts
       the same rows at its int32 model index.
     - ``round_batch`` — one round's proposals, simulation, distances and
@@ -187,6 +189,15 @@ def ledger(*, population: int, param_dim: int, stat_dim: int,
       (``sampler/device_loop.py``), ``loop_states·(cap + 1)·row``: the
       prior round's and the generation round's, alive across the run.
       No JAX column matches.
+    - ``graph_pool`` — with ``graph_pool`` (the card captures the rounds
+      as CUDA graphs into the sampler's pool: ``sampler/device_loop.py``)
+      the pool, which keeps a round's working set between replays, and
+      the outputs a generation reads after its rounds: ``round_batch``'s
+      bytes again, a working set the eager allocator's cache no longer
+      lends to the rest of the generation (``chip_smoke.py``'s
+      capacity1e7 SIR rounds at B = 2^22 leave 1.26 GB in the pool
+      against 1.48 GB of ``round_batch`` on an H100).  No JAX column
+      matches: XLA's programs own their temporaries.
 
     Population terms are divided across ``devices``; supports are not.
     """
@@ -235,6 +246,7 @@ def ledger(*, population: int, param_dim: int, stat_dim: int,
     out["fidelity_rings"] = 2 * 2 * int(cal_rows) * 4
     out["store_ring"] = int(store_gens) * n_dev * row
     out["loop_states"] = int(loop_states) * cap_rows * row
+    out["graph_pool"] = out["round_batch"] if graph_pool else 0
     out["runtime"] = RUNTIME_BYTES
     return out
 

@@ -15,6 +15,8 @@ caller's global state at import.
 
 from __future__ import annotations
 
+import threading
+from contextlib import contextmanager
 from typing import Union
 
 import torch
@@ -50,3 +52,31 @@ def make_generator(device: torch.device, seed: int) -> torch.Generator:
 def device_of(generator: torch.Generator) -> torch.device:
     """The device a generator draws on (tensors it fills live there)."""
     return torch.device(generator.device)
+
+
+#: the capture pre-screen open on each thread (``autotune.ladder``)
+_SCREEN = threading.local()
+
+
+def note_uncapturable(reason: str) -> None:
+    """Called by port code that does work a CUDA graph cannot hold and
+    no call shows (making generators from a generator's host state): a
+    capture pre-screen open on this thread refuses the call.  Other
+    threads' screens never see it."""
+    marks = getattr(_SCREEN, "marks", None)
+    if marks is not None:
+        marks.append(reason)
+
+
+@contextmanager
+def capture_screen():
+    """Collect this thread's :func:`note_uncapturable` reasons (a list)
+    while the block runs."""
+    outer = getattr(_SCREEN, "marks", None)
+    _SCREEN.marks = marks = []
+    try:
+        yield marks
+    finally:
+        _SCREEN.marks = outer
+        if outer is not None:
+            outer.extend(marks)

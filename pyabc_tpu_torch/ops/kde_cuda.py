@@ -15,6 +15,10 @@ and why the logit is formed from coordinate differences.
 On a CUDA tensor this launches the kernel or raises; it never falls back
 to the plain version.  ``weighted_kde_logpdf_cuda.launches`` counts the
 launches, so a run can show that its main path went through the kernel.
+A call recorded into a CUDA graph launches nothing: the capture takes its
+count back, and each replay of the graph counts it
+(``autotune.ladder.register_launch_counter``), in ``launches`` and in
+``weighted_kde_logpdf_cuda.graph_launches``.
 :func:`base2_logpdf` repeats the kernel's arithmetic (base 2, prescaled
 rows, sub-tiles, splits) in plain PyTorch, so that the CPU tests can hold
 it against :func:`.kde.weighted_kde_logpdf`.
@@ -29,6 +33,7 @@ from typing import Tuple
 
 import torch
 
+from ..autotune.ladder import register_launch_counter
 from . import _build
 from .kde import NEG_BIG, _check_shapes
 
@@ -196,6 +201,20 @@ def weighted_kde_logpdf_cuda(x: torch.Tensor, support: torch.Tensor,
 
 #: kernel launches on this process (reset by callers that count a run)
 weighted_kde_logpdf_cuda.launches = 0
+#: of those, the launches made by replays of captured graphs
+weighted_kde_logpdf_cuda.graph_launches = 0
+
+
+def _add_launches(n: int, replayed: bool):
+    with _LOCK:
+        weighted_kde_logpdf_cuda.launches += n
+        if replayed:
+            weighted_kde_logpdf_cuda.graph_launches += n
+
+
+register_launch_counter("kde_logpdf",
+                        lambda: weighted_kde_logpdf_cuda.launches,
+                        _add_launches)
 
 
 def exp2_fma(x: torch.Tensor) -> torch.Tensor:

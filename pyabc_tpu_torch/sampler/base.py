@@ -206,6 +206,12 @@ class Sample:
         #: them: the orchestrator re-evaluates distances from these stats
         #: without an upload
         self.device_population: Optional[dict] = None
+        #: the sampler's round is captured as a CUDA graph
+        #: (``sampler/device_loop.py``: the first round of a rung runs
+        #: eagerly, every later one replays); False for eager rounds
+        self.round_graph = False
+        #: rounds of this sample that were graph replays
+        self.round_replays = 0
         #: log density of the newly fitted proposal at ``(m, theta)``:
         #: host arrays in and out, and the same on device tensors (set by
         #: the orchestrator for the temperature schemes)

@@ -15,31 +15,65 @@ buffers ``rec_stats``, ``rec_distance``, ``rec_accepted``, ``rec_m``,
 ``rec_theta`` and ``rec_log_proposal`` of ``max(record_cap, 1)`` rows;
 rows past the cap are dropped.
 
-Returns ``(start, step, finalize, reset)``:
+One round is one program (:class:`RoundProgram`): ``raw_round``, the
+append of its accepted rows, the count update and the record scatter,
+all written in place into buffers allocated once per (round kernel, B,
+n_target, record_cap).  On the card the program is captured as a CUDA
+graph (``autotune.ladder``: the JAX package's ahead-of-time surface):
+the first round of a rung runs eagerly on the run's generator and
+buffers, under the capture's pre-screen, and gives the capture its
+shapes; every later round is one replay, one graph launch where the
+eager round makes ~150 launches from Python.  The buffers are the
+graph's own inputs, so they are never rebound.  The JAX package's
+``while_loop`` over rounds is not ported: the host reads the count once
+per round, as the eager loop does.  A round that cannot be captured (a
+simulator that reads the card from the host) is counted in
+``autotune_aot_errors_total``, logged with its models, and runs eagerly
+(``RoundProgram.route`` ``"refused"``); on the CPU the program is called
+directly (``"eager"``).
 
-- ``start() -> state`` — empty state; buffers are allocated on the first
-  round, from that round's shapes, and reused by ``reset``;
+Returns ``(start, step, finalize, reset)`` (a :class:`StatefulLoop`,
+which also carries the ``program``):
+
+- ``start() -> state`` — the loop's state, its cursor at 0; the buffers
+  are allocated at the first round, from that round's shapes;
 - ``step(generator, params, state) -> state`` — up to ``max_rounds``
   rounds, stopping early once ``count >= n_target`` (one host read of the
   count per round);
 - ``finalize(state, params) -> view`` — the first ``min(count,
   n_target)`` rows; with ``weight_correction`` the deferred proposal
-  density is subtracted here, once, over the accepted rows;
-- ``reset(state) -> state`` — a cursor rewind for the next generation;
-  the record buffers are refilled with NaN.
+  density is subtracted here, once, over the accepted rows.  On the card
+  a finalize of ``n_target`` rows replays a captured graph (K1's
+  launches inside it); one below the target — a checkpoint flush in the
+  middle of a generation, or a generation cut short by ``max_eval`` —
+  stays eager;
+- ``reset(state) -> state`` — a cursor rewind for the next generation,
+  the buffers refilled in place (captured with the round on the card, as
+  the JAX package compiles its ``reset`` when it builds the loop).
 
-:func:`harvest_rec` takes a call's records out of a state.
+:func:`harvest_rec` copies a call's records out of a state and refills
+its record buffers in place.
 """
 
 from __future__ import annotations
 
+import logging
+import math
 from typing import Callable, Optional, Tuple
 
 import torch
 
+from ..autotune.ladder import (CaptureRefused, TensorSpec, aot_compile,
+                               jit_compile, screened_call)
 from .base import RECORD_KEYS
 
+logger = logging.getLogger("ABC.Sampler")
+
 _KEYS = ("m", "theta", "distance", "log_weight", "stats")
+#: what an empty accept buffer holds, per lane
+_FILL = {"m": 0, "theta": 0.0, "distance": math.nan,
+         "log_weight": -math.inf, "stats": 0.0}
+_TARGETS = ("bufs", "count", "rec", "rec_count", "npass")
 
 
 def append_accepted(pairs, acc: torch.Tensor, count: torch.Tensor,
@@ -83,121 +117,372 @@ def _gather_accepted(pairs, acc: torch.Tensor, count: torch.Tensor,
 
 
 def _fill_records(rec: dict) -> dict:
-    """Record buffers back to empty: NaN floats, False, model 0."""
-    for k, v in rec.items():
+    """Record buffers back to empty, in place: NaN floats, False,
+    model 0."""
+    for v in rec.values():
         v.fill_(float("nan") if v.is_floating_point() else 0)
     return rec
+
+
+def _apply_round(targets: dict, out, cap: int, rc: int, record_cap: int,
+                 staged: bool):
+    """:meth:`RoundProgram.apply`'s work (``rc`` record rows and a dump
+    row, ``cap`` accept rows and a dump row)."""
+    rr, pairs = out if staged else (out, None)
+    if pairs is not None:
+        targets["npass"].add_(pairs[2].sum())
+    acc = rr.accepted
+    count = targets["count"]
+    append_accepted([(targets["bufs"][k], getattr(rr, k)) for k in _KEYS],
+                    acc, count, cap)
+    count.copy_(torch.clamp(count + acc.sum(), max=cap))
+    if record_cap:
+        val = rr.valid
+        rcount = targets["rec_count"]
+        rpos = rcount + torch.cumsum(val.to(torch.int64), 0) - 1
+        ridx = torch.where(val & (rpos < rc), rpos, rc)
+        for k in RECORD_KEYS:
+            targets["rec"][k][ridx] = getattr(rr, k)
+        rcount.copy_(torch.clamp(rcount + val.sum(), max=rc))
+    return out
+
+
+def _round_program(raw_round: Callable, cap: int, rc: int, record_cap: int,
+                   staged: bool, keep_outputs: bool) -> Callable:
+    def program(generator, params, targets: dict):
+        out = _apply_round(targets, raw_round(generator, params), cap, rc,
+                           record_cap, staged)
+        return out if keep_outputs else None
+    return program
+
+
+class RoundProgram:
+    """One round of a rejection loop as one program over buffers it keeps:
+    ``raw_round(generator, params)`` (``(RoundResult, pairs)`` with
+    ``staged``: the fidelity cascade's round), the append of its accepted
+    rows to the accept buffers, the count update, the staged round's
+    survivor count (``npass``) and, with ``record_cap``, the record
+    scatter, each written in place.
+
+    ``graphs`` (the card): the first round runs eagerly and the program is then
+    captured as a CUDA graph into ``pool`` and replayed on every later round;
+    the state's buffers are the graph's own inputs.  Otherwise, or when the
+    card refuses the capture, :meth:`run` calls it.  ``label`` names the round
+    (its models and batch) in spans and in the log of a refusal; without
+    ``keep_outputs`` the program returns None (the rejection loop reads only
+    its buffers, and a captured output would hold pool memory for as long as
+    the graph lives).  The state (``count``, ``bufs``, ``rec``, ``rec_count``,
+    ``npass``, and the caller's ``rounds``) lives as long as the program."""
+
+    def __init__(self, raw_round: Callable, B: int, n_target: int,
+                 record_cap: int = 0, staged: bool = False,
+                 graphs: bool = False, pool=None, label: str = "round",
+                 keep_outputs: bool = True):
+        self.raw_round = raw_round
+        self.keep_outputs = bool(keep_outputs)
+        self.B, self.n_target = int(B), int(n_target)
+        self.cap = self.n_target + self.B
+        self.record_cap = int(record_cap)
+        self.rc = max(self.record_cap, 1)
+        self.staged = bool(staged)
+        self._program = _round_program(raw_round, self.cap, self.rc,
+                                       self.record_cap, self.staged,
+                                       self.keep_outputs)
+        self.pool = pool
+        self.label = label
+        self.state = {"count": None, "rounds": 0, "bufs": None, "rec": None,
+                      "rec_count": None, "npass": None}
+        #: "graph" (replays of a captured round), "eager" (the program
+        #: called: the CPU, a sampler whose rounds cross ranks) or
+        #: "refused" (the card refused the capture)
+        self.route = "graph" if graphs else "eager"
+        #: the refusal's message, when the route is "refused"
+        self.refusal: Optional[str] = None
+        #: seconds the captures took, their warm-up included
+        self.capture_s = 0.0
+        #: rounds served by a replay, and called eagerly
+        self.replays = 0
+        self.eager_rounds = 0
+        self._round = None
+        self._reset = None
+        #: the args' specs were checked against the graph since the last
+        #: reset (a generation's params are fixed for its rounds)
+        self._checked = False
+
+    # ---- the program ----------------------------------------------------
+
+    def targets(self) -> dict:
+        """The state's tensors, the program's third argument."""
+        return {k: self.state[k] for k in _TARGETS}
+
+    def apply(self, targets: dict, out):
+        """Fold a round's output into ``targets`` in place; returns
+        ``out``."""
+        return _apply_round(targets, out, self.cap, self.rc,
+                            self.record_cap, self.staged)
+
+    @property
+    def program(self) -> Callable:
+        """The whole round, ``(generator, params, targets)``:
+        ``raw_round`` then :meth:`apply` (its output only with
+        ``keep_outputs``).  A function holding no reference to this
+        object, so a graph of it does not keep the program alive."""
+        return self._program
+
+    @staticmethod
+    def refill(targets: dict) -> None:
+        """The buffers back to empty and the counts to 0, in place."""
+        for k, v in targets["bufs"].items():
+            v.fill_(_FILL[k])
+        targets["count"].zero_()
+        if targets["rec"] is not None:
+            _fill_records(targets["rec"])
+            targets["rec_count"].zero_()
+        if targets["npass"] is not None:
+            targets["npass"].zero_()
+
+    # ---- the buffers ----------------------------------------------------
+
+    def _layout(self, rr) -> dict:
+        """The state's tensors as :class:`TensorSpec` leaves, from a
+        round's shapes (one dump row per buffer)."""
+        dev = rr.m.device
+        rows = self.cap + 1
+
+        def spec(shape, dtype):
+            return TensorSpec(tuple(shape), dtype, dev)
+
+        scalar = spec((), torch.int64)
+        bufs = {
+            "m": spec((rows,), rr.m.dtype),
+            "theta": spec((rows, rr.theta.shape[1]), torch.float32),
+            "distance": spec((rows,), torch.float32),
+            "log_weight": spec((rows,), torch.float32),
+            "stats": spec((rows, rr.stats.shape[1]), torch.float32),
+        }
+        rec = None
+        if self.record_cap:
+            rec = {k: spec((self.rc + 1,) + tuple(getattr(rr, k).shape[1:]),
+                           getattr(rr, k).dtype) for k in RECORD_KEYS}
+        return {"bufs": bufs, "count": scalar, "rec": rec,
+                "rec_count": scalar if self.record_cap else None,
+                "npass": scalar if self.staged else None}
+
+    def _adopt(self, targets: dict) -> None:
+        self.state.update(targets)
+
+    def _allocate(self, rr) -> None:
+        def alloc(s):
+            return torch.empty(s.shape, dtype=s.dtype, device=s.device)
+
+        layout = self._layout(rr)
+        self._adopt({
+            k: ({n: alloc(s) for n, s in v.items()} if isinstance(v, dict)
+                else None if v is None else alloc(v))
+            for k, v in layout.items()})
+        self.refill(self.targets())
+
+    def _refuse(self, err: CaptureRefused) -> None:
+        self.route = "refused"
+        self.refusal = str(err)
+        self._round = self._reset = None
+        logger.warning("%s cannot be captured as a CUDA graph; it runs "
+                       "eagerly: %s", self.label, err)
+
+    def _capture(self, generator, params, targets) -> None:
+        """Capture the round and the refill on the state's own buffers
+        (donated: the graphs write them in place).  No warm-up: the round
+        ran eagerly on these shapes under the capture's pre-screen (the
+        first round of the rung), and the refill is fills."""
+        try:
+            self._round = aot_compile(
+                jit_compile(self.program, donate_argnums=(2,),
+                            pool=self.pool, label=self.label, warmup=False),
+                generator, params, targets)
+            self._reset = aot_compile(
+                jit_compile(self.refill, donate_argnums=(0,),
+                            pool=self.pool, label=self.label + ".reset",
+                            warmup=False),
+                targets)
+        except CaptureRefused as err:
+            self._refuse(err)
+            return
+        self.capture_s += (self._round.capture_seconds
+                           + self._reset.capture_seconds)
+        self._checked = True
+
+    def _first_round(self, generator, params):
+        """The first round of the rung on the graph route: run eagerly on
+        the run's generator and buffers (a real round, drawn as a replay
+        would draw it) under the capture's pre-screen, then the capture
+        on the buffers it allocated."""
+        out, refusal = screened_call(self.raw_round, generator, params,
+                                     label=self.label)
+        if self.state["bufs"] is None:
+            self._allocate(out[0] if self.staged else out)
+        self.eager_rounds += 1
+        self.apply(self.targets(), out)
+        if refusal is not None:
+            self._refuse(refusal)
+        else:
+            self._capture(generator, params, self.targets())
+        return out
+
+    def run(self, generator, params):
+        """One round into the state; returns the round's output (a
+        replay's output stays valid until the next replay of a graph of
+        the same pool)."""
+        if self.route == "graph" and self._round is None:
+            return self._first_round(generator, params)
+        if self.route == "graph":
+            targets = self.targets()
+            try:
+                if not self._checked:
+                    # new specs (a support that grew): capture again, on
+                    # the same buffers
+                    before = self._round.capture_seconds
+                    self._round.specialize(generator, params, targets)
+                    if self._round.capture_seconds != before:
+                        self.capture_s += self._round.capture_seconds
+                    self._checked = True
+            except CaptureRefused as err:
+                self._refuse(err)
+            else:
+                self.replays += 1
+                return self._round(generator, params, targets)
+        out = self.raw_round(generator, params)
+        if self.state["bufs"] is None:
+            self._allocate(out[0] if self.staged else out)
+        self.eager_rounds += 1
+        return self.apply(self.targets(), out)
+
+    def reset(self) -> None:
+        """Refill the buffers and zero the counts (no-op before the first
+        round)."""
+        self._checked = False
+        if self.state["count"] is None:
+            return
+        if self._reset is not None:
+            self._reset(self.targets())
+        else:
+            self.refill(self.targets())
+        self.state["rounds"] = 0
+
+
+class StatefulLoop(tuple):
+    """``(start, step, finalize, reset)``, with the loop's
+    :class:`RoundProgram` (``program``)."""
+
+    def __new__(cls, fns, program: RoundProgram):
+        self = super().__new__(cls, fns)
+        self.program = program
+        return self
 
 
 def build_stateful_loop(raw_round: Callable, B: int, n_target: int,
                         max_rounds: int,
                         weight_correction: Optional[Callable] = None,
-                        record_cap: int = 0):
+                        record_cap: int = 0, graphs: bool = False,
+                        pool=None, label: str = "round") -> StatefulLoop:
     """``raw_round(generator, params) -> RoundResult`` of B candidates;
     ``weight_correction(m, theta, params) -> log_denom`` marks the rounds'
     log weights as partial (see ``RoundKernel.generation_round``);
-    ``record_cap`` rows of records per call (0: none)."""
-    cap = n_target + B
-    rc = max(int(record_cap), 1)
+    ``record_cap`` rows of records per call (0: none); ``graphs``: capture
+    the round and the finalize as CUDA graphs into ``pool`` (the card)."""
+    program = RoundProgram(raw_round, B, n_target, record_cap=record_cap,
+                           graphs=graphs, pool=pool, label=label,
+                           keep_outputs=False)
+    state = program.state
+    #: the captured finalize; "refused" once the card refused it
+    final = {"guard": None, "refused": False}
 
     def start() -> dict:
-        return {"count": None, "rounds": 0, "bufs": None, "rec": None,
-                "rec_count": None}
-
-    def _allocate(rr, device) -> dict:
-        # one dump row at index cap takes every dropped write
-        return {
-            "m": torch.zeros(cap + 1, dtype=rr.m.dtype, device=device),
-            "theta": torch.zeros(cap + 1, rr.theta.shape[1],
-                                 dtype=torch.float32, device=device),
-            "distance": torch.full((cap + 1,), float("nan"),
-                                   device=device),
-            "log_weight": torch.full((cap + 1,), float("-inf"),
-                                     device=device),
-            "stats": torch.zeros(cap + 1, rr.stats.shape[1],
-                                 dtype=torch.float32, device=device),
-        }
-
-    def _allocate_records(rr, device) -> dict:
-        # rc rows plus the dump row; harvest hands out the first rc
-        return _fill_records({
-            k: torch.empty((rc + 1,) + tuple(getattr(rr, k).shape[1:]),
-                           dtype=getattr(rr, k).dtype, device=device)
-            for k in RECORD_KEYS})
-
-    def scatter(state: dict, rr) -> None:
-        dev = rr.m.device
-        if state["bufs"] is None:
-            state["bufs"] = _allocate(rr, dev)
-        if state["count"] is None:
-            state["count"] = torch.zeros((), dtype=torch.int64, device=dev)
-        acc = rr.accepted
-        count = state["count"]
-        bufs = state["bufs"]
-        append_accepted([(bufs[k], getattr(rr, k)) for k in _KEYS], acc,
-                        count, cap)
-        state["count"] = torch.clamp(count + acc.sum(), max=cap)
-        if record_cap:
-            if state["rec"] is None:
-                state["rec"] = _allocate_records(rr, dev)
-            if state["rec_count"] is None:
-                state["rec_count"] = torch.zeros((), dtype=torch.int64,
-                                                 device=dev)
-            val = rr.valid
-            rcount = state["rec_count"]
-            rpos = rcount + torch.cumsum(val.to(torch.int64), 0) - 1
-            ridx = torch.where(val & (rpos < rc), rpos, rc)
-            for k in RECORD_KEYS:
-                state["rec"][k][ridx] = getattr(rr, k)
-            state["rec_count"] = torch.clamp(rcount + val.sum(), max=rc)
+        return reset(state)
 
     def step(generator, params, state: dict) -> dict:
         for _ in range(max_rounds):
             if state["count"] is not None and \
                     int(state["count"]) >= n_target:
                 break
-            scatter(state, raw_round(generator, params))
+            program.run(generator, params)
             state["rounds"] += 1
         return state
+
+    def corrected(targets: dict, params) -> torch.Tensor:
+        """The finalize's work at ``n_target`` rows: the deferred density
+        (K1, one launch per model) subtracted from the partial weights."""
+        bufs = targets["bufs"]
+        lw = bufs["log_weight"][:n_target]
+        log_denom = weight_correction(bufs["m"][:n_target],
+                                      bufs["theta"][:n_target], params)
+        # -inf partial weights stay -inf (-inf - -inf would be NaN)
+        return torch.where(torch.isfinite(lw), lw - log_denom, lw)
+
+    def final_guard(params):
+        """The captured finalize at ``n_target`` rows, or None (not the
+        graph route, nothing deferred, or refused)."""
+        if (program.route != "graph" or weight_correction is None
+                or final["refused"]):
+            return None
+        targets = program.targets()
+        try:
+            if final["guard"] is None:
+                final["guard"] = aot_compile(
+                    jit_compile(corrected, donate_argnums=(0,),
+                                pool=program.pool,
+                                label=program.label + ".finalize"),
+                    targets, params)
+                program.capture_s += final["guard"].capture_seconds
+            else:
+                final["guard"].specialize(targets, params)
+        except CaptureRefused as err:
+            logger.warning("the finalize of %s cannot be captured as a "
+                           "CUDA graph; it runs eagerly: %s", label, err)
+            final["guard"], final["refused"] = None, True
+        return final["guard"]
 
     def finalize(state: dict, params) -> dict:
         take = min(int(state["count"]), n_target)
         view = {k: state["bufs"][k][:take] for k in _KEYS}
-        if weight_correction is not None and take:
-            log_denom = weight_correction(view["m"], view["theta"], params)
-            lw = view["log_weight"]
-            # -inf partial weights stay -inf (-inf - -inf would be NaN)
-            view["log_weight"] = torch.where(torch.isfinite(lw),
-                                             lw - log_denom, lw)
+        if weight_correction is None or not take:
+            return view
+        guard = final_guard(params) if take == n_target else None
+        if guard is not None:
+            # copied out of the pool: the ladder's other graphs reuse it
+            view["log_weight"] = guard(program.targets(), params).clone()
+            return view
+        # eager: the CPU, a refused capture, or a finalize below the
+        # target (a checkpoint flush mid-generation, a generation cut
+        # short by max_eval)
+        log_denom = weight_correction(view["m"], view["theta"], params)
+        lw = view["log_weight"]
+        view["log_weight"] = torch.where(torch.isfinite(lw),
+                                         lw - log_denom, lw)
         return view
 
     def reset(state: dict) -> dict:
-        if state["count"] is not None:
-            state["count"] = torch.zeros_like(state["count"])
-        if state["rec_count"] is not None:
-            state["rec_count"] = torch.zeros_like(state["rec_count"])
-            _fill_records(state["rec"])
+        program.reset()
         state["rounds"] = 0
         return state
 
-    return start, step, finalize, reset
+    return StatefulLoop((start, step, finalize, reset), program)
 
 
 def harvest_rec(state: dict) -> Tuple[dict, dict]:
-    """``(rec, state)``: this call's records — ``rec_<key>`` buffers of
-    ``max(record_cap, 1)`` rows, NaN past ``rec_count`` — and the state
-    with fresh NaN-filled record buffers and the record count at 0.
+    """``(rec, state)``: this call's records — ``rec_<key>`` copies of the
+    ``max(record_cap, 1)`` record rows, NaN past ``rec_count`` — and the
+    state with its record buffers refilled with NaN in place and the
+    record count at 0.
 
     Records are taken out every call rather than carried: the device
     buffer bounds one call, and ``Sample.append_record_batch`` bounds the
-    generation at ``max_records``, earliest first.  The harvested buffers
-    leave the state, so a later ``reset`` never overwrites them."""
+    generation at ``max_records``, earliest first.  The copies leave the
+    state, so a later round or ``reset`` never overwrites them."""
     old = state["rec"]
     if old is None:
         return {"rec_count": 0}, state
-    rec = {"rec_" + k: v[:-1] for k, v in old.items()}
-    rec["rec_count"] = state["rec_count"]
-    state["rec"] = _fill_records({k: torch.empty_like(v)
-                                  for k, v in old.items()})
-    state["rec_count"] = torch.zeros_like(state["rec_count"])
+    rec = {"rec_" + k: v[:-1].clone() for k, v in old.items()}
+    rec["rec_count"] = state["rec_count"].clone()
+    _fill_records(old)
+    state["rec_count"].zero_()
     return rec, state

@@ -70,6 +70,16 @@ the front of the rings, cut to ``cal_rows``.
 (``telemetry/lanes.py``) to its wire, and a one-dispatch run advances its
 progress word after each generation's control read.
 
+The rounds of a generation are one program (``device_loop.RoundProgram``)
+over accept buffers the engine keeps across generations, refilled at the
+start of each: with ``round_graphs`` (the card, a sampler whose rounds
+stay on it) the program is captured as a CUDA graph into ``graph_pool``
+and each round is one replay.  The population a generation hands on —
+its carry and its wire — is copied out of those buffers, so no later
+generation writes into a tensor that a fetch or the device store still
+holds.  The rest of a generation (``schedule``, the deferred density,
+the weights) runs eagerly.
+
 :func:`lane_extract` and :func:`lane_splice` are row surgery on a batched
 carry whose every leaf has the batch axis first (the study axis of
 ``serve/multiplex.py``): they copy rows out and in, and never write a
@@ -99,7 +109,7 @@ from ..telemetry.lanes import (device_progress_update, phase_cost_model,
 from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
 from ..wire.store import summary_wire_lanes
-from .device_loop import append_accepted
+from .device_loop import RoundProgram
 
 # Stop codes of the JAX package's device stop chain, in the order the
 # host loop checks them; ``smc.STOP_REASONS`` maps each to its string.
@@ -338,7 +348,8 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                   eps_sketch: bool = False, summary_lanes: bool = False,
                   fidelity_cfg: Optional[dict] = None,
                   carry_precision: str = "f32", wire_stats: bool = True,
-                  telemetry_lanes: bool = False):
+                  telemetry_lanes: bool = False, round_graphs: bool = False,
+                  graph_pool=None):
     """The per-generation body behind :func:`build_fused_generations`.
 
     ``eps_mode`` is ``"constant"``, ``"quantile"`` or ``"temperature"``
@@ -371,9 +382,10 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
     phase_wire_lanes`` of the generation's ``rounds`` tensor, and
     ``tl_screen_pass`` under the screen) to the wire: arithmetic on the
     round counter, no draw and no host read, so the population is the
-    same bits with and without them."""
+    same bits with and without them.  ``round_graphs``: capture the
+    round into ``graph_pool`` (each generation's ``info`` says whether
+    its rounds replayed a graph: ``round_graph``)."""
     M = kernel.M
-    cap = n_target + B
     stoch = stoch_cfg is not None
     adaptive = adaptive_cfg is not None
     fidelity = fidelity_cfg is not None
@@ -412,6 +424,11 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             factors = torch.as_tensor(factors, dtype=torch.float32,
                                       device=obs_flat.device)
     capped = support_cap is not None and n_target > support_cap
+    models = ", ".join(type(m).__name__ for m in getattr(kernel, "models", ()))
+    program = RoundProgram(
+        raw_round, B, n_target, staged=fidelity, graphs=round_graphs,
+        pool=graph_pool,
+        label=f"{'staged ' if fidelity else ''}round[{models}] at B={B}")
     tl_cost = None
     if telemetry_lanes:
         tl_cost = phase_cost_model(
@@ -520,55 +537,49 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                                                          final)
         trans = params["transition"]
         rate0, safety0 = carry["rate"], carry["safety"]
-        m_dtype = carry["m"].dtype
         dev = carry["log_weight"].device
 
         dyn_rounds = round_cap(rate0, safety0, n_target, eff_B, max_rounds,
                                rate_pred_factor)
 
-        # rejection rounds, compacted in (round, lane) order; row `cap`
-        # takes every dropped write
-        bufs = {
-            "m": torch.zeros(cap + 1, dtype=m_dtype, device=dev),
-            "theta": torch.zeros(cap + 1, d, device=dev),
-            "distance": torch.full((cap + 1,), math.nan, device=dev),
-            "log_weight": torch.full((cap + 1,), -math.inf, device=dev),
-            "stats": torch.zeros(cap + 1, s, device=dev),
-        }
-        count = torch.zeros((), dtype=torch.int64, device=dev)
-        if fidelity:
-            npass = torch.zeros((), dtype=torch.int64, device=dev)
+        # rejection rounds, compacted in (round, lane) order into the
+        # engine's buffers, refilled here; row `cap` takes every dropped
+        # write
+        program.reset()
+        replays0 = program.replays
         rounds = 0
         reads = 0
         while True:
-            rr = raw_round(generator, params)
-            if fidelity:
-                rr, pairs = rr
-                npass = npass + pairs[2].sum()
-            acc = rr.accepted
-            append_accepted([(bufs[key], getattr(rr, key))
-                             for key in POP_LANES], acc, count, cap)
-            count = torch.clamp(count + acc.sum(), max=cap)
+            out = program.run(generator, params)
             rounds += 1
             # the last round's candidates feed the refit / the rings
-            last = rr
+            last, pairs = out if fidelity else (out, None)
             reads += 1
-            if not bool((count < n_target) & (rounds < dyn_rounds)):
+            if not bool((program.state["count"] < n_target)
+                        & (rounds < dyn_rounds)):
                 break
+        st = program.state
+        count = st["count"].clone()
+        if fidelity:
+            npass = st["npass"].clone()
 
         rate1, safety1 = ewma_update(rate0, safety0, count, rounds, B,
                                      n_target)
 
-        # deferred proposal density over the accepted buffer (and the
-        # record ring's generating density: one evaluation serves both)
-        m1 = bufs["m"][:n_target]
-        theta1 = bufs["theta"][:n_target]
-        dist1 = bufs["distance"][:n_target]
-        stats1 = bufs["stats"][:n_target]
+        # the generation's population, copied out of the buffers the
+        # next generation refills; the deferred proposal density over it
+        # (and the record ring's generating density: one evaluation
+        # serves both)
+        bufs = st["bufs"]
+        m1 = bufs["m"][:n_target].clone()
+        theta1 = bufs["theta"][:n_target].clone()
+        dist1 = bufs["distance"][:n_target].clone()
+        stats1 = bufs["stats"][:n_target].clone()
         lw1 = bufs["log_weight"][:n_target]
         if stoch:
-            ring = {"rec_m": last.m[:R], "rec_theta": last.theta[:R],
-                    "rec_dist": last.distance[:R]}
+            ring = {"rec_m": last.m[:R].clone(),
+                    "rec_theta": last.theta[:R].clone(),
+                    "rec_dist": last.distance[:R].clone()}
             m_q = torch.cat([m1, ring["rec_m"]])
             th_q = torch.cat([theta1, ring["rec_theta"]])
         else:
@@ -645,6 +656,8 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                 wire["tl_screen_pass"] = npass
         info = {"rounds": rounds, "host_reads": reads,
                 "grids_resolved": resolved,
+                "round_graph": program.route == "graph",
+                "round_replays": program.replays - replays0,
                 "kde_support": [
                     {"rows": int((p["c_support"] if "c_support" in p
                                   else p["support"]).shape[0]),
@@ -699,7 +712,8 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
                             fidelity_cfg: Optional[dict] = None,
                             carry_precision: str = "f32",
                             wire_stats: bool = True,
-                            telemetry_lanes: bool = False):
+                            telemetry_lanes: bool = False,
+                            round_graphs: bool = False, graph_pool=None):
     """``fused(carry, generator, final_mask=None) -> (carry, wires,
     infos)`` for K generations.
 
@@ -722,12 +736,14 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
     launches (``kde_launches``).  ``final_mask`` [K] (stochastic triple)
     marks the run's last generation, whose temperature is 1.
     ``summary_lanes`` adds each generation's ``sm_*`` summary lanes to
-    its wire, ``telemetry_lanes`` its ``tl_*`` lanes.
+    its wire, ``telemetry_lanes`` its ``tl_*`` lanes; ``round_graphs``
+    captures the round as a CUDA graph into ``graph_pool``
+    (:func:`build_one_gen`).
 
     Every carry and wire tensor a block returns is freshly allocated (the
-    rejection buffers are new per generation, the wire slots per block):
-    no later block writes into a tensor an in-flight fetch or the device
-    store still holds."""
+    population is copied out of the engine's rejection buffers, the wire
+    slots are new per block): no later block writes into a tensor an
+    in-flight fetch or the device store still holds."""
     one_gen = build_one_gen(
         kernel, bandwidth_selectors, scalings, dims, n_target, B,
         max_rounds, d, s, eps_mode, eps_alpha, eps_multiplier,
@@ -736,7 +752,8 @@ def build_fused_generations(kernel, bandwidth_selectors, scalings, dims,
         stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
         summary_lanes=summary_lanes, fidelity_cfg=fidelity_cfg,
         carry_precision=carry_precision, wire_stats=wire_stats,
-        telemetry_lanes=telemetry_lanes)
+        telemetry_lanes=telemetry_lanes, round_graphs=round_graphs,
+        graph_pool=graph_pool)
 
     def fused(carry: dict, generator: torch.Generator,
               final_mask: Optional[List[bool]] = None):
@@ -836,7 +853,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
                           fidelity_cfg: Optional[dict] = None,
                           carry_precision: str = "f32",
                           wire_stats: bool = True,
-                          telemetry_lanes: bool = False):
+                          telemetry_lanes: bool = False,
+                          round_graphs: bool = False, graph_pool=None):
     """``onedispatch(carry, generator, ctl) -> (carry, ctl_out, wires)``:
     the rest of a run (at most ``ctl["t_limit"]`` <= ``max_T``
     generations) from ``carry``, with the stop chain after every
@@ -881,7 +899,8 @@ def build_onedispatch_run(kernel, bandwidth_selectors, scalings, dims,
         stoch_cfg=stoch_cfg, eps_sketch=eps_sketch,
         summary_lanes=summary_lanes, fidelity_cfg=fidelity_cfg,
         carry_precision=carry_precision, wire_stats=wire_stats,
-        telemetry_lanes=telemetry_lanes)
+        telemetry_lanes=telemetry_lanes, round_graphs=round_graphs,
+        graph_pool=graph_pool)
     stoch = stoch_cfg is not None
     temperature = eps_mode == "temperature"
 

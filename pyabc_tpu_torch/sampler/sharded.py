@@ -75,7 +75,14 @@ class ShardedSampler(VectorizedSampler):
 
     ``mesh`` None is :func:`~pyabc_tpu_torch.parallel.mesh.make_mesh`
     over this rank's device (``device=``, default the card): one shard
-    per rank.  The sampler runs on the mesh's device for this rank."""
+    per rank.  The sampler runs on the mesh's device for this rank.
+
+    Its rounds stay eager (``round_graphs`` False): a round gathers its
+    shards' rows through the host over gloo, which a CUDA graph cannot
+    capture."""
+
+    #: a round's collective is staged through the host: no capture
+    round_graphs = False
 
     def __init__(self, mesh: Optional[Mesh] = None,
                  axis_name: str = PARTICLE_AXIS, **kwargs):

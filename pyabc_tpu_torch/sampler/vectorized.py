@@ -28,10 +28,30 @@ producer, and the caller hands it to a streaming-ingest worker or the
 device store.  The copy matters: the loop's buffers are rewound and
 refilled by the next generation while the wire may still be in flight.
 
+On the card each round is one replay of a captured CUDA graph
+(:mod:`.device_loop`, ``autotune.ladder``), and so is a finalize of the
+whole population with its K1 launches.  The built loop — its buffers,
+which are the graphs' own inputs, and its graphs — is kept in the
+sampler's :class:`~pyabc_tpu_torch.autotune.CompiledLadder` under the JAX
+package's key ``("sloop", fn_id, B, extra)``, and reused by every later
+generation on that rung; the ladder keeps at most ``MAX_LOOPS`` of them,
+as the JAX package keeps at most four loop states (each holds its
+buffers and its graphs).  A rung is captured on demand: its first round
+runs eagerly and the capture follows, on the calling thread.  The JAX
+package's prewarm of the next rung (``pyabc_tpu/sampler/vectorized.py:
+166-215``) is not ported: a capture needs a round run on the rung's
+shapes, and a discarded probe round on the calling thread bought no
+measurable time on the card.  ``round_graphs`` is False on a sampler
+whose rounds cross ranks (:class:`~.sharded.ShardedSampler`); its rounds
+stay eager.  Each ``Sample`` says whether its rounds replayed a graph
+(``round_graph``).
+
 Every loop call is a dispatch under the sampler's retry policy
 (``Sampler._dispatch``, the ``device.dispatch`` site) with the
 generator's state and the accept cursor put back before a retry, so a
-call that failed after its rounds had drawn retries the same draws.
+call that failed after its rounds had drawn retries the same draws.  The
+cursor is a copy of the counts, written back in place: the counts are
+the graphs' own tensors, updated in place by every round.
 Before each call the loop visits the ``preempt`` site; with a
 ``checkpointer`` (``GenCheckpointer``, set by the orchestrator for one
 generation) it flushes the cumulative accepted rows at the configured
@@ -44,7 +64,7 @@ retry-exhausted dispatch (``pyabc_tpu/sampler/vectorized.py:250``).
 from __future__ import annotations
 
 import logging
-from typing import Dict, Optional, Tuple
+from typing import Optional
 
 import numpy as np
 
@@ -61,10 +81,18 @@ logger = logging.getLogger("ABC.Sampler")
 
 
 #: engines the sampler's ladder keeps: the JAX package's 16.  A port
-#: engine closure may hold device buffers, where an XLA executable holds
-#: none; ``chip_smoke.py --phases laddermem`` runs the pop-1e6 phases at
-#: 4 and 16 entries (their ladders hold at most 3 engines)
+#: engine closure or rejection loop holds device buffers, where an XLA
+#: executable holds none; ``chip_smoke.py --phases laddermem`` runs the
+#: pop-1e6 phases at 4 and 16 entries
 LADDER_CAPACITY = 16
+#: rejection loops the ladder keeps at most (the JAX package's bound on
+#: its loop states): each holds its accept and record buffers and its
+#: round, refill and finalize graphs
+MAX_LOOPS = 4
+
+
+def _is_loop_key(key) -> bool:
+    return isinstance(key, tuple) and key[:1] == ("sloop",)
 
 
 def _pow2_at_least(x: float) -> int:
@@ -73,6 +101,10 @@ def _pow2_at_least(x: float) -> int:
 
 class VectorizedSampler(Sampler):
     """On-device rejection-loop sampler."""
+
+    #: rounds run on one card and may be captured as CUDA graphs (False
+    #: where a round crosses ranks: its collective goes through the host)
+    round_graphs = True
 
     #: the JAX package's budget (query × support pairs) for prefetching
     #: a deferred-mode finalize inside its device loop; the port's loop
@@ -94,12 +126,12 @@ class VectorizedSampler(Sampler):
         self.max_rounds_per_call = int(max_rounds_per_call)
         self._tuner = BatchAutotuner()
         #: the engines the orchestrator builds for this sampler (fused
-        #: blocks, one-dispatch runs): one bounded LRU, as in the JAX
-        #: package
+        #: blocks, one-dispatch runs) and its rejection loops, whose
+        #: buffers are reused across generations (a reset is a cursor
+        #: rewind): one bounded LRU, as in the JAX package
         self._ladder = CompiledLadder(capacity=LADDER_CAPACITY)
-        #: loop buffers per (round fn, B, n, deferred), reused across
-        #: generations (a reset is a cursor rewind); at most 4 kept
-        self._states: Dict[Tuple, tuple] = {}
+        #: set by a batch rung drop: the rounds stay eager from then on
+        self._graphs_off = False
         #: candidate batch of the last generation sampled
         self.last_batch: Optional[int] = None
 
@@ -146,6 +178,42 @@ class VectorizedSampler(Sampler):
         return self.round_at(round_fn, B, with_proposal=False,
                              **round_kwargs)
 
+    def graphs_on(self) -> bool:
+        """Whether this sampler's rounds are captured: rounds on one card
+        (:attr:`round_graphs`), a CUDA device, and no batch rung dropped
+        for memory (:meth:`degrade_rung`)."""
+        return (bool(self.round_graphs) and self.device.type == "cuda"
+                and not self._graphs_off)
+
+    def _loop(self, round_fn, B: int, n: int, record_cap: int):
+        """The built rejection loop of ``round_fn`` at batch ``B`` from
+        the ladder: ``(loop, weight_fn)``, ``weight_fn`` the deferred
+        proposal density or None."""
+        defer = (getattr(round_fn, "supports_deferred_proposal", False)
+                 and hasattr(round_fn, "__self__"))
+        owner = getattr(round_fn, "__self__", round_fn)
+        fn_id = (getattr(owner, "_uid", id(owner)),
+                 getattr(round_fn, "__name__", ""))
+        weight_fn = owner.proposal_log_density if defer else None
+        key = ("sloop", fn_id, B, (n, defer, record_cap))
+
+        def build():
+            raw = (self.raw_round(round_fn, B) if defer
+                   else self.round_at(round_fn, B))
+            models = ", ".join(type(m).__name__
+                               for m in getattr(owner, "models", ()))
+            return build_stateful_loop(
+                raw, B, n, self.max_rounds_per_call,
+                weight_correction=weight_fn, record_cap=record_cap,
+                graphs=self.graphs_on(),
+                pool=self._ladder.pool_source(),
+                label=f"{fn_id[1]}[{models}] at B={B}")
+        return key, build, weight_fn
+
+    def _record_cap(self, B: int) -> int:
+        return (min(self.max_records_cap(), B * self.max_rounds_per_call)
+                if self.record_rejected else 0)
+
     def _round_to_valid_batch(self, b: float) -> int:
         return int(np.clip(_pow2_at_least(b), self.min_batch_size,
                            self.max_batch_size))
@@ -155,12 +223,19 @@ class VectorizedSampler(Sampler):
         (resilience/retry.py): halve the batch ceiling one rung, so a
         memory-pressure failure gets a strictly smaller round on the
         restart.  Returns the new ceiling, or None when already at the
-        floor (the caller re-raises).  Loop states of the old rung age
-        out of the bounded state cache."""
+        floor (the caller re-raises).  The ladder is emptied and the
+        rounds run eagerly from then on: a graph pool would keep the
+        larger rounds' memory from the smaller one."""
         if self.max_batch_size <= self.min_batch_size:
             return None
         self.max_batch_size = max(self.max_batch_size // 2,
                                   self.min_batch_size)
+        # a graph pool keeps the larger rounds' blocks, which the smaller
+        # round needs: drop every built program and its graphs, and run
+        # the rounds eagerly from here on
+        self._graphs_off = True
+        self._ladder.clear()
+        self._ladder.drop_pool()
         _retry.record_degrade("batch_rung_drop")
         logger.warning(
             "degrading batch ceiling to %d after repeated dispatch "
@@ -204,31 +279,19 @@ class VectorizedSampler(Sampler):
             from ..utils.progress import ProgressBar
             bar = ProgressBar(n, desc="sampling")
         B = self.last_batch = self.choose_batch(n)
-        record_cap = (min(self.max_records_cap(),
-                          B * self.max_rounds_per_call)
-                      if self.record_rejected else 0)
-        defer = (getattr(round_fn, "supports_deferred_proposal", False)
-                 and hasattr(round_fn, "__self__"))
+        record_cap = self._record_cap(B)
+        key, build, weight_fn = self._loop(round_fn, B, n, record_cap)
         record_density_fn = None
-        if defer:
-            raw = self.raw_round(round_fn, B)
-            weight_fn = round_fn.__self__.proposal_log_density
-            if record_cap and self.record_proposal_density:
-                # the records get their generating density at ingest
-                record_density_fn = (
-                    lambda m, th: weight_fn(m, th, params))  # noqa: E731
-        else:
-            raw = self.round_at(round_fn, B)
-            weight_fn = None
-        owner = getattr(round_fn, "__self__", round_fn)
-        loop_key = (getattr(owner, "_uid", id(owner)),
-                    getattr(round_fn, "__name__", ""), B, n, defer,
-                    record_cap)
-        cached = self._states.pop(loop_key, None)
-        start, step, finalize, reset = build_stateful_loop(
-            raw, B, n, self.max_rounds_per_call, weight_correction=weight_fn,
-            record_cap=record_cap)
-        state = reset(cached) if cached is not None else start()
+        if weight_fn is not None and record_cap \
+                and self.record_proposal_density:
+            # the records get their generating density at ingest
+            record_density_fn = (
+                lambda m, th: weight_fn(m, th, params))  # noqa: E731
+        loop = self._ladder.get(key, build)
+        self._ladder.retain(_is_loop_key, MAX_LOOPS)
+        start, step, finalize, reset = loop
+        state = start()
+        replays0 = loop.program.replays
         wire_keys = None
         while True:
             # the preemption probe: a `preempt@K:sigterm` fault plan
@@ -238,10 +301,9 @@ class VectorizedSampler(Sampler):
             # a failed attempt wrote only rows past the cursor: putting
             # the cursor and the generator back makes the retry the same
             # call (resilience/retry.py)
-            cursor = {k: state[k] for k in ("count", "rounds", "rec_count")}
+            cursor = _Cursor(state)
             state = self._dispatch(step, generator, params, state,
-                                   rng=generator,
-                                   restore=lambda: state.update(cursor))
+                                   rng=generator, restore=cursor.restore)
             if record_cap:
                 rec, state = harvest_rec(state)
                 rec["record_density_fn"] = record_density_fn
@@ -291,9 +353,8 @@ class VectorizedSampler(Sampler):
             sample.append_device_batch(
                 fetch_to_host({k: view[k] for k in wire_keys}), rounds * B,
                 count, device_view=view)
-        self._states[loop_key] = state
-        while len(self._states) > 4:
-            self._states.pop(next(iter(self._states)))
+        sample.round_graph = loop.program.route == "graph"
+        sample.round_replays = loop.program.replays - replays0
         if bar is not None:
             bar.finish()
         self.nr_evaluations_ = sample.nr_evaluations
@@ -302,6 +363,32 @@ class VectorizedSampler(Sampler):
     def max_records_cap(self) -> int:
         """Recorded candidates kept per generation at most."""
         return self.max_records
+
+
+class _Cursor:
+    """A copy of a loop state's cursor — the accepted and record counts
+    (0-d tensors, updated in place by every round) and the rounds run —
+    that :meth:`restore` writes back in place.  A cursor that held the
+    count tensors themselves would "restore" the values a failed attempt
+    had already advanced."""
+
+    def __init__(self, state: dict):
+        self.state = state
+        self.rounds = state["rounds"]
+        self.counts = {k: (None if state[k] is None else state[k].clone())
+                       for k in ("count", "rec_count")}
+
+    def restore(self):
+        self.state["rounds"] = self.rounds
+        for k, saved in self.counts.items():
+            live = self.state[k]
+            if live is None:
+                continue
+            if saved is None:
+                # allocated by the failed attempt: back to empty
+                live.zero_()
+            else:
+                live.copy_(saved)
 
 
 # The reference's local sampler flavours, as aliases: on the card every

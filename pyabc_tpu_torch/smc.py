@@ -112,6 +112,7 @@ import logging
 import math
 import os
 import time
+import traceback
 from collections import deque
 from typing import Callable, Dict, List, Optional, Sequence, Union
 
@@ -173,7 +174,8 @@ _ADAPTATION_FAILURES = (ValueError, ArithmeticError, np.linalg.LinAlgError,
                         torch.linalg.LinAlgError)
 
 #: with "1", a one-dispatch call on the card measures its peak device
-#: memory (``timeline.capacity["measured_bytes"]``), as it does under an
+#: memory (``timeline.capacity["measured_bytes"]``: the allocator's peak
+#: and the CUDA-graph pool's free blocks), as it does under an
 #: explicit ``PYABC_TPU_HBM_BUDGET``; the auto-detected budget alone
 #: measures nothing
 CAPACITY_MEASURE_ENV = "PYABC_TPU_CAPACITY_MEASURE"
@@ -214,6 +216,17 @@ def _obs_equal(a: Optional[Dict], b: Optional[Dict]) -> bool:
         return False
     return all(np.array_equal(np.asarray(a[k]), np.asarray(b[k]))
                for k in a)
+
+
+def _clear_failed_frames(err: BaseException) -> None:
+    """Drop the locals of the finished frames of ``err``'s traceback and
+    of the errors it chains."""
+    seen = set()
+    while err is not None and id(err) not in seen:
+        seen.add(id(err))
+        if err.__traceback__ is not None:
+            traceback.clear_frames(err.__traceback__)
+        err = err.__cause__ or err.__context__
 
 
 class ABCSMC:
@@ -1116,6 +1129,10 @@ class ABCSMC:
             round_fn = self._kernel.staged_generation_round
             round_kwargs = {"full_fraction": self.fidelity.full_fraction}
             fidelity_cfg = self._fidelity_block_cfg(B)
+        # the round is captured as a CUDA graph where the sampler's rounds
+        # stay on one card (not across ranks), into its ladder's pool
+        graphs_on = getattr(self.sampler, "graphs_on", None)
+        round_graphs = bool(graphs_on()) if graphs_on is not None else False
         return build(
             kernel=self._kernel,
             bandwidth_selectors=[tr.bandwidth_selector
@@ -1131,7 +1148,9 @@ class ABCSMC:
             rate_pred_factor=(shared["eps_alpha"]
                               if shared["eps_mode"] == "quantile" else 1.0),
             adaptive_cfg=adaptive_cfg, stoch_cfg=stoch_cfg,
-            fidelity_cfg=fidelity_cfg, **shared, **static)
+            fidelity_cfg=fidelity_cfg, round_graphs=round_graphs,
+            graph_pool=(self.sampler._ladder.pool_source() if round_graphs
+                        else None), **shared, **static)
 
     # ---- capacity planning (capacity/model.py) --------------------------
 
@@ -1157,7 +1176,10 @@ class ABCSMC:
             # the lazy store's generations resident when the engine starts
             # (the engine's own land in its wire slots)
             store_gens=(len(self._store.resident_ts()) if self._lazy_active
-                        else 0))
+                        else 0),
+            # the rounds' CUDA-graph pool, where the sampler captures them
+            graph_pool=bool(getattr(self.sampler, "graphs_on",
+                                    lambda: False)()))
 
     def _capacity_feasible(self, engine: str, n: int):
         """``feasible(K, max_T, B) -> bool`` over the capacity model for
@@ -1301,6 +1323,8 @@ class ABCSMC:
             "evaluations": evals, "acceptance_rate": acc_rate, "ess": ess,
             "batch": B, "rounds": rounds, "host_reads": info["host_reads"],
             "grids_resolved": info["grids_resolved"],
+            "round_graph": info["round_graph"],
+            "round_replays": info["round_replays"],
             "kde_launches": info["kde_launches"],
             "kde_support": info["kde_support"], "records": 0,
             "record_batches": 0, "refit_s": 0.0, "append_s": append_s}
@@ -1679,8 +1703,15 @@ class ABCSMC:
         dispatch_s = time.perf_counter() - t0
         if measure:
             torch.cuda.synchronize(self.device)
+            # the graph pool's free blocks are held by the run too, and
+            # the allocator's peak does not see them
+            ladder = getattr(self.sampler, "_ladder", None)
+            pool = (ladder.pool_bytes() if ladder is not None
+                    else {"reserved": 0, "allocated": 0})
+            self.timeline.capacity["graph_pool_bytes"] = pool["reserved"]
             self.timeline.capacity["measured_bytes"] = int(
-                torch.cuda.max_memory_allocated(self.device))
+                torch.cuda.max_memory_allocated(self.device)
+                + pool["reserved"] - pool["allocated"])
         self.run_dispatches += 1
         self.control_roundtrip_s += ctl_out["control_s"]
         gens = ctl_out["gens"]
@@ -1938,6 +1969,8 @@ class ABCSMC:
                          "n": n, "evaluations": sample.nr_evaluations,
                          "acceptance_rate": sample.acceptance_rate,
                          "batch": samp.last_batch,
+                         "round_graph": sample.round_graph,
+                         "round_replays": sample.round_replays,
                          "sample_s": time.perf_counter() - mark,
                          "kde_launches": (weighted_kde_logpdf_cuda.launches
                                           - launches0),
@@ -2512,6 +2545,8 @@ class ABCSMC:
                 "evaluations": sample.nr_evaluations,
                 "acceptance_rate": acceptance_rate, "ess": ess,
                 "batch": getattr(self.sampler, "last_batch", None),
+                "round_graph": sample.round_graph,
+                "round_replays": sample.round_replays,
                 "kde_launches": (weighted_kde_logpdf_cuda.launches
                                  - launches_mark),
                 "kde_support": ([_pdf_support_rows(p)
@@ -2595,6 +2630,9 @@ class ABCSMC:
                 degrade = getattr(self.sampler, "degrade_rung", None)
                 if degrade is None or restarts >= self._MAX_GEN_RESTARTS:
                     raise
+                # the failed attempt's frames hold its rung's buffers and
+                # graphs: let them go before the smaller round allocates
+                _clear_failed_frames(err)
                 new_cap = degrade()
                 if new_cap is None:
                     raise  # already at the floor

@@ -25,7 +25,7 @@ import numpy as np
 import torch
 
 from ..convert import to_torch
-from ..device import device_of, resolve_device
+from ..device import device_of, note_uncapturable, resolve_device
 from ..ops.choice import fast_weighted_choice
 
 
@@ -209,6 +209,9 @@ def sub_generators(generator: torch.Generator, k: int) -> list:
     keeps its seed and offset on the host, so nothing is read from the
     card); ``generator`` then advances by one draw, so the next call
     seeds new streams.  The same state gives the same streams."""
+    # a CUDA graph would freeze these seeds at its capture
+    note_uncapturable("sub_generators seeds new generators from the host "
+                      "state of the run's")
     state = generator.get_state().numpy().tobytes()
     dev = device_of(generator)
     out = []
