@@ -686,12 +686,15 @@ class AotGuard:
     ``autotune_aot_signature_misses_total`` and goes through the
     ``jit_compile`` wrapper, which captures for the new spec."""
 
-    __slots__ = ("_compiled", "_fallback", "_avals")
+    __slots__ = ("_compiled", "_fallback", "_avals", "captures")
 
     def __init__(self, compiled, fallback: _Jitted, avals=None):
         self._compiled = compiled
         self._fallback = fallback
         self._avals = avals
+        #: captures of the guard's program (1, +1 for each that
+        #: :meth:`specialize` made)
+        self.captures = 1
 
     def __call__(self, *args):
         leaves, treedef, _ = _flatten(args)
@@ -713,6 +716,7 @@ class AotGuard:
         self._compiled = _build_compiled(self._fallback, leaves, treedef,
                                          donated)
         self._avals = avals_like(args)
+        self.captures += 1
 
     @property
     def inputs(self) -> tuple:

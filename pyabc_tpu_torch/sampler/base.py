@@ -212,6 +212,13 @@ class Sample:
         self.round_graph = False
         #: rounds of this sample that were graph replays
         self.round_replays = 0
+        #: the clocks of the sampler's count reads
+        #: (``telemetry.phases.RoundClock.row``: ``count_wait_s``,
+        #: ``round_host_s``, ``loop_s``, and with the tracer on the
+        #: rounds' ``phase_device_s``, ``phase_rounds`` and the captured
+        #: finalize's ``finalize_device_s``); empty where the sampler
+        #: reads no count
+        self.round_clock: dict = {}
         #: log density of the newly fitted proposal at ``(m, theta)``:
         #: host arrays in and out, and the same on device tensors (set by
         #: the orchestrator for the temperature schemes)

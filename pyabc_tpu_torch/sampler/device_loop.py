@@ -53,6 +53,14 @@ which also carries the ``program``):
 
 :func:`harvest_rec` copies a call's records out of a state and refills
 its record buffers in place.
+
+Every host read of the count goes through the program's
+:class:`~pyabc_tpu_torch.telemetry.phases.RoundClock` (``program.clock``;
+a sampler starts one a generation with ``program.new_clock()``).  With
+the span tracer on, on the card, the round's phase marks and the
+finalize's ``finalize`` mark record timing events (into the captured
+graphs, when the capture runs with the tracer on); the clock reads the
+round's after each count read, and the finalize's once it has run.
 """
 
 from __future__ import annotations
@@ -65,6 +73,8 @@ import torch
 
 from ..autotune.ladder import (CaptureRefused, TensorSpec, aot_compile,
                                jit_compile, screened_call)
+from ..telemetry import phases as _phases
+from ..telemetry.spans import TRACER
 from .base import RECORD_KEYS
 
 logger = logging.getLogger("ABC.Sampler")
@@ -144,6 +154,7 @@ def _apply_round(targets: dict, out, cap: int, rc: int, record_cap: int,
         for k in RECORD_KEYS:
             targets["rec"][k][ridx] = getattr(rr, k)
         rcount.copy_(torch.clamp(rcount + val.sum(), max=rc))
+    _phases.mark("compact")
     return out
 
 
@@ -208,6 +219,51 @@ class RoundProgram:
         #: the args' specs were checked against the graph since the last
         #: reset (a generation's params are fixed for its rounds)
         self._checked = False
+        #: the phase marks (recorded only while traced); the events of the
+        #: captured round, and those of the last round run, not yet read
+        self._marks = _phases.PhaseMarks()
+        self._phase_graph = None
+        self._phase_read = None
+        #: the clock of the count reads (the sampler starts one a
+        #: generation: :meth:`new_clock`)
+        self.clock = _phases.RoundClock(self)
+
+    # ---- tracing --------------------------------------------------------
+
+    def new_clock(self) -> "_phases.RoundClock":
+        """A fresh clock for the next loop's count reads."""
+        self.clock = _phases.RoundClock(self)
+        self._phase_read = None
+        return self.clock
+
+    def traced(self) -> bool:
+        """Whether rounds run now record phase marks: the tracer is on
+        and the round runs on the card."""
+        if not TRACER.enabled:
+            return False
+        count = self.state["count"]
+        return self.route != "eager" or (count is not None and count.is_cuda)
+
+    def _recording(self):
+        return _phases.recording(self._marks if self.traced() else None)
+
+    def _ran(self, captured: bool = False) -> None:
+        """After the round ran (or was captured) in Python under
+        :meth:`_recording`: keep the events it marked."""
+        events = self._marks.current if self.traced() else None
+        if captured:
+            self._phase_graph = events
+        else:
+            self._phase_read = events
+
+    def take_phases(self) -> Optional[dict]:
+        """``{phase: device seconds}`` of the last round run, once (None:
+        not traced, or read already).  Call after a read that waited for
+        the round."""
+        events, self._phase_read = self._phase_read, None
+        if not events or len(events) < 2:
+            return None
+        return _phases.elapsed(events)
 
     # ---- the program ----------------------------------------------------
 
@@ -316,16 +372,20 @@ class RoundProgram:
         the run's generator and buffers (a real round, drawn as a replay
         would draw it) under the capture's pre-screen, then the capture
         on the buffers it allocated."""
-        out, refusal = screened_call(self.raw_round, generator, params,
-                                     label=self.label)
-        if self.state["bufs"] is None:
-            self._allocate(out[0] if self.staged else out)
-        self.eager_rounds += 1
-        self.apply(self.targets(), out)
+        with self._recording():
+            out, refusal = screened_call(self.raw_round, generator, params,
+                                         label=self.label)
+            if self.state["bufs"] is None:
+                self._allocate(out[0] if self.staged else out)
+            self.eager_rounds += 1
+            self.apply(self.targets(), out)
+        self._ran()
         if refusal is not None:
             self._refuse(refusal)
         else:
-            self._capture(generator, params, self.targets())
+            with self._recording():
+                self._capture(generator, params, self.targets())
+            self._ran(captured=True)
         return out
 
     def run(self, generator, params):
@@ -340,21 +400,28 @@ class RoundProgram:
                 if not self._checked:
                     # new specs (a support that grew): capture again, on
                     # the same buffers
-                    before = self._round.capture_seconds
-                    self._round.specialize(generator, params, targets)
-                    if self._round.capture_seconds != before:
+                    before = self._round.captures
+                    with self._recording():
+                        self._round.specialize(generator, params, targets)
+                    if self._round.captures != before:
+                        self._ran(captured=True)
                         self.capture_s += self._round.capture_seconds
                     self._checked = True
             except CaptureRefused as err:
                 self._refuse(err)
             else:
                 self.replays += 1
+                self._phase_read = (self._phase_graph if self.traced()
+                                    else None)
                 return self._round(generator, params, targets)
-        out = self.raw_round(generator, params)
-        if self.state["bufs"] is None:
-            self._allocate(out[0] if self.staged else out)
-        self.eager_rounds += 1
-        return self.apply(self.targets(), out)
+        with self._recording():
+            out = self.raw_round(generator, params)
+            if self.state["bufs"] is None:
+                self._allocate(out[0] if self.staged else out)
+            self.eager_rounds += 1
+            out = self.apply(self.targets(), out)
+        self._ran()
+        return out
 
     def reset(self) -> None:
         """Refill the buffers and zero the counts (no-op before the first
@@ -393,16 +460,19 @@ def build_stateful_loop(raw_round: Callable, B: int, n_target: int,
                            graphs=graphs, pool=pool, label=label,
                            keep_outputs=False)
     state = program.state
-    #: the captured finalize; "refused" once the card refused it
-    final = {"guard": None, "refused": False}
+    #: the captured finalize; "refused" once the card refused it; the
+    #: timing events its capture marked
+    final = {"guard": None, "refused": False, "events": None}
+    final_marks = _phases.PhaseMarks()
 
     def start() -> dict:
         return reset(state)
 
     def step(generator, params, state: dict) -> dict:
+        clock = program.clock
         for _ in range(max_rounds):
             if state["count"] is not None and \
-                    int(state["count"]) >= n_target:
+                    clock.read(int, state["count"]) >= n_target:
                 break
             program.run(generator, params)
             state["rounds"] += 1
@@ -411,12 +481,15 @@ def build_stateful_loop(raw_round: Callable, B: int, n_target: int,
     def corrected(targets: dict, params) -> torch.Tensor:
         """The finalize's work at ``n_target`` rows: the deferred density
         (K1, one launch per model) subtracted from the partial weights."""
+        _phases.start()
         bufs = targets["bufs"]
         lw = bufs["log_weight"][:n_target]
         log_denom = weight_correction(bufs["m"][:n_target],
                                       bufs["theta"][:n_target], params)
         # -inf partial weights stay -inf (-inf - -inf would be NaN)
-        return torch.where(torch.isfinite(lw), lw - log_denom, lw)
+        out = torch.where(torch.isfinite(lw), lw - log_denom, lw)
+        _phases.mark("finalize")
+        return out
 
     def final_guard(params):
         """The captured finalize at ``n_target`` rows, or None (not the
@@ -425,16 +498,23 @@ def build_stateful_loop(raw_round: Callable, B: int, n_target: int,
                 or final["refused"]):
             return None
         targets = program.targets()
+        traced = program.traced()
+        before = (0 if final["guard"] is None
+                  else final["guard"].captures)
         try:
-            if final["guard"] is None:
-                final["guard"] = aot_compile(
-                    jit_compile(corrected, donate_argnums=(0,),
-                                pool=program.pool,
-                                label=program.label + ".finalize"),
-                    targets, params)
-                program.capture_s += final["guard"].capture_seconds
-            else:
-                final["guard"].specialize(targets, params)
+            with _phases.recording(final_marks if traced else None):
+                if final["guard"] is None:
+                    final["guard"] = aot_compile(
+                        jit_compile(corrected, donate_argnums=(0,),
+                                    pool=program.pool,
+                                    label=program.label + ".finalize"),
+                        targets, params)
+                    program.capture_s += final["guard"].capture_seconds
+                else:
+                    final["guard"].specialize(targets, params)
+            if final["guard"].captures != before:
+                # the new graph's marks; none when captured untraced
+                final["events"] = final_marks.current if traced else None
         except CaptureRefused as err:
             logger.warning("the finalize of %s cannot be captured as a "
                            "CUDA graph; it runs eagerly: %s", label, err)
@@ -450,6 +530,9 @@ def build_stateful_loop(raw_round: Callable, B: int, n_target: int,
         if guard is not None:
             # copied out of the pool: the ladder's other graphs reuse it
             view["log_weight"] = guard(program.targets(), params).clone()
+            if final["events"] and program.traced():
+                program.clock.add_finalize(sum(_phases.elapsed(
+                    final["events"], wait=True).values()))
             return view
         # eager: the CPU, a refused capture, or a finalize below the
         # target (a checkpoint flush mid-generation, a generation cut

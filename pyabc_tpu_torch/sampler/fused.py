@@ -372,8 +372,9 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
     ``stats`` with ``wire_stats``) with ``count``, ``rounds`` and ``eps``
     (and the ``sm_*`` summary lanes with ``summary_lanes``), and host
     facts (``rounds``, ``host_reads``, ``grids_resolved`` — None without
-    a grid — ``kde_support``, and with ``fidelity_cfg`` ``screen_pass``,
-    the round survivors, ``screen_tau``, the threshold, ``cal_pairs`` and
+    a grid — ``kde_support``, the clocks of its count reads
+    (``telemetry.phases.RoundClock.row``), and with ``fidelity_cfg``
+    ``screen_pass``, the round survivors, ``screen_tau``, the threshold, ``cal_pairs`` and
     ``cal_corr``, the acceptable pairs and the correlation it was set
     from, and ``round_cap``, the generation's round cap, as 0-d device
     tensors, and ``max_rounds``, the ceiling of that cap).  ``final`` pins
@@ -545,6 +546,7 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
         # rejection rounds, compacted in (round, lane) order into the
         # engine's buffers, refilled here; row `cap` takes every dropped
         # write
+        clock = program.new_clock()
         program.reset()
         replays0 = program.replays
         rounds = 0
@@ -555,8 +557,8 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             # the last round's candidates feed the refit / the rings
             last, pairs = out if fidelity else (out, None)
             reads += 1
-            if not bool((program.state["count"] < n_target)
-                        & (rounds < dyn_rounds)):
+            if not clock.read(bool, (program.state["count"] < n_target)
+                              & (rounds < dyn_rounds)):
                 break
         st = program.state
         count = st["count"].clone()
@@ -658,6 +660,7 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                 "grids_resolved": resolved,
                 "round_graph": program.route == "graph",
                 "round_replays": program.replays - replays0,
+                **clock.row(),
                 "kde_support": [
                     {"rows": int((p["c_support"] if "c_support" in p
                                   else p["support"]).shape[0]),

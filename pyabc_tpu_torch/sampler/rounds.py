@@ -20,6 +20,10 @@ inside the prior support) and their generating proposal's log density
 (``log_proposal``: the prior at t = 0, NaN where the density is
 deferred).
 
+A round marks its phases (``telemetry.phases``: ``propose``,
+``simulate``, ``distance``, ``density``); the marks record CUDA events
+only while a round program traces them.
+
 Draw order of one round from the run's generator: the proposal (model
 source, jump, each model's transition draw), the simulations, then the
 acceptor's uniforms.  The staged round draws the proposal exactly as the
@@ -43,6 +47,7 @@ from ..model import IntegratedModel, Model
 from ..ops.choice import fast_weighted_choice
 from ..random_variables import Distribution, ModelPerturbationKernel
 from ..sumstat import SumStatSpec
+from ..telemetry import phases as _phases
 from .base import RoundResult
 
 
@@ -138,12 +143,18 @@ class RoundKernel:
         accepted."""
         eps = params.get("acceptor", {}).get("eps", math.inf)
         stats, early = self._simulate_all(generator, theta, m, eps)
+        _phases.mark("simulate")
         d = self.distance.compute(stats, self.obs_flat, params["distance"])
         if all_accepted:
-            return stats, d, torch.isfinite(d), torch.zeros_like(d)
-        acc, acc_w = self.acceptor.accept(generator, d, params["acceptor"])
-        accepted = acc & ~early & torch.isfinite(d)
-        return stats, d, accepted, torch.log(torch.clamp(acc_w, min=1e-38))
+            out = stats, d, torch.isfinite(d), torch.zeros_like(d)
+        else:
+            acc, acc_w = self.acceptor.accept(generator, d,
+                                              params["acceptor"])
+            accepted = acc & ~early & torch.isfinite(d)
+            out = (stats, d, accepted,
+                   torch.log(torch.clamp(acc_w, min=1e-38)))
+        _phases.mark("distance")
+        return out
 
     def _log_prior(self, m: torch.Tensor, theta: torch.Tensor
                    ) -> torch.Tensor:
@@ -163,18 +174,22 @@ class RoundKernel:
 
     def prior_round(self, generator, params: dict, B: int,
                     all_accepted: bool = False) -> RoundResult:
+        _phases.start()
         m = fast_weighted_choice(generator, self.model_prior_logits, B)
         theta = torch.zeros(B, self.dim, device=self.device)
         for j, prior in enumerate(self.priors):
             th_j = self._padded(prior.rvs_array(generator, B))
             theta = torch.where((m == j)[:, None], th_j, theta)
+        _phases.mark("propose")
         stats, d, accepted, log_acc_term = self._evaluate(
             generator, theta, m, params, all_accepted=all_accepted)
         # every prior draw is a record; its generating density is the prior
+        log_proposal = self._log_prior(m, theta)
+        _phases.mark("density")
         return RoundResult(m=m, theta=theta, distance=d, accepted=accepted,
                            log_weight=log_acc_term, stats=stats,
                            valid=torch.ones_like(accepted),
-                           log_proposal=self._log_prior(m, theta))
+                           log_proposal=log_proposal)
 
     # ---- generation round -------------------------------------------------
 
@@ -215,7 +230,9 @@ class RoundKernel:
         — is skipped and the weights are partial; the sampler subtracts
         the density once over the accepted buffer (device_loop
         finalize)."""
+        _phases.start()
         m, theta, log_prior, valid = self._propose(generator, params, B)
+        _phases.mark("propose")
         stats, d, sim_accepted, log_acc_term = self._evaluate(
             generator, theta, m, params)
         accepted = sim_accepted & valid
@@ -227,6 +244,7 @@ class RoundKernel:
             # deferred: the records carry NaN, never a wrong density
             log_proposal = torch.full_like(log_weight, math.nan)
         log_weight = torch.where(accepted, log_weight, -math.inf)
+        _phases.mark("density")
         return RoundResult(m=m, theta=theta, distance=d, accepted=accepted,
                            log_weight=log_weight, stats=stats, valid=valid,
                            log_proposal=log_proposal)

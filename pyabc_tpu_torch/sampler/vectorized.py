@@ -73,6 +73,7 @@ from ..convert import to_torch
 from ..device import resolve_device
 from ..resilience import faults as _faults
 from ..resilience import retry as _retry
+from ..telemetry.phases import RoundClock
 from ..wire import transfer
 from .base import Sample, Sampler, SamplingError, fetch_to_host, mark_ready
 from .device_loop import build_stateful_loop, harvest_rec
@@ -256,9 +257,12 @@ class VectorizedSampler(Sampler):
             B = self.last_batch = self._round_to_valid_batch(n)
             calibrate = self.round_at(round_fn, B, all_accepted=True)
             zero_rounds = 0
+            clock = RoundClock()
             while sample.n_accepted < n:
                 before = sample.n_accepted
-                sample.append_round(self._dispatch(
+                # the round's fetch is its count read (the dispatch, an
+                # argument, runs before the clock starts)
+                clock.read(sample.append_round, self._dispatch(
                     lambda: calibrate(generator, params), rng=generator))
                 zero_rounds = (zero_rounds + 1
                                if sample.n_accepted == before else 0)
@@ -290,6 +294,7 @@ class VectorizedSampler(Sampler):
         loop = self._ladder.get(key, build)
         self._ladder.retain(_is_loop_key, MAX_LOOPS)
         start, step, finalize, reset = loop
+        clock = loop.program.new_clock()
         state = start()
         replays0 = loop.program.replays
         wire_keys = None
@@ -308,7 +313,7 @@ class VectorizedSampler(Sampler):
                 rec, state = harvest_rec(state)
                 rec["record_density_fn"] = record_density_fn
                 sample.append_record_batch(rec)
-            count, rounds = int(state["count"]), state["rounds"]
+            count, rounds = clock.read(int, state["count"]), state["rounds"]
             self._tuner.observe(count, max(rounds * B, 1), rounds=rounds)
             if bar is not None:
                 bar.update(min(count, n))
@@ -343,6 +348,7 @@ class VectorizedSampler(Sampler):
                                max_eval, count, n)
                 break
         view = self._dispatch(finalize, state, params)
+        sample.round_clock = clock.row()
         wire_keys = [k for k in view if k != "stats" or self.fetch_stats]
         if defer_wire_fetch and not record_cap:
             view = {k: v.clone() for k, v in view.items()}

@@ -120,6 +120,7 @@ import numpy as np
 import torch
 
 from .acceptor import Acceptor, StochasticAcceptor, UniformAcceptor
+from .autotune import compile_counters, compile_delta
 from .autotune import configure_compile_cache
 from .autotune import occupancy as _occupancy
 from .capacity import model as _capacity
@@ -195,6 +196,11 @@ STOP_REASONS = {_fused.STOP_EPS: STOP_EPS,
                 _fused.STOP_SINGLE_MODEL: STOP_SINGLE_MODEL,
                 _fused.STOP_ACC_RATE: STOP_ACC_RATE,
                 _fused.STOP_BUDGET: STOP_BUDGET}
+
+
+#: the round clock's keys in a device engine's per-generation info
+_CLOCK_KEYS = ("count_wait_s", "round_host_s", "loop_s", "phase_device_s",
+               "phase_rounds", "finalize_device_s")
 
 
 def _pdf_support_rows(params: dict) -> dict:
@@ -464,7 +470,13 @@ class ABCSMC:
         #: and its ceiling); rows of a device engine with telemetry lanes
         #: also tl_sims (the lane's simulations, rounds x B) and
         #: ph_<phase>_s (telemetry.lanes.attribute_phases of the row's
-        #: wall).  ``timeline.to_rows()`` / ``summary()`` read the
+        #: wall); rows whose sampler read a round's count carry the
+        #: clocks of those reads (telemetry.phases.RoundClock.row:
+        #: count_wait_s, round_host_s, loop_s; traced on the card also
+        #: phase_device_s, phase_rounds and finalize_device_s); pack_s
+        #: (History.pack_s: seconds of the generation's PTW1 pack and
+        #: CRC, set at the end of run() once the blobs are written).
+        #: ``timeline.to_rows()`` / ``summary()`` read the
         #: JAX package's stage table of the same generations
         self.timeline = GenerationTimeline()
         #: one entry per fused block run: t (its first generation), K,
@@ -475,6 +487,9 @@ class ABCSMC:
         #: max_rounds
         self.blocks: List[dict] = []
         self._refit_s = 0.0
+        #: the build counters at the last timeline row (its stage row's
+        #: compile_s / n_compiles are the delta since)
+        self._compile_mark = compile_counters()
         #: host seconds of the last population-size adaptation
         self._adapt_s = 0.0
         self.stop_reason: Optional[str] = None
@@ -1327,7 +1342,8 @@ class ABCSMC:
             "round_replays": info["round_replays"],
             "kde_launches": info["kde_launches"],
             "kde_support": info["kde_support"], "records": 0,
-            "record_batches": 0, "refit_s": 0.0, "append_s": append_s}
+            "record_batches": 0, "refit_s": 0.0, "append_s": append_s,
+            **{k: info[k] for k in _CLOCK_KEYS if k in info}}
         if "screen_pass" in info:
             # the cascade's simulations: every candidate at low fidelity,
             # every slot at full fidelity
@@ -1381,6 +1397,9 @@ class ABCSMC:
             row["tl_sims"] = int(lanes["tl_sims"])
         self.generation_transfer[row["t"]] = tr
         self.timeline.append(row)
+        # the program builds and captures since the previous row
+        built = compile_delta(self._compile_mark)
+        self._compile_mark = compile_counters()
         compute = row["compute_s"]
         fetch = tr.get("fetch_s", 0.0)
         decode = tr.get("decode_s", 0.0)
@@ -1395,7 +1414,8 @@ class ABCSMC:
                     "compute": compute, "fetch": fetch, "decode": decode,
                     "append": row.get("append_s", 0.0)},
             eps=row["eps"], accepted=accepted, total=row["evaluations"],
-            overlap_s=row["overlap_s"], engine=row.get("engine"),
+            overlap_s=row["overlap_s"], compile_s=built["compile_s"],
+            n_compiles=built["n_compiles"], engine=row.get("engine"),
             phases=phases)
         fid = {}
         if "sims_low" in row:
@@ -1455,23 +1475,24 @@ class ABCSMC:
             K = max(1, min(int(K_j), self.fuse_generations))
             B = int(B_j)
             occ_max_rounds = int(max_T_j)
-        plan = self._capacity_consult(
-            "fused", n, B, K,
-            occ_max_rounds or self._block_max_rounds(
-                n, B, rate_est=samp.rate_est))
-        if plan.note == "clamped to fit budget":
-            B = int(plan.batch)
-            K = max(1, min(int(plan.K), K))
-            if occ_max_rounds is not None:
-                occ_max_rounds = int(plan.max_T)
         mode = self._block_mode()
-        carry_in = self._seed_block_carry(t, carry, B, samp.rate_est,
-                                          samp.safety())
-        if carry_in is None:
-            return 0, 0, None
         lazy = self._lazy_active
-        fn = self._get_block_fn(t, n, B, K, summary=lazy,
-                                max_rounds=occ_max_rounds)
+        with _spans.span("fused.seed", gen=t, k=K):
+            plan = self._capacity_consult(
+                "fused", n, B, K,
+                occ_max_rounds or self._block_max_rounds(
+                    n, B, rate_est=samp.rate_est))
+            if plan.note == "clamped to fit budget":
+                B = int(plan.batch)
+                K = max(1, min(int(plan.K), K))
+                if occ_max_rounds is not None:
+                    occ_max_rounds = int(plan.max_T)
+            carry_in = self._seed_block_carry(t, carry, B, samp.rate_est,
+                                              samp.safety())
+            if carry_in is None:
+                return 0, 0, None
+            fn = self._get_block_fn(t, n, B, K, summary=lazy,
+                                    max_rounds=occ_max_rounds)
         on_card = self.device.type == "cuda"
 
         t0 = time.perf_counter()
@@ -1569,13 +1590,15 @@ class ABCSMC:
                         "peak_mem_gb": peak})
         self._observe_device_rows(rows, transfer.delta(tr0), lanes)
         if stop_reason is None and t + written < t_max:
-            if pop_k is None:
-                # lazy: the host continuation needs the last generation's
-                # rows; the block's earlier ones stay on the card
-                pop_k = self.history.hydrate_population(t + written - 1)
-            # the device carry only after a whole block
-            self._hand_over(t + written, pop_k,
-                            carry_out if written == K else None)
+            with _spans.span("fused.prepare", gen=t + written):
+                if pop_k is None:
+                    # lazy: the host continuation needs the last
+                    # generation's rows; the block's earlier ones stay on
+                    # the card
+                    pop_k = self.history.hydrate_population(t + written - 1)
+                # the device carry only after a whole block
+                self._hand_over(t + written, pop_k,
+                                carry_out if written == K else None)
         return written, sims_added, stop_reason
 
     def _hand_over(self, t: int, population: Population,
@@ -1583,18 +1606,21 @@ class ABCSMC:
         """Keep the chain hot after a device engine wrote up to ``t - 1``:
         its ``carry`` (None after an undershoot) seeds the next block or
         dispatch, and the host components advance for ``t`` as after a
-        sequential generation."""
+        sequential generation (span ``handover.decode``: the carry's
+        decode and the weights' read)."""
         prep = Sample()
         if carry is not None:
-            # the carry rests narrowed; the host continuation reads float32
-            self._fused_carry = carry
-            prep.device_population = _precision.decode_carry(
-                carry, self._carry_precision())
-            if self._block_mode()["adaptive"]:
-                # the in-engine refit's weights for t: update() then keeps
-                # them and the ε update sees distances under them
-                self.distance_function.weights[t] = \
-                    carry["dist_w"].cpu().numpy().astype(np.float32)
+            with _spans.span("handover.decode", gen=t):
+                # the carry rests narrowed; the host continuation reads
+                # float32
+                self._fused_carry = carry
+                prep.device_population = _precision.decode_carry(
+                    carry, self._carry_precision())
+                if self._block_mode()["adaptive"]:
+                    # the in-engine refit's weights for t: update() then
+                    # keeps them and the ε update sees distances under them
+                    self.distance_function.weights[t] = \
+                        carry["dist_w"].cpu().numpy().astype(np.float32)
         self._prepare_next_iteration(t, prep, population,
                                      self.sampler.rate_est)
 
@@ -1858,20 +1884,21 @@ class ABCSMC:
         names = [m.name for m in self.models]
 
         def rewind_to_frontier():
-            abandoned = 0
-            while inflight:
-                blk = inflight.pop()
-                if blk.get("stream") is not None:
-                    blk["stream"].abandon()
-                elif blk["ticket"] is not None:
-                    blk["ticket"].abandon()
-                abandoned += blk["K"]
-            if abandoned:
-                transfer.record_rewind(abandoned)
-            st["carry"] = None
-            st["t_disp"] = st["t"]
-            if lazy:
-                self._store.drop_from(st["t"])
+            with _spans.span("pipeline.rewind", gen=st["t"]):
+                abandoned = 0
+                while inflight:
+                    blk = inflight.pop()
+                    if blk.get("stream") is not None:
+                        blk["stream"].abandon()
+                    elif blk["ticket"] is not None:
+                        blk["ticket"].abandon()
+                    abandoned += blk["K"]
+                if abandoned:
+                    transfer.record_rewind(abandoned)
+                st["carry"] = None
+                st["t_disp"] = st["t"]
+                if lazy:
+                    self._store.drop_from(st["t"])
 
         def dispatch_block() -> bool:
             carry, t_d = st["carry"], st["t_disp"]
@@ -1886,18 +1913,19 @@ class ABCSMC:
                 return False
             B = samp._round_to_valid_batch(
                 n / max(st["rate_disp"], 1e-6) * st["safety_disp"])
-            plan = self._capacity_consult(
-                "fused", n, B, K,
-                self._block_max_rounds(n, B, rate_est=samp.rate_est))
-            if plan.note == "clamped to fit budget":
-                B = int(plan.batch)
-                K = max(1, min(int(plan.K), K))
-            carry_in = self._seed_block_carry(t_d, carry, B, st["rate_disp"],
-                                              st["safety_disp"])
-            if carry_in is None:
-                st["carry"] = None
-                return False
-            fn = self._get_block_fn(t_d, n, B, K, summary=lazy)
+            with _spans.span("pipeline.seed", gen=t_d, k=K):
+                plan = self._capacity_consult(
+                    "fused", n, B, K,
+                    self._block_max_rounds(n, B, rate_est=samp.rate_est))
+                if plan.note == "clamped to fit budget":
+                    B = int(plan.batch)
+                    K = max(1, min(int(plan.K), K))
+                carry_in = self._seed_block_carry(
+                    t_d, carry, B, st["rate_disp"], st["safety_disp"])
+                if carry_in is None:
+                    st["carry"] = None
+                    return False
+                fn = self._get_block_fn(t_d, n, B, K, summary=lazy)
             mark = time.perf_counter()
             # RetryExhausted propagates to run(), which falls back to the
             # sequential loop from the History frontier
@@ -1925,12 +1953,14 @@ class ABCSMC:
             if t > st["prepared_t"]:
                 # the host components skipped the blocks' generations:
                 # refit them from the last appended one
-                prep = Sample()
-                prep.device_population = st["last_dp"]
-                if st["last_pop"] is None:
-                    st["last_pop"] = self.history.hydrate_population(t - 1)
-                self._prepare_next_iteration(t, prep, st["last_pop"],
-                                             samp.rate_est)
+                with _spans.span("pipeline.prepare", gen=t):
+                    prep = Sample()
+                    prep.device_population = st["last_dp"]
+                    if st["last_pop"] is None:
+                        st["last_pop"] = self.history.hydrate_population(
+                            t - 1)
+                    self._prepare_next_iteration(t, prep, st["last_pop"],
+                                                 samp.rate_est)
                 st["prepared_t"] = t
             current_eps = float(self.eps(t))
             n = self.population_strategy(t)
@@ -1979,7 +2009,7 @@ class ABCSMC:
                                          if t > 0 else []),
                          "records": sample.n_recorded,
                          "record_batches": sample.n_record_batches,
-                         "refit_s": self._refit_s}}
+                         "refit_s": self._refit_s, **sample.round_clock}}
             wire = sample.take_pending_wire()
             if wire is not None:
                 ready = sample.pending_ready
@@ -2038,16 +2068,18 @@ class ABCSMC:
                 samp.nr_evaluations_ += sims
             if rows:
                 complete = len(rows) == blk["K"]
-                st["last_dp"] = (_precision.decode_carry(
-                    blk["carry_out"], self._carry_precision())
-                    if complete else None)
-                if complete and mode["adaptive"]:
-                    # pre-seed the host weight schedule with the in-block
-                    # refit for t0 + K: a later sequential generation
-                    # runs under the fused chain's weights
-                    self.distance_function.weights[blk["t0"] + blk["K"]] = \
-                        blk["carry_out"]["dist_w"].cpu().numpy().astype(
-                            np.float32)
+                with _spans.span("pipeline.decode", gen=st["t"]):
+                    st["last_dp"] = (_precision.decode_carry(
+                        blk["carry_out"], self._carry_precision())
+                        if complete else None)
+                    if complete and mode["adaptive"]:
+                        # pre-seed the host weight schedule with the
+                        # in-block refit for t0 + K: a later sequential
+                        # generation runs under the fused chain's weights
+                        self.distance_function.weights[
+                            blk["t0"] + blk["K"]] = \
+                            blk["carry_out"]["dist_w"].cpu().numpy().astype(
+                                np.float32)
             return rows
 
         def harvest_sequential(blk: dict) -> List[dict]:
@@ -2267,7 +2299,7 @@ class ABCSMC:
             determinism.enter_context(deterministic_kernels())
         # the run span covers everything (calibration included); flushed
         # in the finally so a crashed run still leaves a loadable trace
-        run_span = _spans.span("run", path=self.ingest_mode)
+        run_span = _spans.run_span(path=self.ingest_mode)
         try:
             with run_span:
                 return self._run_master(
@@ -2288,11 +2320,21 @@ class ABCSMC:
                     logger.exception("lazy-tail persist at run exit "
                                      "failed")
             determinism.close()
+            self._attach_pack_s()
             _spans.TRACER.flush()
             self._publish_fleet(force=True)
             if len(self.timeline):
                 logger.debug("generation timeline:\n%s",
                              self.timeline.render_ascii())
+
+    def _attach_pack_s(self):
+        """Each timeline row's ``pack_s``: the seconds of its generation's
+        PTW1 pack and CRC (``History.pack_s``), once its blobs are written
+        (a lazy generation's at its materialization)."""
+        packs = self.history.pack_s
+        for row in self.timeline:
+            if row.get("t") in packs:
+                row["pack_s"] = packs[row["t"]]
 
     def _run_master(self, minimum_epsilon, max_nr_populations,
                     min_acceptance_rate, max_total_nr_simulations
@@ -2305,6 +2347,7 @@ class ABCSMC:
         self.timeline.history_mode = self.history_mode
         self.run_dispatches = 0
         self.control_roundtrip_s = 0.0
+        self._compile_mark = compile_counters()
 
         t0 = self.history.max_t + 1
         with _spans.span("calibrate", gen=t0):
@@ -2514,7 +2557,8 @@ class ABCSMC:
                         summary_grid=_wire_store.maybe_summary_grid(
                             sample.device_population))
                 else:
-                    population = sample.get_accepted_population(n)
+                    with _spans.span("history.collect", gen=t):
+                        population = sample.get_accepted_population(n)
                     self.history.append_population(
                         t, current_eps, population, sample.nr_evaluations,
                         model_names, self._param_names(),
@@ -2556,7 +2600,7 @@ class ABCSMC:
                 "record_batches": sample.n_record_batches,
                 "refit_s": self._refit_s,
                 "adapt_s": self._adapt_s,
-                "append_s": append_s,
+                "append_s": append_s, **sample.round_clock,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
                                 / 1e9 if on_card else None)}, tr_t,
                 accepted=sample.raw_accepted)

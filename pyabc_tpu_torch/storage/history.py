@@ -35,6 +35,15 @@ copy, then the journal's copy) and is tombstoned in the journal after the
 commit; :meth:`persist_lazy_tail` anchors resident generations on a
 crash or a preemption (journal first, then materialize), and
 :meth:`recover_lazy` replays what a killed process left in the journal.
+
+A generation's write has four steps, each a span when the tracer is on
+(under the caller's ``gen.append``, ``gen.hydrate`` or flush):
+``history.collect`` (a lazy generation's decode from the device store;
+the eager caller's concatenation is its own), ``history.pack`` (the PTW1
+blobs), ``history.crc`` (their digests) and ``history.write`` (the
+sqlite statements and the commit).  The seconds of pack and CRC are
+summed per generation in :attr:`History.pack_s`, whichever thread ran
+them.
 """
 
 from __future__ import annotations
@@ -45,6 +54,7 @@ import json
 import logging
 import os
 import sqlite3
+import threading
 import time
 import zlib
 from concurrent.futures import ThreadPoolExecutor
@@ -54,6 +64,7 @@ import numpy as np
 import pandas as pd
 
 from ..population import Population
+from ..telemetry import spans as _spans
 from ..wire import transfer
 from .bytes_storage import from_bytes, to_bytes
 
@@ -229,6 +240,14 @@ class History:
         #: resume recovery), never for plain eager runs
         self._journal = None
         self._journal_armed = False
+        #: seconds of PTW1 pack and CRC of each generation's blobs (t ->
+        #: s), summed over its writes
+        self.pack_s: Dict[int, float] = {}
+        self._pack_lock = threading.Lock()
+
+    def _add_pack_s(self, t: int, seconds: float):
+        with self._pack_lock:
+            self.pack_s[int(t)] = self.pack_s.get(int(t), 0.0) + seconds
 
     def _migrate(self):
         """Add the newer columns to a database written without them."""
@@ -353,13 +372,6 @@ class History:
                                 summary_json=None, summary_grid=None):
         probs = population.get_model_probabilities(
             nr_models=len(model_names))
-        self._conn.execute(
-            "INSERT OR REPLACE INTO populations (abc_smc_id, t, epsilon,"
-            " nr_samples, population_end_time, lazy, summary, summary_grid)"
-            " VALUES (?,?,?,?,?,0,?,?)",
-            (self.id, t, float(current_epsilon), int(nr_simulations),
-             datetime.datetime.now().isoformat(), summary_json,
-             summary_grid))
         m_arr = np.asarray(population.m)
         stats = (population.sum_stats.get("__flat__")
                  if self.stores_sum_stats else None)
@@ -370,31 +382,45 @@ class History:
         rows = {m: idx for m, idx in rows.items() if idx.size}
         columns = {"theta": population.theta, "weight": population.weight,
                    "distance": population.distance, "stats": stats}
-        packed = _pack_all({(m, k): (None if col is None else col[idx])
-                            for m, idx in rows.items()
-                            for k, col in columns.items()})
-        for m, idx in rows.items():
-            names_m = param_names[m] if per_model else param_names
-            blobs = {k: packed[(m, k)] for k in columns}
-            digest = json.dumps({k: _blob_crc(v) for k, v in blobs.items()
-                                 if v is not None})
+        mark = time.perf_counter()
+        with _spans.span("history.pack", gen=t):
+            packed = _pack_all({(m, k): (None if col is None else col[idx])
+                                for m, idx in rows.items()
+                                for k, col in columns.items()})
+        with _spans.span("history.crc", gen=t):
+            digests = {m: json.dumps({k: _blob_crc(packed[(m, k)])
+                                      for k in columns
+                                      if packed[(m, k)] is not None})
+                       for m in rows}
+        self._add_pack_s(t, time.perf_counter() - mark)
+        with _spans.span("history.write", gen=t):
             self._conn.execute(
-                "INSERT OR REPLACE INTO model_populations (abc_smc_id, t,"
-                " m, name, p_model, n_particles, theta, weight, distance,"
-                " stats, param_names, stat_spec, digest)"
-                " VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)",
-                (self.id, t, m, model_names[m], float(probs[m]),
-                 int(idx.size), blobs["theta"], blobs["weight"],
-                 blobs["distance"], blobs["stats"],
-                 json.dumps(list(names_m or [])),
-                 json.dumps({k: list(v) for k, v in stat_spec.items()})
-                 if stat_spec else None, digest))
-        # the generation is durable in the same transaction: its
-        # mid-generation ledger row is obsolete
-        self._conn.execute(
-            "DELETE FROM sub_checkpoints WHERE abc_smc_id=? AND t=?",
-            (self.id, t))
-        self._conn.commit()
+                "INSERT OR REPLACE INTO populations (abc_smc_id, t,"
+                " epsilon, nr_samples, population_end_time, lazy, summary,"
+                " summary_grid) VALUES (?,?,?,?,?,0,?,?)",
+                (self.id, t, float(current_epsilon), int(nr_simulations),
+                 datetime.datetime.now().isoformat(), summary_json,
+                 summary_grid))
+            for m, idx in rows.items():
+                names_m = param_names[m] if per_model else param_names
+                blobs = {k: packed[(m, k)] for k in columns}
+                self._conn.execute(
+                    "INSERT OR REPLACE INTO model_populations (abc_smc_id,"
+                    " t, m, name, p_model, n_particles, theta, weight,"
+                    " distance, stats, param_names, stat_spec, digest)"
+                    " VALUES (?,?,?,?,?,?,?,?,?,?,?,?,?)",
+                    (self.id, t, m, model_names[m], float(probs[m]),
+                     int(idx.size), blobs["theta"], blobs["weight"],
+                     blobs["distance"], blobs["stats"],
+                     json.dumps(list(names_m or [])),
+                     json.dumps({k: list(v) for k, v in stat_spec.items()})
+                     if stat_spec else None, digests[m]))
+            # the generation is durable in the same transaction: its
+            # mid-generation ledger row is obsolete
+            self._conn.execute(
+                "DELETE FROM sub_checkpoints WHERE abc_smc_id=? AND t=?",
+                (self.id, t))
+            self._conn.commit()
 
     # ---- mid-generation sub-checkpoints (resilience/checkpoint.py) -----
 
@@ -523,39 +549,44 @@ class History:
         self._drain_spills(defer_pod=True)
         grid_blob = None
         if summary_grid:
-            grid_blob = _pack(np.stack(
-                [np.asarray(summary_grid["grid_centroid"]),
-                 np.asarray(summary_grid["grid_log_mass"])]))
-        self._conn.execute(
-            "INSERT OR REPLACE INTO populations (abc_smc_id, t, epsilon,"
-            " nr_samples, population_end_time, lazy, summary, summary_grid)"
-            " VALUES (?,?,?,?,?,1,?,?)",
-            (self.id, int(t), float(current_epsilon), int(nr_simulations),
-             datetime.datetime.now().isoformat(), json.dumps(summary),
-             grid_blob))
-        model_w = list(summary.get("model_w", []))
-        model_n = list(summary.get("model_n", []))
-        per_model = (param_names
-                     and isinstance(param_names[0], (list, tuple)))
-        for m in range(len(model_names)):
-            n_m = int(model_n[m]) if m < len(model_n) else 0
-            if n_m <= 0:
-                continue
-            names_m = param_names[m] if per_model else param_names
+            mark = time.perf_counter()
+            with _spans.span("history.pack", gen=t):
+                grid_blob = _pack(np.stack(
+                    [np.asarray(summary_grid["grid_centroid"]),
+                     np.asarray(summary_grid["grid_log_mass"])]))
+            self._add_pack_s(t, time.perf_counter() - mark)
+        with _spans.span("history.write", gen=t):
             self._conn.execute(
-                "INSERT OR REPLACE INTO model_populations (abc_smc_id, t,"
-                " m, name, p_model, n_particles, theta, weight, distance,"
-                " stats, param_names, stat_spec)"
-                " VALUES (?,?,?,?,?,?,NULL,NULL,NULL,NULL,?,?)",
-                (self.id, int(t), m, model_names[m],
-                 float(model_w[m]) if m < len(model_w) else 0.0, n_m,
-                 json.dumps(list(names_m or [])),
-                 json.dumps({k: list(v) for k, v in stat_spec.items()})
-                 if stat_spec else None))
-        self._conn.execute(
-            "DELETE FROM sub_checkpoints WHERE abc_smc_id=? AND t=?",
-            (self.id, int(t)))
-        self._conn.commit()
+                "INSERT OR REPLACE INTO populations (abc_smc_id, t,"
+                " epsilon, nr_samples, population_end_time, lazy, summary,"
+                " summary_grid) VALUES (?,?,?,?,?,1,?,?)",
+                (self.id, int(t), float(current_epsilon),
+                 int(nr_simulations), datetime.datetime.now().isoformat(),
+                 json.dumps(summary), grid_blob))
+            model_w = list(summary.get("model_w", []))
+            model_n = list(summary.get("model_n", []))
+            per_model = (param_names
+                         and isinstance(param_names[0], (list, tuple)))
+            for m in range(len(model_names)):
+                n_m = int(model_n[m]) if m < len(model_n) else 0
+                if n_m <= 0:
+                    continue
+                names_m = param_names[m] if per_model else param_names
+                self._conn.execute(
+                    "INSERT OR REPLACE INTO model_populations (abc_smc_id,"
+                    " t, m, name, p_model, n_particles, theta, weight,"
+                    " distance, stats, param_names, stat_spec)"
+                    " VALUES (?,?,?,?,?,?,NULL,NULL,NULL,NULL,?,?)",
+                    (self.id, int(t), m, model_names[m],
+                     float(model_w[m]) if m < len(model_w) else 0.0, n_m,
+                     json.dumps(list(names_m or [])),
+                     json.dumps({k: list(v)
+                                 for k, v in stat_spec.items()})
+                     if stat_spec else None))
+            self._conn.execute(
+                "DELETE FROM sub_checkpoints WHERE abc_smc_id=? AND t=?",
+                (self.id, int(t)))
+            self._conn.commit()
 
     def _lazy_flag(self, t: int) -> Optional[tuple]:
         """``(lazy, epsilon, nr_samples, summary)`` of generation ``t``,
@@ -688,7 +719,8 @@ class History:
         store.requeue_spills(requeue)
 
     def _materialize_spill_once(self, entry: dict, row: tuple):
-        pop = self._hydrate_checked(entry["t"], entry)
+        with _spans.span("history.collect", gen=entry["t"]):
+            pop = self._hydrate_checked(entry["t"], entry)
         if pop is not None:
             self._materialize_pop(entry["t"], pop, row)
 
@@ -696,13 +728,14 @@ class History:
         """``store.hydrate`` with the recovery ladder behind it; an
         unrecoverable mismatch propagates."""
         from ..resilience.journal import IntegrityError
-        try:
-            return store.hydrate(t)
-        except IntegrityError:
-            entry = store.entry(t)
-            if entry is None:
-                raise
-            return self._hydrate_checked(t, entry)
+        with _spans.span("history.collect", gen=t):
+            try:
+                return store.hydrate(t)
+            except IntegrityError:
+                entry = store.entry(t)
+                if entry is None:
+                    raise
+                return self._hydrate_checked(t, entry)
 
     def _materialize(self, t: int) -> bool:
         """Give generation ``t``'s row its blobs.  True when the row

@@ -17,6 +17,13 @@ a single attribute check returning a shared no-op when the tracer is
 off — the hot loop (``fetch_to_host`` runs per round) never pays for
 observability it didn't ask for.
 
+Each span records its ``parent`` (the id of the innermost ``span()``
+open on the thread that began it; a cross-thread ``begin()`` takes that
+thread's, and is itself no parent of later spans) and its ``run`` (the
+id of the :func:`run_span` that encloses it, the span of one
+``ABCSMC.run``).  :meth:`SpanTracer.add` records a span whose clock
+readings the caller already took (the round loop's count reads).
+
 Tracing turns on via ``ABCSMC(trace_path=...)`` or the
 ``PYABC_TPU_TRACE=/path/trace.jsonl`` environment variable.  Completed
 spans are then also buffered for emission as Chrome-trace-format JSONL:
@@ -31,6 +38,7 @@ by wrapping the lines into the JSON array form::
 from __future__ import annotations
 
 import atexit
+import itertools
 import json
 import os
 import threading
@@ -53,9 +61,10 @@ class Span:
     returns one already started)."""
 
     __slots__ = ("name", "gen", "attrs", "tid", "thread", "t_start",
-                 "t_end", "_tracer")
+                 "t_end", "id", "parent", "run", "_tracer", "_stack")
 
-    def __init__(self, tracer, name: str, gen, attrs: dict):
+    def __init__(self, tracer, name: str, gen, attrs: dict,
+                 t_start: Optional[float] = None):
         self._tracer = tracer
         self.name = name
         self.gen = gen
@@ -64,7 +73,15 @@ class Span:
         self.tid = t.ident
         self.thread = t.name
         self.t_end = None
-        self.t_start = time.perf_counter()
+        #: process-unique id; ``parent`` and ``run`` are ids (or None)
+        self.id = next(_IDS)
+        stack = tracer._open()
+        top = stack[-1] if stack else None
+        self.parent = None if top is None else top.id
+        self.run = None if top is None else top.run
+        #: the open-span stack this span was pushed on (``span()`` only)
+        self._stack = None
+        self.t_start = time.perf_counter() if t_start is None else t_start
 
     @property
     def duration_s(self) -> Optional[float]:
@@ -103,6 +120,9 @@ class _NullSpan:
 
 _NULL = _NullSpan()
 
+#: span ids, unique in the process
+_IDS = itertools.count(1)
+
 
 def complete_event(name: str, ts_us: float, dur_us: float,
                    pid: Optional[int] = None, tid: int = 0,
@@ -139,8 +159,17 @@ class SpanTracer:
         self._ring: deque = deque(maxlen=capacity)
         self._emit: list = []
         self._lock = threading.Lock()
+        #: per thread: the ``span()`` spans open on it, innermost last
+        self._local = threading.local()
         #: perf_counter origin of the trace timebase (µs since this)
         self._t0 = time.perf_counter()
+
+    def _open(self) -> list:
+        """The calling thread's stack of open ``span()`` spans."""
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
 
     # -- configuration -------------------------------------------------
     def configure(self, trace_path: Optional[str] = None,
@@ -190,12 +219,48 @@ class SpanTracer:
 
     # -- recording -----------------------------------------------------
     def begin(self, name: str, gen=None, **attrs) -> Span:
+        """A span begun now on this thread (a cross-thread span: it is
+        no parent of the spans begun after it)."""
         return Span(self, name, gen, attrs)
+
+    def open(self, name: str, gen=None, run: bool = False,
+             **attrs) -> Span:
+        """A span begun now and pushed on this thread's open stack, so
+        that the spans begun inside it name it as their parent (``with``
+        ends it on the same thread).  ``run``: the span is a run's, and
+        its id the ``run`` of every span inside it."""
+        sp = Span(self, name, gen, attrs)
+        if run:
+            sp.run = sp.id
+        sp._stack = self._open()
+        sp._stack.append(sp)
+        return sp
+
+    def add(self, name: str, t_start: float, t_end: float, gen=None,
+            **attrs) -> Span:
+        """Record a completed span from two ``perf_counter`` readings the
+        caller took (parent and run: this thread's innermost open
+        span's)."""
+        sp = Span(self, name, gen, attrs, t_start=t_start)
+        self._seal(sp, t_end)
+        return sp
 
     def end(self, span: Span):
         if span.t_end is not None:  # idempotent (double __exit__/end)
             return
-        span.t_end = time.perf_counter()
+        self._seal(span, time.perf_counter())
+
+    def _seal(self, span: Span, t_end: float):
+        span.t_end = t_end
+        stack = span._stack
+        if stack is not None:
+            if stack and stack[-1] is span:
+                stack.pop()
+            else:  # ended out of order
+                try:
+                    stack.remove(span)
+                except ValueError:
+                    pass
         with self._lock:
             self._ring.append(span)
             if self._path is not None:
@@ -210,15 +275,24 @@ class SpanTracer:
             return list(self._ring)
 
     # -- emission ------------------------------------------------------
-    def _event(self, span: Span) -> dict:
+    def _event(self, span: Span, origin_us: Optional[float] = None,
+               pid: Optional[int] = None) -> dict:
+        """``span`` as a Chrome-trace complete event, ``ts`` in µs since
+        the tracer's origin, or, given ``origin_us`` (a trace's clock
+        at ``perf_counter() == 0``), on that trace's clock."""
         args = {"thread": span.thread}
         if span.gen is not None:
             args["gen"] = span.gen
+        args["parent"] = span.parent
+        args["run"] = span.run
         args.update(span.attrs)
+        ts = (span.t_start * 1e6 + origin_us if origin_us is not None
+              else (span.t_start - self._t0) * 1e6)
         return complete_event(
             span.name,
-            ts_us=(span.t_start - self._t0) * 1e6,
+            ts_us=ts,
             dur_us=(span.t_end - span.t_start) * 1e6,
+            pid=pid,
             tid=span.tid,
             args=args,
         )
@@ -252,7 +326,15 @@ def span(name: str, gen=None, **attrs):
     """Start a span (context manager) — no-op unless tracing is enabled."""
     if not TRACER.enabled:
         return _NULL
-    return TRACER.begin(name, gen=gen, **attrs)
+    return TRACER.open(name, gen=gen, **attrs)
+
+
+def run_span(**attrs):
+    """The ``run`` span of one ``ABCSMC.run`` (context manager): every
+    span begun inside it on its thread carries its id as ``run``."""
+    if not TRACER.enabled:
+        return _NULL
+    return TRACER.open("run", run=True, **attrs)
 
 
 def begin(name: str, gen=None, **attrs):

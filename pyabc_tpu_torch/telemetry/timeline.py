@@ -66,8 +66,11 @@ class GenerationTimeline(list):
         """Add one generation's stage row.  ``stages`` maps a subset of
         :data:`STAGES` to seconds; unknown keys raise so a typo can't
         silently vanish from the table.  ``compile_s``/``n_compiles``
-        are attribution columns kept for the JAX package's layout (the
-        port compiles nothing at run time: both stay 0).  ``phases``
+        are the program builds booked since the previous row (the
+        registry's ``xla_compile_seconds_total`` / ``xla_compiles_total``
+        delta: ``autotune.ladder.record_build`` counts each engine
+        build and each CUDA-graph capture), attribution columns that
+        are not folded into the stage sum.  ``phases``
         maps a subset of ``telemetry.lanes.PHASES`` to seconds from the
         device telemetry lanes — stored as ``ph_<name>_s`` attribution
         columns, never folded into the stage sum."""

@@ -77,7 +77,7 @@ def test_port_files_exist():
                 "sampler/sharded.py", "sched/__init__.py",
                 "sched/autoscale.py", "sched/platform.py",
                 "sched/scheduler.py", "tools/__init__.py",
-                "tools/loadgen.py"):
+                "tools/loadgen.py", "telemetry/phases.py"):
         assert f"pyabc_tpu_torch/{new}" in names
     assert (ROOT / "pyabc_tpu_torch/csrc/kde_logpdf.cu").is_file()
 

@@ -83,7 +83,9 @@ def test_chrome_trace_event_keys_equal_jax(tmp_path):
         events[name] = lines
     for ours, theirs in zip(events["ours"], events["jax"]):
         assert ours.keys() == theirs.keys()
-        assert ours["args"].keys() == theirs["args"].keys()
+        # the port's spans also name their parent span and their run
+        assert ours["args"].keys() == theirs["args"].keys() | {"parent",
+                                                                "run"}
         assert ours["ph"] == theirs["ph"] == "X"
         assert ours["cat"] == theirs["cat"]
     assert (spans.complete_event("x", 1.0, 2.0, pid=1).keys()
@@ -209,8 +211,12 @@ def test_config2_run_timeline_layout_and_paths_equal_jax(run_mode):
     assert [r["path"] for r in rows["ours"]] == \
         [r["path"] for r in rows["jax"]]
     assert [set(r) for r in rows["ours"]] == [set(r) for r in rows["jax"]]
-    for r in rows["ours"]:
-        assert r["compile_s"] == 0.0 and r["n_compiles"] == 0
+    # the port's builds (rejection loops, engines) are booked in the rows
+    # of the generations that made them
+    builds = [r["n_compiles"] for r in rows["ours"]]
+    assert builds[0] >= 1 and all(b >= 0 for b in builds)
+    assert all((r["compile_s"] > 0) == (r["n_compiles"] > 0)
+               for r in rows["ours"])
 
 
 def test_traced_run_emits_the_jax_span_names(tmp_path):
