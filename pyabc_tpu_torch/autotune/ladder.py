@@ -46,13 +46,16 @@ copies its tensors in (skipped for a tensor already copied and not
 written since) and replays.  A *donated* argument (``donate_argnums``,
 the JAX spelling) is different: its tensors are the static inputs
 themselves, which the graph updates in place, as the rejection loop's
-accept buffers are (``sampler/device_loop.py``).  A ``torch.Generator``
-argument is replaced in the graph by a generator of the graph's own,
-registered with it (``CUDAGraph.register_generator_state``); each replay
-carries the caller's generator state in and out (host values, no device
-read), so a replay draws exactly what the eager call draws from the same
-state, and a refused capture, which leaves its registered generator in
-capture mode, never touches the run's.  Warm-up before a capture runs on
+accept buffers are (``sampler/device_loop.py``); ``donate_keys`` donates
+the tensors under those dict keys in any argument (a round's resampling
+CDFs, which its caller writes in place between generations).  A
+``torch.Generator`` argument is replaced in the graph by a generator of
+the graph's own, registered with it
+(``CUDAGraph.register_generator_state``); each replay carries the
+caller's generator state in and out (host values, no device read), so a
+replay draws exactly what the eager call draws from the same state, and
+a refused capture, which leaves its registered generator in capture
+mode, never touches the run's.  Warm-up before a capture runs on
 scratch copies of the arguments and a clone of the generator.
 
 Every capture counts in ``xla_compiles_total`` and
@@ -226,13 +229,22 @@ def _leaf_key(x):
     return ("static", type(x), x)
 
 
-def _flatten(args: tuple, donate_argnums=()):
-    """``(leaves, treedef, donated leaf indices)`` of a call's args."""
+def _flatten(args: tuple, donate_argnums=(), donate_keys=()):
+    """``(leaves, treedef, donated leaf indices)`` of a call's args: the
+    leaves of the ``donate_argnums`` arguments, and each leaf under a
+    dict key in ``donate_keys``."""
     leaves, defs, donated = [], [], set()
     for k, a in enumerate(args):
-        lv, d = pytree.tree_flatten(a)
-        if k in donate_argnums:
-            donated.update(range(len(leaves), len(leaves) + len(lv)))
+        if donate_keys and k not in donate_argnums:
+            pairs, d = pytree.tree_flatten_with_path(a)
+            lv = [x for _, x in pairs]
+            donated.update(
+                len(leaves) + i for i, (path, _) in enumerate(pairs)
+                if path and getattr(path[-1], "key", None) in donate_keys)
+        else:
+            lv, d = pytree.tree_flatten(a)
+            if k in donate_argnums:
+                donated.update(range(len(leaves), len(leaves) + len(lv)))
         leaves += lv
         defs.append(d)
     return leaves, tuple(defs), frozenset(donated)
@@ -630,9 +642,11 @@ class _Jitted:
     argument spec (``jax.jit``'s cache); on the CPU, the function."""
 
     def __init__(self, fn: Callable, donate_argnums=(), pool=None,
-                 label: Optional[str] = None, warmup: bool = True):
+                 label: Optional[str] = None, warmup: bool = True,
+                 donate_keys=()):
         self.fn = fn
         self.donate_argnums = tuple(donate_argnums)
+        self.donate_keys = tuple(donate_keys)
         self.pool = pool
         self.warmup = bool(warmup)
         self.label = label or getattr(fn, "__qualname__", repr(fn))
@@ -646,7 +660,8 @@ class _Jitted:
                           self.label, warmup=self.warmup)
 
     def __call__(self, *args):
-        leaves, treedef, donated = _flatten(args, self.donate_argnums)
+        leaves, treedef, donated = _flatten(args, self.donate_argnums,
+                                            self.donate_keys)
         if _card_device(leaves) is None:
             return self.fn(*args)
         with self._lock:
@@ -664,20 +679,23 @@ class _Jitted:
 
 
 def jit_compile(fn=None, *, donate_argnums=(), pool=None,
-                label: Optional[str] = None, warmup: bool = True):
+                label: Optional[str] = None, warmup: bool = True,
+                donate_keys=()):
     """``fn`` captured lazily as a CUDA graph, one per argument spec
     (``pool``: the graph memory pool to capture into, or a callable that
     gives it at each capture, as :meth:`CompiledLadder.graph_pool` does;
     ``donate_argnums``: the arguments whose tensors are the graph's own
-    inputs, updated in place; ``warmup=False``: the caller ran the call
-    under :func:`check_capturable` on scratch, which stands for the
-    warm-up).  Called with no CUDA tensor it calls ``fn``.  Usable as a
-    decorator."""
+    inputs, updated in place; ``donate_keys``: dict keys whose tensors, in
+    any argument, are its own inputs too; ``warmup=False``: the caller ran
+    the call under :func:`check_capturable` on scratch, which stands for
+    the warm-up).  Called with no CUDA tensor it calls ``fn``.  Usable as
+    a decorator."""
     if fn is None:
         return lambda f: jit_compile(f, donate_argnums=donate_argnums,
-                                     pool=pool, label=label, warmup=warmup)
+                                     pool=pool, label=label, warmup=warmup,
+                                     donate_keys=donate_keys)
     return _Jitted(fn, donate_argnums=donate_argnums, pool=pool, label=label,
-                   warmup=warmup)
+                   warmup=warmup, donate_keys=donate_keys)
 
 
 class AotGuard:
@@ -710,7 +728,7 @@ class AotGuard:
         the captured ones (the donated arguments' tensors become the new
         graph's own); a no-op otherwise."""
         leaves, treedef, donated = _flatten(
-            args, self._fallback.donate_argnums)
+            args, self._fallback.donate_argnums, self._fallback.donate_keys)
         if self._compiled.matches(leaves, treedef):
             return
         self._compiled = _build_compiled(self._fallback, leaves, treedef,
@@ -755,7 +773,8 @@ def aot_compile(fn, *arg_specs, donate_argnums=None, pool=None):
         fn, donate_argnums=donate_argnums or (), pool=pool)
     donate = (jitted.donate_argnums if donate_argnums is None
               else tuple(donate_argnums))
-    leaves, treedef, donated = _flatten(arg_specs, donate)
+    leaves, treedef, donated = _flatten(arg_specs, donate,
+                                        jitted.donate_keys)
     return AotGuard(_build_compiled(jitted, leaves, treedef, donated),
                     jitted, avals=avals_like(arg_specs))
 

@@ -62,14 +62,30 @@ def invert_cdf(cdf: torch.Tensor, u: torch.Tensor) -> torch.Tensor:
     return torch.clamp(idx, max=cdf.shape[0] - 1)
 
 
+def resampling_cdf(log_w: torch.Tensor) -> torch.Tensor:
+    """The CDF :func:`fast_weighted_choice` draws from: the running sum,
+    in :func:`ordered_cumsum`'s order, of ``softmax(log_w)``.  A caller
+    that draws many times from fixed weights builds it once and hands it
+    to :func:`choice_from_cdf`."""
+    return ordered_cumsum(torch.softmax(log_w, dim=0))
+
+
+def choice_from_cdf(generator: torch.Generator, cdf: torch.Tensor,
+                    n: int) -> torch.Tensor:
+    """``n`` indices drawn by inverting ``cdf`` (:func:`resampling_cdf`'s)
+    at ``n`` uniforms from ``generator`` scaled by ``cdf[-1]``: the draws
+    of :func:`fast_weighted_choice` on the same weights and generator
+    state."""
+    u = torch.rand(n, generator=generator, device=cdf.device,
+                   dtype=cdf.dtype) * cdf[-1]
+    return invert_cdf(cdf, cap_draws(cdf, u))
+
+
 def fast_weighted_choice(generator: torch.Generator, log_w: torch.Tensor,
                          n: int) -> torch.Tensor:
     """``n`` indices sampled ∝ ``exp(log_w)`` (unnormalized log weights);
     rows with ``log_w`` ≈ -inf (pads at -1e30) are never drawn."""
-    cdf = ordered_cumsum(torch.softmax(log_w, dim=0))
-    u = torch.rand(n, generator=generator, device=log_w.device,
-                   dtype=cdf.dtype) * cdf[-1]
-    return invert_cdf(cdf, cap_draws(cdf, u))
+    return choice_from_cdf(generator, resampling_cdf(log_w), n)
 
 
 def systematic_weighted_choice(generator: Optional[torch.Generator],
@@ -85,7 +101,7 @@ def systematic_weighted_choice(generator: Optional[torch.Generator],
     replaces the draw from ``generator`` when given, so tests can feed
     both packages the same uniform.  Capped draws never land on a
     zero-weight row (:func:`cap_draws`)."""
-    cdf = ordered_cumsum(torch.softmax(log_w, dim=0))
+    cdf = resampling_cdf(log_w)
     if u0 is None:
         u0 = torch.rand((), generator=generator, device=log_w.device,
                         dtype=cdf.dtype)

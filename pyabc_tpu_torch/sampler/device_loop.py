@@ -84,6 +84,10 @@ _KEYS = ("m", "theta", "distance", "log_weight", "stats")
 _FILL = {"m": 0, "theta": 0.0, "distance": math.nan,
          "log_weight": -math.inf, "stats": 0.0}
 _TARGETS = ("bufs", "count", "rec", "rec_count", "npass")
+#: params keys whose tensors the rounds alone read (a generation's
+#: resampling CDFs, ``RoundKernel.prepare``): a captured round takes them
+#: as its own inputs (donated), as it takes its buffers
+OWN_KEYS = ("cdf", "model_cdf")
 
 
 def append_accepted(pairs, acc: torch.Tensor, count: torch.Tensor,
@@ -183,7 +187,9 @@ class RoundProgram:
     ``keep_outputs`` the program returns None (the rejection loop reads only
     its buffers, and a captured output would hold pool memory for as long as
     the graph lives).  The state (``count``, ``bufs``, ``rec``, ``rec_count``,
-    ``npass``, and the caller's ``rounds``) lives as long as the program."""
+    ``npass``, and the caller's ``rounds``) lives as long as the program.
+    The params' :data:`OWN_KEYS` tensors, which the rounds alone read, are
+    the graph's own inputs too (:meth:`own_params`)."""
 
     def __init__(self, raw_round: Callable, B: int, n_target: int,
                  record_cap: int = 0, staged: bool = False,
@@ -271,6 +277,17 @@ class RoundProgram:
         """The state's tensors, the program's third argument."""
         return {k: self.state[k] for k in _TARGETS}
 
+    def own_params(self) -> Optional[dict]:
+        """The params the captured round holds as its inputs, in the
+        params' nesting (None before the capture, or off the graph route).
+        Its :data:`OWN_KEYS` tensors are the ones the capture was given
+        (donated): a caller writes the next generation's values into them
+        in place and passes them back, so nothing is copied in and no
+        second copy is kept (``RoundKernel.prepare``)."""
+        if self.route != "graph" or self._round is None:
+            return None
+        return self._round.inputs[1]
+
     def apply(self, targets: dict, out):
         """Fold a round's output into ``targets`` in place; returns
         ``out``."""
@@ -353,7 +370,8 @@ class RoundProgram:
         try:
             self._round = aot_compile(
                 jit_compile(self.program, donate_argnums=(2,),
-                            pool=self.pool, label=self.label, warmup=False),
+                            donate_keys=OWN_KEYS, pool=self.pool,
+                            label=self.label, warmup=False),
                 generator, params, targets)
             self._reset = aot_compile(
                 jit_compile(self.refill, donate_argnums=(0,),

@@ -110,6 +110,7 @@ from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
 from ..wire.store import summary_wire_lanes
 from .device_loop import RoundProgram
+from .rounds import cdf_builds_total
 
 # Stop codes of the JAX package's device stop chain, in the order the
 # host loop checks them; ``smc.STOP_REASONS`` maps each to its string.
@@ -438,11 +439,15 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             adaptive=adaptive, fidelity=fidelity)
 
     def schedule(carry: dict, generator: torch.Generator, final: bool):
-        """This generation's ``(params, eps, grids_resolved, screen)``
-        from the carried population, its bulk lanes promoted to float32
-        here: the promotion dies with this call, before the rounds
-        allocate.  ``screen``: the screen's calibration facts (None
-        without ``fidelity_cfg``)."""
+        """This generation's ``(params, round_params, eps,
+        grids_resolved, screen)`` from the carried population, its bulk
+        lanes promoted to float32 here: the promotion dies with this call,
+        before the rounds allocate.  ``round_params`` are the params with
+        the generation's resampling CDFs in place of the support log
+        weights, written into the captured round's own inputs
+        (``RoundKernel.prepare``); the proposal density reads ``params``.
+        ``screen``: the screen's calibration facts (None without
+        ``fidelity_cfg``)."""
         carry = decode_carry(carry, carry_precision)
         m0, theta0, lw0 = carry["m"], carry["theta"], carry["log_weight"]
         dist0, count0, eps0 = (carry["distance"], carry["count"],
@@ -530,12 +535,14 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
             params["fidelity"] = {"tau": tau}
             screen = {"screen_tau": tau, "cal_pairs": n_acc,
                       "cal_corr": corr}
-        return params, eps_t, grids_resolved, screen
+        round_params = kernel.prepare(params, into=program.own_params())
+        return params, round_params, eps_t, grids_resolved, screen
 
     def one_gen(carry: dict, generator: torch.Generator,
                 final: bool = False):
-        params, eps_t, grids_resolved, screen = schedule(carry, generator,
-                                                         final)
+        builds0 = cdf_builds_total()
+        params, round_params, eps_t, grids_resolved, screen = schedule(
+            carry, generator, final)
         trans = params["transition"]
         rate0, safety0 = carry["rate"], carry["safety"]
         dev = carry["log_weight"].device
@@ -552,7 +559,7 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
         rounds = 0
         reads = 0
         while True:
-            out = program.run(generator, params)
+            out = program.run(generator, round_params)
             rounds += 1
             # the last round's candidates feed the refit / the rings
             last, pairs = out if fidelity else (out, None)
@@ -660,6 +667,7 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                 "grids_resolved": resolved,
                 "round_graph": program.route == "graph",
                 "round_replays": program.replays - replays0,
+                "cdf_builds": cdf_builds_total() - builds0,
                 **clock.row(),
                 "kde_support": [
                     {"rows": int((p["c_support"] if "c_support" in p

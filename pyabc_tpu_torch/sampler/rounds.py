@@ -24,6 +24,12 @@ A round marks its phases (``telemetry.phases``: ``propose``,
 ``simulate``, ``distance``, ``density``); the marks record CUDA events
 only while a round program traces them.
 
+A generation's resampling CDFs — the model mix's and each model's
+support's, fixed for the generation — are built once, before its rounds
+(:meth:`RoundKernel.prepare`): a round then only draws its uniforms and
+inverts the CDFs.  A round whose params carry none builds them itself,
+with the same ops, and draws the same indices.
+
 Draw order of one round from the run's generator: the proposal (model
 source, jump, each model's transition draw), the simulations, then the
 acceptor's uniforms.  The staged round draws the proposal exactly as the
@@ -35,7 +41,7 @@ from __future__ import annotations
 
 import itertools
 import math
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 
@@ -44,11 +50,41 @@ from ..distance.base import Distance
 from ..fidelity import compact_survivors, scatter_back, screen_mask
 from ..fidelity.config import FidelityConfig
 from ..model import IntegratedModel, Model
-from ..ops.choice import fast_weighted_choice
+from ..ops.choice import choice_from_cdf, resampling_cdf
 from ..random_variables import Distribution, ModelPerturbationKernel
 from ..sumstat import SumStatSpec
 from ..telemetry import phases as _phases
+from ..telemetry import spans as _spans
+from ..telemetry.metrics import REGISTRY
 from .base import RoundResult
+
+
+def count_cdf_builds(n: int) -> None:
+    """Count ``n`` resampling CDFs built for a generation's proposal
+    draws (``sampler_cdf_builds_total``)."""
+    if n:
+        REGISTRY.counter(
+            "sampler_cdf_builds_total",
+            "resampling CDFs built for the generation proposal's "
+            "draws").inc(n)
+
+
+def cdf_builds_total() -> int:
+    """The running count of :func:`count_cdf_builds`."""
+    return int(REGISTRY.counter("sampler_cdf_builds_total").value)
+
+
+def _cdf_into(log_w: torch.Tensor, own: Optional[torch.Tensor]
+              ) -> torch.Tensor:
+    """``resampling_cdf(log_w)``, written into ``own`` in place where
+    ``own`` is a tensor of its shape, dtype and device, else into a new
+    tensor of ``log_w``'s size (``ordered_cumsum`` leaves its sum in a
+    buffer padded to whole scan rows)."""
+    cdf = resampling_cdf(log_w)
+    if (own is None or own.shape != cdf.shape or own.dtype != cdf.dtype
+            or own.device != cdf.device):
+        own = torch.empty_like(cdf)
+    return own.copy_(cdf)
 
 
 class RoundKernel:
@@ -76,6 +112,11 @@ class RoundKernel:
         self.device = obs_flat.device
         self.model_prior_logits = torch.as_tensor(
             model_prior_logits, dtype=torch.float32, device=self.device)
+        #: the model prior's log pmf and resampling CDF, fixed for the
+        #: run: built once here, not in every round
+        self.log_model_prior = torch.log_softmax(self.model_prior_logits,
+                                                 dim=0)
+        self.model_prior_cdf = resampling_cdf(self.model_prior_logits)
         self.pert = model_perturbation_kernel
         self.transition_fns = [tr.static_fns() for tr in transitions]
         self.distance = distance
@@ -164,8 +205,7 @@ class RoundKernel:
         for j, prior in enumerate(self.priors):
             lp_j = prior.log_pdf_array(theta[:, :prior.dim])
             log_prior = torch.where(m == j, lp_j, log_prior)
-        log_model_prior = torch.log_softmax(self.model_prior_logits, dim=0)
-        return log_prior + log_model_prior[m]
+        return log_prior + self.log_model_prior[m]
 
     def _padded(self, th: torch.Tensor) -> torch.Tensor:
         return torch.nn.functional.pad(th, (0, self.dim - th.shape[-1]))
@@ -175,7 +215,7 @@ class RoundKernel:
     def prior_round(self, generator, params: dict, B: int,
                     all_accepted: bool = False) -> RoundResult:
         _phases.start()
-        m = fast_weighted_choice(generator, self.model_prior_logits, B)
+        m = choice_from_cdf(generator, self.model_prior_cdf, B)
         theta = torch.zeros(B, self.dim, device=self.device)
         for j, prior in enumerate(self.priors):
             th_j = self._padded(prior.rvs_array(generator, B))
@@ -211,9 +251,53 @@ class RoundKernel:
             params["model_log_probs"][:, None] + log_jump, dim=0)  # [B]
         return log_mix + lp_target
 
+    def prepare(self, params: dict, into: Optional[dict] = None) -> dict:
+        """A generation's device params as its deferred rounds read them
+        (``with_proposal=False``: they never evaluate the proposal
+        density): the model mix's resampling CDF (``model_cdf``) in place
+        of ``model_log_probs``, and each transition's, of its padded
+        ``log_w`` (``cdf``), in place of ``log_w``; built once for all of
+        the generation's rounds (span ``sampler.prepare``; each CDF counts
+        in ``sampler_cdf_builds_total``).  ``into``: the params a captured
+        round holds as its inputs (``RoundProgram.own_params``); a CDF
+        whose tensor there has its shape and dtype is written into it in
+        place, so the replay copies nothing in and no second copy is
+        kept.  Params without ``transition`` (the prior round's) come back
+        as they are."""
+        if "transition" not in params:
+            return params
+        into = into or {}
+        own_trans = into.get("transition") or [{}] * len(params["transition"])
+        with _spans.span("sampler.prepare"):
+            trans = []
+            for j, p in enumerate(params["transition"]):
+                if "log_w" not in p:
+                    # an aggregated transition: its blocks build their own
+                    trans.append(p)
+                    continue
+                q = {k: v for k, v in p.items() if k != "log_w"}
+                q["cdf"] = _cdf_into(p["log_w"], own_trans[j].get("cdf"))
+                trans.append(q)
+            out = {k: v for k, v in params.items()
+                   if k != "model_log_probs"}
+            out["transition"] = type(params["transition"])(trans)
+            out["model_cdf"] = _cdf_into(params["model_log_probs"],
+                                         into.get("model_cdf"))
+            count_cdf_builds(1 + sum("cdf" in q for q in trans))
+        return out
+
     def _propose(self, generator, params: dict, B: int):
-        """Model jump, transition draw, prior validity."""
-        m_s = fast_weighted_choice(generator, params["model_log_probs"], B)
+        """Model jump, transition draw, prior validity.  The draws read
+        the CDFs of :meth:`prepare` where ``params`` carry them; the ones
+        built here count in ``sampler_cdf_builds_total`` each time this
+        runs in Python (an eager round, a capture; not a replay)."""
+        model_cdf = params.get("model_cdf")
+        if model_cdf is None:
+            model_cdf = resampling_cdf(params["model_log_probs"])
+            count_cdf_builds(1)
+        count_cdf_builds(sum(1 for p in params["transition"]
+                             if "log_w" in p and "cdf" not in p))
+        m_s = choice_from_cdf(generator, model_cdf, B)
         m = self.pert.rvs(generator, m_s)
         theta = torch.zeros(B, self.dim, device=self.device)
         for j in range(self.M):

@@ -77,6 +77,7 @@ from ..telemetry.phases import RoundClock
 from ..wire import transfer
 from .base import Sample, Sampler, SamplingError, fetch_to_host, mark_ready
 from .device_loop import build_stateful_loop, harvest_rec
+from .rounds import cdf_builds_total
 
 logger = logging.getLogger("ABC.Sampler")
 
@@ -248,6 +249,7 @@ class VectorizedSampler(Sampler):
                                 defer_wire_fetch: bool = False) -> Sample:
         sample = Sample(record_rejected=self.record_rejected,
                         max_records=self.max_records)
+        builds0 = cdf_builds_total()
         # params arrive as host numpy (fits are control plane); pin them
         # on the device once per generation
         params = to_torch(params, self.device)
@@ -294,6 +296,14 @@ class VectorizedSampler(Sampler):
         loop = self._ladder.get(key, build)
         self._ladder.retain(_is_loop_key, MAX_LOOPS)
         start, step, finalize, reset = loop
+        # deferred rounds read the generation's resampling CDFs, built
+        # once here (into the captured round's own inputs); the finalize
+        # and the records' density keep the log weights
+        kernel = getattr(round_fn, "__self__", None)
+        round_params = params
+        if weight_fn is not None and hasattr(kernel, "prepare"):
+            round_params = kernel.prepare(params,
+                                          into=loop.program.own_params())
         clock = loop.program.new_clock()
         state = start()
         replays0 = loop.program.replays
@@ -307,7 +317,7 @@ class VectorizedSampler(Sampler):
             # the cursor and the generator back makes the retry the same
             # call (resilience/retry.py)
             cursor = _Cursor(state)
-            state = self._dispatch(step, generator, params, state,
+            state = self._dispatch(step, generator, round_params, state,
                                    rng=generator, restore=cursor.restore)
             if record_cap:
                 rec, state = harvest_rec(state)
@@ -361,6 +371,7 @@ class VectorizedSampler(Sampler):
                 count, device_view=view)
         sample.round_graph = loop.program.route == "graph"
         sample.round_replays = loop.program.replays - replays0
+        sample.cdf_builds = cdf_builds_total() - builds0
         if bar is not None:
             bar.finish()
         self.nr_evaluations_ = sample.nr_evaluations

@@ -449,7 +449,10 @@ class ABCSMC:
         #: share of the wire ledger), history_mode ("lazy" when a device
         #: store was attached), kde_launches (KDE kernel launches
         #: in the generation), kde_support (per model: pdf support rows,
-        #: grid-compressed or not), records (candidates recorded),
+        #: grid-compressed or not), cdf_builds (resampling CDFs built for
+        #: the generation's proposal draws: M + 1 by the prepare step of
+        #: a generation after the first, none in its rounds; 0 at
+        #: t = 0), records (candidates recorded),
         #: record_batches (sampler calls that kept records: each
         #: evaluates the proposal density over its records when a
         #: temperature reads them), refit_s (seconds of the distance fit
@@ -1340,6 +1343,7 @@ class ABCSMC:
             "grids_resolved": info["grids_resolved"],
             "round_graph": info["round_graph"],
             "round_replays": info["round_replays"],
+            "cdf_builds": info["cdf_builds"],
             "kde_launches": info["kde_launches"],
             "kde_support": info["kde_support"], "records": 0,
             "record_batches": 0, "refit_s": 0.0, "append_s": append_s,
@@ -2001,6 +2005,7 @@ class ABCSMC:
                          "batch": samp.last_batch,
                          "round_graph": sample.round_graph,
                          "round_replays": sample.round_replays,
+                         "cdf_builds": sample.cdf_builds,
                          "sample_s": time.perf_counter() - mark,
                          "kde_launches": (weighted_kde_logpdf_cuda.launches
                                           - launches0),
@@ -2591,6 +2596,7 @@ class ABCSMC:
                 "batch": getattr(self.sampler, "last_batch", None),
                 "round_graph": sample.round_graph,
                 "round_replays": sample.round_replays,
+                "cdf_builds": sample.cdf_builds,
                 "kde_launches": (weighted_kde_logpdf_cuda.launches
                                  - launches_mark),
                 "kde_support": ([_pdf_support_rows(p)

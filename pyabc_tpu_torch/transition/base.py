@@ -26,7 +26,7 @@ import torch
 
 from ..convert import to_torch
 from ..device import device_of, note_uncapturable, resolve_device
-from ..ops.choice import fast_weighted_choice
+from ..ops.choice import fast_weighted_choice, resampling_cdf
 
 
 class Transition:
@@ -197,6 +197,14 @@ class Transition:
                                 current})}
         return predict_population_size(cvs, coefficient_of_variation,
                                        fallback=current)
+
+
+def support_cdf(params: dict) -> torch.Tensor:
+    """The resampling CDF of a transition's support: the one the
+    generation's prepare step put in its params (``"cdf"``,
+    ``RoundKernel.prepare``), else built here from ``"log_w"``."""
+    cdf = params.get("cdf")
+    return resampling_cdf(params["log_w"]) if cdf is None else cdf
 
 
 class NotFittedError(Exception):

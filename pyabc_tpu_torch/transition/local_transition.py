@@ -27,8 +27,8 @@ import numpy as np
 import torch
 
 from ..device import device_of, resolve_device
-from ..ops.choice import fast_weighted_choice
-from .base import Transition
+from ..ops.choice import choice_from_cdf
+from .base import Transition, support_cdf
 
 #: query rows per chunk of the neighbour search and of the log-density
 _CHUNK = 1024
@@ -91,10 +91,10 @@ class LocalTransition(Transition):
     @staticmethod
     def rvs_from_params(generator: torch.Generator, params: dict,
                         n: int) -> torch.Tensor:
-        """A weighted resample of the support plus its particle's
-        correlated noise."""
+        """A weighted resample of the support (from the params' prepared
+        CDF, when they carry one) plus its particle's correlated noise."""
         support = params["support"]
-        idx = fast_weighted_choice(generator, params["log_w"], n)
+        idx = choice_from_cdf(generator, support_cdf(params), n)
         noise = torch.randn(n, support.shape[-1], generator=generator,
                             device=device_of(generator),
                             dtype=support.dtype)

@@ -17,10 +17,10 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
-from ..ops.choice import fast_weighted_choice
+from ..ops.choice import choice_from_cdf
 from ..ops.kde import weighted_kde_logpdf_auto
 from ..weighted_statistics import effective_sample_size
-from .base import Transition
+from .base import Transition, support_cdf
 
 #: pdf-support compression thresholds (see _compress_support)
 _COMPRESS_MIN_N = 1 << 14
@@ -162,9 +162,10 @@ class MultivariateNormalTransition(Transition):
     @staticmethod
     def rvs_from_params(generator: torch.Generator, params: dict,
                         n: int) -> torch.Tensor:
-        """Weighted resample of a support row plus correlated noise."""
+        """Weighted resample of a support row plus correlated noise (the
+        resample from the params' prepared CDF, when they carry one)."""
         support, chol = params["support"], params["chol"]
-        idx = fast_weighted_choice(generator, params["log_w"], n)
+        idx = choice_from_cdf(generator, support_cdf(params), n)
         noise = torch.randn(n, support.shape[-1], generator=generator,
                             device=support.device, dtype=support.dtype)
         return support[idx] + noise @ chol.T

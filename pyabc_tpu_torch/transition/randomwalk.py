@@ -9,8 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..ops.choice import fast_weighted_choice
-from .base import Transition
+from ..ops.choice import choice_from_cdf, fast_weighted_choice
+from .base import Transition, support_cdf
 
 
 class DiscreteRandomWalkTransition(Transition):
@@ -43,7 +43,9 @@ class DiscreteRandomWalkTransition(Transition):
                         n: int) -> torch.Tensor:
         support, slp = params["support"], params["step_log_probs"]
         n_steps = (slp.shape[0] - 1) // 2  # static: no device read
-        idx = fast_weighted_choice(generator, params["log_w"], n)
+        # the support's draw from the params' prepared CDF, when they
+        # carry one; the step pmf is a few entries
+        idx = choice_from_cdf(generator, support_cdf(params), n)
         d = support.shape[-1]
         steps = fast_weighted_choice(generator, slp, n * d).view(n, d) \
             - n_steps

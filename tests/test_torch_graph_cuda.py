@@ -53,7 +53,7 @@ def _same(a, b) -> bool:
     return a.shape == b.shape and torch.equal(_bits(a), _bits(b))
 
 
-def _abc(pop=2000, simulate=None):
+def _abc(pop=2000, simulate=None, **kwargs):
     models, priors, distance, observed, _ = make_two_gaussians_problem()
     if simulate is not None:
         models[0].simulate = simulate(models[0].simulate)
@@ -63,7 +63,7 @@ def _abc(pop=2000, simulate=None):
                                                  max_batch_size=8192,
                                                  device="cuda"),
                     stores_sum_stats=False, seed=1, history_mode="eager",
-                    device="cuda")
+                    device="cuda", **kwargs)
     abc.new("sqlite://", observed)
     return abc
 
@@ -113,6 +113,108 @@ def test_captured_round_equals_the_eager_round(dev):
         assert torch.equal(gen.get_state(), gen_e.get_state())
     assert graph.route == "graph" and graph.replays == 3
     assert ladder.pool_bytes()["reserved"] > 0
+
+
+def _requested() -> dict:
+    """The bytes the card's allocator was asked for: now, and at the peak
+    since the last ``reset_peak_memory_stats``."""
+    stats = torch.cuda.memory_stats()
+    return {"current": stats["requested_bytes.all.current"],
+            "peak": stats["requested_bytes.all.peak"]}
+
+
+def _kernel_names(fn) -> list:
+    """The names of the card kernels ``fn()`` launches, by the profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    return [e.name() for e in prof.profiler.kineto_results.events()
+            if e.device_type() == cuda]
+
+
+def test_a_prepared_round_launches_no_softmax_or_scan_and_draws_the_same(dev):
+    """Config #2's round graph at B = 2^16 on a support of ~2^17 rows,
+    reading the generation's CDFs (``RoundKernel.prepare``, written into
+    the graph's own inputs): a replay launches no softmax and no CDF scan
+    kernel, the rounds draw what rounds that build their own CDFs draw,
+    and capture plus replays ask the allocator for no more bytes, at their
+    peak and after, than those rounds (``requested_bytes``: the blocks
+    that ``memory_allocated`` counts can round a request up by the rest
+    of a cached segment)."""
+    # the sequential engine: its generation 1 goes through the sampler
+    abc = _abc(pop=1 << 17, ingest_mode="sequential")
+    rec = _recorded(abc)
+    B, n = 1 << 16, rec["n"]
+    kernel = rec["round_fn"].__self__
+    raw = abc.sampler.raw_round(rec["round_fn"], B)
+    params = to_torch(rec["params"], dev)
+    assert max(p["support"].shape[0] for p in params["transition"]) > B
+
+    def rounds(prepared: bool):
+        """Three rounds on a fresh pool (the first eager and captured,
+        then two replays, as a new generation): their outputs, the peak
+        and the bytes held after, over what was allocated before."""
+        ladder = CompiledLadder()
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(5)
+        prog = RoundProgram(raw, B, n, graphs=True, pool=ladder.graph_pool)
+        torch.cuda.synchronize()
+        base = _requested()["current"]
+        base_alloc = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+
+        def run(p):
+            out = prog.run(gen, p)
+            return {k: getattr(out, k).clone() for k in FIELDS}
+
+        first = kernel.prepare(params) if prepared else params
+        outs = [run(first)]
+        if prepared:
+            own = prog.own_params()
+            # the capture took the prepared CDFs as its own inputs
+            assert own["model_cdf"] is first["model_cdf"]
+            assert all(o["cdf"] is f["cdf"] for o, f in
+                       zip(own["transition"], first["transition"]))
+        del first
+        rp = (kernel.prepare(params, into=prog.own_params()) if prepared
+              else params)
+        outs += [run(rp), run(rp)]
+        torch.cuda.synchronize()
+        req = _requested()
+        allocated = (torch.cuda.max_memory_allocated() - base_alloc,
+                     torch.cuda.memory_allocated() - base_alloc)
+        return (prog, rp, gen, ladder, outs, req["peak"] - base,
+                req["current"] - base, allocated)
+
+    mine = rounds(True)
+    theirs = rounds(False)
+    assert mine[0].replays == theirs[0].replays == 2
+    for a, b in zip(mine[4], theirs[4]):
+        for k in FIELDS:
+            assert _same(a[k], b[k]), k
+    assert torch.equal(mine[2].get_state(), theirs[2].get_state())
+    print(f"capture + 2 replays, bytes requested at the peak and held: "
+          f"{mine[5]}, {mine[6]} (allocated {mine[7]}); rounds that build "
+          f"their own CDFs: {theirs[5]}, {theirs[6]} (allocated "
+          f"{theirs[7]})")
+    assert mine[5] <= theirs[5]
+    assert mine[6] <= theirs[6]
+
+    def cdf_kernels(names):
+        return [k for k in names if "softmax" in k.lower()
+                or "tensor_kernel_scan" in k]
+
+    prog, rp, gen = mine[:3]
+    names = _kernel_names(lambda: prog.run(gen, rp))
+    assert names and not cdf_kernels(names), names
+    # the same profile of a round that builds its own shows them
+    prog, rp, gen = theirs[:3]
+    assert cdf_kernels(_kernel_names(lambda: prog.run(gen, rp)))
 
 
 def test_replay_advances_the_generator_as_the_eager_call(dev):
