@@ -456,7 +456,10 @@ class ABCSMC:
         #: record_batches (sampler calls that kept records: each
         #: evaluates the proposal density over its records when a
         #: temperature reads them), refit_s (seconds of the distance fit
-        #: whose params the generation used), adapt_s (sequential rows:
+        #: whose params the generation used), distance_s (sequential
+        #: rows of an adaptive distance: seconds of that refit's span
+        #: ``distance.refit``, the fit and the population's distances
+        #: under it; a device block refits in the block), adapt_s (sequential rows:
         #: host seconds of the population-size adaptation that sized the
         #: generation), peak_mem_gb (peak device
         #: memory allocated in the generation — in a fused block, in the
@@ -490,6 +493,9 @@ class ABCSMC:
         #: max_rounds
         self.blocks: List[dict] = []
         self._refit_s = 0.0
+        #: the last adaptive refit's row key, ``{"distance_s": seconds}``
+        #: (empty: no refit span, a distance that does not adapt)
+        self._distance_row: dict = {}
         #: the build counters at the last timeline row (its stage row's
         #: compile_s / n_compiles are the delta since)
         self._compile_mark = compile_counters()
@@ -752,6 +758,21 @@ class ABCSMC:
         params = to_torch(self.distance_function.get_params(t), self.device)
         return self.distance_function.compute(
             stats, self._obs_flat, params).cpu().numpy().astype(np.float32)
+
+    def _end_distance_refit(self, t: int, mark: float):
+        """End the span ``distance.refit`` of an adaptive distance's
+        refit for generation ``t``, begun at the ``perf_counter`` reading
+        ``mark``: the fit of its params and the population's distances
+        under them.  Its seconds become the rows' ``distance_s``.  Tracer
+        off it costs one clock reading; a distance that does not adapt
+        has no span."""
+        if not self._distance_is_adaptive():
+            self._distance_row = {}
+            return
+        end = time.perf_counter()
+        self._distance_row = {"distance_s": end - mark}
+        if _spans.TRACER.enabled:
+            _spans.TRACER.add("distance.refit", mark, end, gen=t)
 
     # ---- fused multi-generation blocks (sampler/fused.py) ---------------
 
@@ -2014,7 +2035,8 @@ class ABCSMC:
                                          if t > 0 else []),
                          "records": sample.n_recorded,
                          "record_batches": sample.n_record_batches,
-                         "refit_s": self._refit_s, **sample.round_clock}}
+                         "refit_s": self._refit_s, **self._distance_row,
+                         **sample.round_clock}}
             wire = sample.take_pending_wire()
             if wire is not None:
                 ready = sample.pending_ready
@@ -2209,6 +2231,7 @@ class ABCSMC:
         # calibrated only now): re-evaluate under the initialized distance
         pop = Population(pop.m, pop.theta, pop.weight,
                          self._distances_under(t0, stats_dev), pop.sum_stats)
+        self._end_distance_refit(t0, refit_mark)
 
         def get_weighted_distances():
             return np.asarray(pop.distance), np.asarray(pop.weight)
@@ -2256,6 +2279,7 @@ class ABCSMC:
             # epsilon see the distances under the (re)fitted weights
             pop = Population(pop.m, pop.theta, pop.weight,
                              self._distances_under(t0, flat), pop.sum_stats)
+        self._end_distance_refit(t0, refit_mark)
         self.acceptor.initialize(
             t0, get_weighted_distances, self.distance_function, self.x_0)
         # a temperature continues from the stored one (the populations'
@@ -2604,7 +2628,7 @@ class ABCSMC:
                                 if t > 0 else []),
                 "records": sample.n_recorded,
                 "record_batches": sample.n_record_batches,
-                "refit_s": self._refit_s,
+                "refit_s": self._refit_s, **self._distance_row,
                 "adapt_s": self._adapt_s,
                 "append_s": append_s, **sample.round_clock,
                 "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
@@ -2766,6 +2790,7 @@ class ABCSMC:
             else:
                 logger.debug("distance changed at t=%d but the population "
                              "has no stats; keeping stored distances", t)
+        self._end_distance_refit(t, refit_mark)
 
         def get_weighted_distances():
             return (np.asarray(population.distance),
