@@ -229,6 +229,9 @@ class Sample:
         #: the orchestrator for the temperature schemes)
         self.transition_log_pdf: Optional[Callable] = None
         self.transition_log_pdf_device: Optional[Callable] = None
+        #: the blobs of the accepted rows packed while the card computed
+        #: their weights (``Sampler.prepacker``'s handle), or None
+        self.prepacked = None
         #: the accepted rows left on the device (``defer_wire_fetch``),
         #: the event their producer completes, and their row count
         self.pending_wire: Optional[dict] = None
@@ -484,6 +487,13 @@ class Sampler:
         #: mid-generation sub-checkpoint sink, set by the sequential run
         #: path for one generation (resilience/checkpoint.py); None = off
         self.checkpointer = None
+        #: ``rows -> handle``: set by the sequential run path for one
+        #: generation whose eager History write takes blobs packed ahead
+        #: (``History.prepack``); a sampler that fetches the accepted
+        #: rows eagerly calls it with the host columns the finalize does
+        #: not change, before the finalize, and keeps the handle on the
+        #: ``Sample`` (:attr:`Sample.prepacked`); None = off
+        self.prepacker = None
         #: render a per-generation bar over the accepted count (set from
         #: ``ABCSMC(show_progress=)``)
         self.show_progress = False

@@ -27,6 +27,11 @@ fetched: a device copy of them becomes the ``Sample``'s pending wire
 producer, and the caller hands it to a streaming-ingest worker or the
 device store.  The copy matters: the loop's buffers are rewound and
 refilled by the next generation while the wire may still be in flight.
+Fetched eagerly, with a ``prepacker`` set (``Sampler.prepacker``), the
+rows the finalize does not change come back at the last count read,
+before the finalize, and go to the History's packer threads while the
+card computes the weights; the fetch after the finalize takes the
+weights alone.
 
 On the card each round is one replay of a captured CUDA graph
 (:mod:`.device_loop`, ``autotune.ladder``), and so is a finalize of the
@@ -357,18 +362,31 @@ class VectorizedSampler(Sampler):
                 logger.warning("max_eval=%s reached with %d/%d accepted",
                                max_eval, count, n)
                 break
+        eager = not (defer_wire_fetch and not record_cap)
+        early = None
+        if eager and self.prepacker is not None and count >= n:
+            # the rows the finalize reads and does not change come back
+            # now, and their blobs pack while the card computes the
+            # weights; the fetch after it takes the weights alone
+            early = fetch_to_host(
+                {k: state["bufs"][k][:n]
+                 for k in ("m", "theta", "distance", "stats")
+                 if k != "stats" or self.fetch_stats})
+            sample.prepacked = self.prepacker(early)
         view = self._dispatch(finalize, state, params)
         sample.round_clock = clock.row()
         wire_keys = [k for k in view if k != "stats" or self.fetch_stats]
-        if defer_wire_fetch and not record_cap:
+        if not eager:
             view = {k: v.clone() for k, v in view.items()}
             wire = {k: view[k] for k in wire_keys}
             sample.append_pending_wire(wire, rounds * B, count, view,
                                        ready=mark_ready(wire))
         else:
+            late = [k for k in wire_keys if early is None or k not in early]
+            host = fetch_to_host({k: view[k] for k in late})
             sample.append_device_batch(
-                fetch_to_host({k: view[k] for k in wire_keys}), rounds * B,
-                count, device_view=view)
+                {k: (host[k] if k in host else early[k]) for k in wire_keys},
+                rounds * B, count, device_view=view)
         sample.round_graph = loop.program.route == "graph"
         sample.round_replays = loop.program.replays - replays0
         sample.cdf_builds = cdf_builds_total() - builds0

@@ -2358,12 +2358,17 @@ class ABCSMC:
 
     def _attach_pack_s(self):
         """Each timeline row's ``pack_s``: the seconds of its generation's
-        PTW1 pack and CRC (``History.pack_s``), once its blobs are written
-        (a lazy generation's at its materialization)."""
-        packs = self.history.pack_s
+        PTW1 pack and CRC on the writer's path (``History.pack_s``), once
+        its blobs are written (a lazy generation's at its
+        materialization); ``prepacked_share`` and ``prepack_s`` where an
+        eager write took blobs packed ahead of it."""
+        h = self.history
         for row in self.timeline:
-            if row.get("t") in packs:
-                row["pack_s"] = packs[row["t"]]
+            for key, by_t in (("pack_s", h.pack_s),
+                              ("prepacked_share", h.prepacked_share),
+                              ("prepack_s", h.prepack_s)):
+                if row.get("t") in by_t:
+                    row[key] = by_t[row["t"]]
 
     def _run_master(self, minimum_epsilon, max_nr_populations,
                     min_acceptance_rate, max_total_nr_simulations
@@ -2541,6 +2546,13 @@ class ABCSMC:
                     # rows ship on a preemption or with a splice base
                     ck.manifest_source = self._store.manifest
                 self.sampler.checkpointer = ck
+            if splice is None:
+                # the eager append below is this generation's writer: a
+                # sampler that fetches the rows eagerly hands over those
+                # the finalize does not change, and their blobs pack
+                # while the card computes the weights
+                self.sampler.prepacker = functools.partial(
+                    self.history.prepack, t)
             try:
                 with profile_generation(t), _spans.span("gen.sample", gen=t):
                     if n_req > 0:
@@ -2551,6 +2563,7 @@ class ABCSMC:
                         sample = Sample()  # the splice covers n already
             finally:
                 self.sampler.checkpointer = None
+                self.sampler.prepacker = None
             if splice is not None:
                 # both halves are draws from the same proposal at the same
                 # eps; the weights normalize once over the joined rows
@@ -2591,7 +2604,8 @@ class ABCSMC:
                     self.history.append_population(
                         t, current_eps, population, sample.nr_evaluations,
                         model_names, self._param_names(),
-                        stat_spec=self.spec.shapes)
+                        stat_spec=self.spec.shapes,
+                        prepacked=sample.prepacked)
             append_s = time.perf_counter() - append_mark
             if lazy_gen:
                 # the host adaptation still needs the rows: hydrate (the

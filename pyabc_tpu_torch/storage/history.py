@@ -43,7 +43,23 @@ the eager caller's concatenation is its own), ``history.pack`` (the PTW1
 blobs), ``history.crc`` (their digests) and ``history.write`` (the
 sqlite statements and the commit).  The seconds of pack and CRC are
 summed per generation in :attr:`History.pack_s`, whichever thread ran
-them.
+them: the wall the writer spends in those steps.
+
+Packed ahead (:class:`PrePack`): the sequential engine's eager append
+takes blobs that started packing under the generation's finalize.  At
+its last count read the sampler hands over the accepted rows the
+finalize does not change (``m``, ``theta``, ``distance``, the stats it
+fetches); their blobs pack and CRC on threads (span
+``history.prepack``) while the card computes the weights.  The append
+packs the ``weight`` blobs, joins the early ones (its ``history.pack``
+span, and ``pack_s``, include that wait) and commits where it did:
+generation t is durable before generation t + 1's first round.  The
+bytes are the one-shot write's.  Every other writer — the calibration,
+a resume splice, the lazy rows, the pipelined engine — packs in one go;
+a failed attempt's early blobs go with its ``Sample``.  Left for later: deflating ``theta`` round
+by round (one ``zlib.compressobj(1)`` fed each round's rows, no flush
+until the end, gives the one-shot bytes) would hide it under the
+rounds too.
 """
 
 from __future__ import annotations
@@ -205,6 +221,87 @@ def _pack_all(arrays: Dict[str, Optional[np.ndarray]]
                 for k in arrays}
 
 
+class PrePack:
+    """The blobs of one generation packed ahead of its append.
+
+    ``rows`` holds the generation's host columns that no later step
+    changes — ``m``, ``theta``, ``distance`` and optionally ``stats`` —
+    row for row as the append's population will hold them.  Each
+    ``(m, column)`` blob (``stats`` only when the History stores them)
+    is gathered, packed and CRC'd on a thread of its own from the
+    constructor on: the same ``_pack`` and ``_blob_crc`` as
+    :func:`_pack_all`, so the same bytes.  The append
+    (:meth:`History.append_population` with ``prepacked=``) packs the
+    ``weight`` blobs itself and joins these.
+
+    The sequential sampler builds one while the card runs the
+    generation's finalize, which computes the weights
+    (``sampler/vectorized.py``).  :attr:`seconds` is the packer threads'
+    wall from the submission to the last blob, the ``history.prepack``
+    span's length."""
+
+    def __init__(self, t: int, rows: Dict[str, np.ndarray],
+                 stores_sum_stats: bool = True):
+        self.t = int(t)
+        self.m = np.asarray(rows["m"])
+        self.with_stats = bool(stores_sum_stats
+                               and rows.get("stats") is not None)
+        split = {int(m): np.nonzero(self.m == m)[0]
+                 for m in np.unique(self.m)}
+        jobs = {(m, k): (rows[k], idx) for m, idx in split.items()
+                for k in ("theta", "distance")
+                + (("stats",) if self.with_stats else ())}
+        self.models = sorted(split)
+        #: bytes of the arrays behind the early blobs
+        self.nbytes = sum(int(idx.size) * np.asarray(col[:1]).nbytes
+                          for col, idx in jobs.values())
+        self.seconds: Optional[float] = None
+        self._left = len(jobs)
+        self._lock = threading.Lock()
+        self._t0 = time.perf_counter()
+        self._span = _spans.begin("history.prepack", gen=self.t,
+                                  blobs=len(jobs))
+        pool = ThreadPoolExecutor(
+            max_workers=max(1, min(len(jobs), os.cpu_count() or 1)),
+            thread_name_prefix="history-prepack")
+        self._futures = {key: pool.submit(_pack_rows, col, idx)
+                         for key, (col, idx) in jobs.items()}
+        for fut in self._futures.values():
+            fut.add_done_callback(self._one_done)
+        # the threads exit once their blobs are packed; nothing waits here
+        pool.shutdown(wait=False)
+
+    def _one_done(self, _fut):
+        with self._lock:
+            self._left -= 1
+            last = self._left == 0
+        if last:
+            self.seconds = time.perf_counter() - self._t0
+            _spans.end(self._span)
+
+    def covers(self, m: np.ndarray, models, with_stats: bool) -> bool:
+        """Whether these blobs are those of the population whose model
+        column is ``m``, split into ``models``, with or without stats (a
+        splice builds another population: the one-shot pack runs)."""
+        return (with_stats == self.with_stats
+                and sorted(models) == self.models
+                and m.shape == self.m.shape and np.array_equal(m, self.m))
+
+    def keys(self):
+        return self._futures.keys()
+
+    def join(self) -> Dict[tuple, Tuple[bytes, Optional[int]]]:
+        """``(blob, crc)`` of every early blob, once the last is packed."""
+        return {key: fut.result() for key, fut in self._futures.items()}
+
+
+def _pack_rows(col: np.ndarray, idx: np.ndarray
+               ) -> Tuple[bytes, Optional[int]]:
+    """``col[idx]`` packed, and its CRC (all rows in order: no gather)."""
+    blob = _pack(col if idx.size == len(col) else col[idx])
+    return blob, _blob_crc(blob)
+
+
 def _unpack(blob: bytes) -> np.ndarray:
     """Blob -> array: a PTW1 blob (the JAX package's default) or ``.npy``."""
     if transfer.is_ptw1(blob):
@@ -243,11 +340,34 @@ class History:
         #: seconds of PTW1 pack and CRC of each generation's blobs (t ->
         #: s), summed over its writes
         self.pack_s: Dict[int, float] = {}
+        #: share of each eager write's blob array bytes packed ahead of
+        #: it (:class:`PrePack`; t -> share, 0 where none was), and the
+        #: packer threads' seconds on them (t -> s)
+        self.prepacked_share: Dict[int, float] = {}
+        self.prepack_s: Dict[int, float] = {}
         self._pack_lock = threading.Lock()
 
     def _add_pack_s(self, t: int, seconds: float):
         with self._pack_lock:
             self.pack_s[int(t)] = self.pack_s.get(int(t), 0.0) + seconds
+
+    def _note_prepack(self, t: int, prepacked: Optional[PrePack],
+                      total_bytes: int, blobs: int):
+        """Generation ``t``'s eager write: the share of its blob array
+        bytes packed ahead (0 without a :class:`PrePack`) and, with one,
+        the packer threads' seconds."""
+        with self._pack_lock:
+            self.prepacked_share[int(t)] = (
+                prepacked.nbytes / total_bytes
+                if prepacked is not None and total_bytes else 0.0)
+            if prepacked is not None and prepacked.seconds is not None:
+                self.prepack_s[int(t)] = prepacked.seconds
+        if blobs:
+            from ..telemetry.metrics import REGISTRY
+            REGISTRY.counter(
+                "history_prepacked_blobs_total",
+                "History blobs packed while the card computed the "
+                "generation's weights; see storage/history.py").inc(blobs)
 
     def _migrate(self):
         """Add the newer columns to a database written without them."""
@@ -355,21 +475,32 @@ class History:
                           population: Population, nr_simulations: int,
                           model_names: List[str],
                           param_names: Optional[List] = None,
-                          stat_spec: Optional[dict] = None):
+                          stat_spec: Optional[dict] = None,
+                          prepacked: Optional[PrePack] = None):
         """One INSERT OR REPLACE per model; the commit is the durability
         point, so the write is idempotent and a transient sqlite failure
-        retries through the shared policy (``history.append`` site)."""
+        retries through the shared policy (``history.append`` site).
+        ``prepacked`` (:meth:`prepack`) holds blobs of this population
+        packed ahead; the write joins them instead of packing them, and
+        the bytes are the same."""
         from ..resilience import faults as _faults
         from ..resilience import retry as _retry
         _retry.shared_policy().call(
             self._append_population_once, _faults.SITE_APPEND,
             t, current_epsilon, population, nr_simulations, model_names,
-            param_names, stat_spec)
+            param_names, stat_spec, prepacked=prepacked)
+
+    def prepack(self, t: int, rows: Dict[str, np.ndarray]) -> PrePack:
+        """Start packing generation ``t``'s blobs that do not depend on
+        its weights (:class:`PrePack`), for :meth:`append_population`'s
+        ``prepacked``."""
+        return PrePack(t, rows, self.stores_sum_stats)
 
     def _append_population_once(self, t, current_epsilon, population,
                                 nr_simulations, model_names,
                                 param_names=None, stat_spec=None,
-                                summary_json=None, summary_grid=None):
+                                summary_json=None, summary_grid=None,
+                                prepacked: Optional[PrePack] = None):
         probs = population.get_model_probabilities(
             nr_models=len(model_names))
         m_arr = np.asarray(population.m)
@@ -382,17 +513,33 @@ class History:
         rows = {m: idx for m, idx in rows.items() if idx.size}
         columns = {"theta": population.theta, "weight": population.weight,
                    "distance": population.distance, "stats": stats}
+        if prepacked is not None and not prepacked.covers(
+                m_arr, rows, stats is not None):
+            prepacked = None
+        early_keys = prepacked.keys() if prepacked is not None else ()
+        early = {}
         mark = time.perf_counter()
         with _spans.span("history.pack", gen=t):
+            # the late blobs pack while the early ones finish
             packed = _pack_all({(m, k): (None if col is None else col[idx])
                                 for m, idx in rows.items()
-                                for k, col in columns.items()})
+                                for k, col in columns.items()
+                                if (m, k) not in early_keys})
+            if prepacked is not None:
+                early = prepacked.join()
+                packed.update({key: blob for key, (blob, _) in early.items()})
         with _spans.span("history.crc", gen=t):
-            digests = {m: json.dumps({k: _blob_crc(packed[(m, k)])
+            digests = {m: json.dumps({k: (early[(m, k)][1]
+                                          if (m, k) in early
+                                          else _blob_crc(packed[(m, k)]))
                                       for k in columns
                                       if packed[(m, k)] is not None})
                        for m in rows}
         self._add_pack_s(t, time.perf_counter() - mark)
+        self._note_prepack(t, prepacked, sum(
+            int(idx.size) * np.asarray(col[:1]).nbytes
+            for idx in rows.values() for col in columns.values()
+            if col is not None), len(early))
         with _spans.span("history.write", gen=t):
             self._conn.execute(
                 "INSERT OR REPLACE INTO populations (abc_smc_id, t,"
