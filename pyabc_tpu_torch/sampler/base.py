@@ -212,11 +212,6 @@ class Sample:
         self.round_graph = False
         #: rounds of this sample that were graph replays
         self.round_replays = 0
-        #: resampling CDFs built for its proposal draws
-        #: (``sampler_cdf_builds_total``: once a generation by the
-        #: prepare step; a round that builds its own counts where its
-        #: Python runs)
-        self.cdf_builds = 0
         #: the clocks of the sampler's count reads
         #: (``telemetry.phases.RoundClock.row``: ``count_wait_s``,
         #: ``round_host_s``, ``loop_s``, and with the tracer on the

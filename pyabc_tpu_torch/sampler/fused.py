@@ -110,7 +110,6 @@ from ..transition.multivariatenormal import (_COMPRESS_MIN_N,
                                              regularized_kde_cov)
 from ..wire.store import summary_wire_lanes
 from .device_loop import RoundProgram
-from .rounds import cdf_builds_total
 
 # Stop codes of the JAX package's device stop chain, in the order the
 # host loop checks them; ``smc.STOP_REASONS`` maps each to its string.
@@ -540,7 +539,6 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
 
     def one_gen(carry: dict, generator: torch.Generator,
                 final: bool = False):
-        builds0 = cdf_builds_total()
         params, round_params, eps_t, grids_resolved, screen = schedule(
             carry, generator, final)
         trans = params["transition"]
@@ -667,7 +665,6 @@ def build_one_gen(kernel, bandwidth_selectors: Sequence[Callable],
                 "grids_resolved": resolved,
                 "round_graph": program.route == "graph",
                 "round_replays": program.replays - replays0,
-                "cdf_builds": cdf_builds_total() - builds0,
                 **clock.row(),
                 "kde_support": [
                     {"rows": int((p["c_support"] if "c_support" in p

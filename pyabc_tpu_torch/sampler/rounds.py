@@ -55,23 +55,7 @@ from ..random_variables import Distribution, ModelPerturbationKernel
 from ..sumstat import SumStatSpec
 from ..telemetry import phases as _phases
 from ..telemetry import spans as _spans
-from ..telemetry.metrics import REGISTRY
 from .base import RoundResult
-
-
-def count_cdf_builds(n: int) -> None:
-    """Count ``n`` resampling CDFs built for a generation's proposal
-    draws (``sampler_cdf_builds_total``)."""
-    if n:
-        REGISTRY.counter(
-            "sampler_cdf_builds_total",
-            "resampling CDFs built for the generation proposal's "
-            "draws").inc(n)
-
-
-def cdf_builds_total() -> int:
-    """The running count of :func:`count_cdf_builds`."""
-    return int(REGISTRY.counter("sampler_cdf_builds_total").value)
 
 
 def _cdf_into(log_w: torch.Tensor, own: Optional[torch.Tensor]
@@ -257,13 +241,12 @@ class RoundKernel:
         density): the model mix's resampling CDF (``model_cdf``) in place
         of ``model_log_probs``, and each transition's, of its padded
         ``log_w`` (``cdf``), in place of ``log_w``; built once for all of
-        the generation's rounds (span ``sampler.prepare``; each CDF counts
-        in ``sampler_cdf_builds_total``).  ``into``: the params a captured
-        round holds as its inputs (``RoundProgram.own_params``); a CDF
-        whose tensor there has its shape and dtype is written into it in
-        place, so the replay copies nothing in and no second copy is
-        kept.  Params without ``transition`` (the prior round's) come back
-        as they are."""
+        the generation's rounds (span ``sampler.prepare``).  ``into``:
+        the params a captured round holds as its inputs
+        (``RoundProgram.own_params``); a CDF whose tensor there has its
+        shape and dtype is written into it in place, so the replay
+        copies nothing in and no second copy is kept.  Params without
+        ``transition`` (the prior round's) come back as they are."""
         if "transition" not in params:
             return params
         into = into or {}
@@ -283,20 +266,15 @@ class RoundKernel:
             out["transition"] = type(params["transition"])(trans)
             out["model_cdf"] = _cdf_into(params["model_log_probs"],
                                          into.get("model_cdf"))
-            count_cdf_builds(1 + sum("cdf" in q for q in trans))
         return out
 
     def _propose(self, generator, params: dict, B: int):
         """Model jump, transition draw, prior validity.  The draws read
-        the CDFs of :meth:`prepare` where ``params`` carry them; the ones
-        built here count in ``sampler_cdf_builds_total`` each time this
-        runs in Python (an eager round, a capture; not a replay)."""
+        the CDFs of :meth:`prepare` where ``params`` carry them, and
+        otherwise build their own."""
         model_cdf = params.get("model_cdf")
         if model_cdf is None:
             model_cdf = resampling_cdf(params["model_log_probs"])
-            count_cdf_builds(1)
-        count_cdf_builds(sum(1 for p in params["transition"]
-                             if "log_w" in p and "cdf" not in p))
         m_s = choice_from_cdf(generator, model_cdf, B)
         m = self.pert.rvs(generator, m_s)
         theta = torch.zeros(B, self.dim, device=self.device)

@@ -82,7 +82,6 @@ from ..telemetry.phases import RoundClock
 from ..wire import transfer
 from .base import Sample, Sampler, SamplingError, fetch_to_host, mark_ready
 from .device_loop import build_stateful_loop, harvest_rec
-from .rounds import cdf_builds_total
 
 logger = logging.getLogger("ABC.Sampler")
 
@@ -254,7 +253,6 @@ class VectorizedSampler(Sampler):
                                 defer_wire_fetch: bool = False) -> Sample:
         sample = Sample(record_rejected=self.record_rejected,
                         max_records=self.max_records)
-        builds0 = cdf_builds_total()
         # params arrive as host numpy (fits are control plane); pin them
         # on the device once per generation
         params = to_torch(params, self.device)
@@ -389,7 +387,6 @@ class VectorizedSampler(Sampler):
                 rounds * B, count, device_view=view)
         sample.round_graph = loop.program.route == "graph"
         sample.round_replays = loop.program.replays - replays0
-        sample.cdf_builds = cdf_builds_total() - builds0
         if bar is not None:
             bar.finish()
         self.nr_evaluations_ = sample.nr_evaluations

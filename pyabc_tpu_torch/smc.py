@@ -235,6 +235,51 @@ def _clear_failed_frames(err: BaseException) -> None:
         err = err.__cause__ or err.__context__
 
 
+class _RowMarks:
+    """What closes a generation's timeline row, restarted together: its
+    wall, its share of the wire ledger, its K1 launches and the card's
+    peak allocation (the benchmark's ``peak_mem_gb`` reads the peak the
+    last restart left)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        self._cut = False
+        self.restart()
+
+    def restart(self, now: Optional[float] = None):
+        """Re-mark all four, the wire ledger unless :meth:`wire` cut it
+        since the last restart."""
+        self.mark = time.perf_counter() if now is None else now
+        if not self._cut:
+            self._wire = transfer.snapshot()
+        self._cut = False
+        self.restart_launches()
+        if self.device.type == "cuda":
+            torch.cuda.reset_peak_memory_stats(self.device)
+
+    def restart_launches(self):
+        self._launches = weighted_kde_logpdf_cuda.launches
+
+    def wall(self, now: float) -> float:
+        return now - self.mark
+
+    def wire(self) -> dict:
+        """The ledger's delta, cut here: what an ingest thread books
+        from now on is the next row's."""
+        cut = transfer.snapshot()
+        tr = transfer.delta(self._wire, cut)
+        self._wire, self._cut = cut, True
+        return tr
+
+    def launches(self) -> int:
+        return weighted_kde_logpdf_cuda.launches - self._launches
+
+    def peak_gb(self) -> Optional[float]:
+        if self.device.type != "cuda":
+            return None
+        return torch.cuda.max_memory_allocated(self.device) / 1e9
+
+
 class ABCSMC:
     """ABC-SMC with candidate rounds on the device."""
 
@@ -436,6 +481,8 @@ class ABCSMC:
         #: sequential generation)
         self._engine_choice: Optional[str] = None
         self._seq_probe_s: Optional[float] = None
+        #: the marks of the timeline row being run (set by each run())
+        self._marks: Optional[_RowMarks] = None
         self.minimum_epsilon = 0.0
         self.min_acceptance_rate = 0.0
         #: per-generation rows: t, path ("sequential", "fused",
@@ -449,10 +496,7 @@ class ABCSMC:
         #: share of the wire ledger), history_mode ("lazy" when a device
         #: store was attached), kde_launches (KDE kernel launches
         #: in the generation), kde_support (per model: pdf support rows,
-        #: grid-compressed or not), cdf_builds (resampling CDFs built for
-        #: the generation's proposal draws: M + 1 by the prepare step of
-        #: a generation after the first, none in its rounds; 0 at
-        #: t = 0), records (candidates recorded),
+        #: grid-compressed or not), records (candidates recorded),
         #: record_batches (sampler calls that kept records: each
         #: evaluates the proposal density over its records when a
         #: temperature reads them), refit_s (seconds of the distance fit
@@ -1364,7 +1408,6 @@ class ABCSMC:
             "grids_resolved": info["grids_resolved"],
             "round_graph": info["round_graph"],
             "round_replays": info["round_replays"],
-            "cdf_builds": info["cdf_builds"],
             "kde_launches": info["kde_launches"],
             "kde_support": info["kde_support"], "records": 0,
             "record_batches": 0, "refit_s": 0.0, "append_s": append_s,
@@ -1399,6 +1442,10 @@ class ABCSMC:
         if sims >= max_total_nr_simulations:
             return STOP_BUDGET
         return None
+
+    def _row_engine(self, n: int) -> Optional[str]:
+        """A row's ``engine``: the probe's choice above PROBE_MIN_POP."""
+        return self._engine_choice if n > self.PROBE_MIN_POP else None
 
     def _record(self, row: dict, tr: Optional[dict] = None,
                 accepted: Optional[int] = None,
@@ -1518,7 +1565,6 @@ class ABCSMC:
                 return 0, 0, None
             fn = self._get_block_fn(t, n, B, K, summary=lazy,
                                     max_rounds=occ_max_rounds)
-        on_card = self.device.type == "cuda"
 
         t0 = time.perf_counter()
         tr0 = transfer.snapshot()
@@ -1603,13 +1649,11 @@ class ABCSMC:
             self._occupancy.observe_block(
                 K, B, [info["rounds"] for info in infos[:written]], block_s,
                 written)
-        at_scale = n > self.PROBE_MIN_POP
-        if at_scale and self._engine_choice is None:
+        if n > self.PROBE_MIN_POP and self._engine_choice is None:
             self._decide_engine(block_s / written)
-        peak = (torch.cuda.max_memory_allocated(self.device) / 1e9
-                if on_card else None)
+        peak = self._marks.peak_gb()
         for row in rows:
-            row.update({"engine": self._engine_choice if at_scale else None,
+            row.update({"engine": self._row_engine(n),
                         "wall_s": block_s / written,
                         "sample_s": dispatch_s / written,
                         "peak_mem_gb": peak})
@@ -1844,8 +1888,7 @@ class ABCSMC:
             return 0, sims_added, None
         # the host's work after the dispatch (copies, History), shared out
         host_s = (time.perf_counter() - t0 - dispatch_s) / written
-        peak = (torch.cuda.max_memory_allocated(self.device) / 1e9
-                if on_card else None)
+        peak = self._marks.peak_gb()
         for row in rows:
             row.update({"wall_s": row["sample_s"] + host_s,
                         "peak_mem_gb": peak})
@@ -1889,7 +1932,6 @@ class ABCSMC:
         samp = self.sampler
         mode = self._block_mode()
         lazy = self._lazy_active
-        on_card = self.device.type == "cuda"
         ingest = StreamingIngest(depth=self.ingest_depth)
         inflight = deque()
         st = {"t": t0,           # ingest frontier: next generation to append
@@ -1902,9 +1944,8 @@ class ABCSMC:
               "prepared_t": t0,  # host components are fitted up to here
               # dispatch batch sizing, frozen between sequential generations
               # so that the depth cannot change what is dispatched
-              "rate_disp": samp.rate_est, "safety_disp": samp.safety(),
-              "gen_mark": time.perf_counter(),
-              "tr_mark": transfer.snapshot()}
+              "rate_disp": samp.rate_est, "safety_disp": samp.safety()}
+        marks = self._marks = _RowMarks(self.device)
         self._fused_carry = None
         names = [m.name for m in self.models]
 
@@ -2026,7 +2067,6 @@ class ABCSMC:
                          "batch": samp.last_batch,
                          "round_graph": sample.round_graph,
                          "round_replays": sample.round_replays,
-                         "cdf_builds": sample.cdf_builds,
                          "sample_s": time.perf_counter() - mark,
                          "kde_launches": (weighted_kde_logpdf_cuda.launches
                                           - launches0),
@@ -2147,24 +2187,18 @@ class ABCSMC:
                     else harvest_sequential(blk))
             if rows:
                 now = time.perf_counter()
-                wall = (now - st["gen_mark"]) / len(rows)
-                st["gen_mark"] = now
-                tr = transfer.delta(st["tr_mark"])
-                st["tr_mark"] = transfer.snapshot()
-                at_scale = blk["n"] > self.PROBE_MIN_POP
+                wall = marks.wall(now) / len(rows)
+                tr = marks.wire()
                 if blk["kind"] != "block":
                     if blk["t0"] > 0:
                         self._note_sequential_gen_s(wall)
-                elif (at_scale and blk["K"] > 1
+                elif (blk["n"] > self.PROBE_MIN_POP and blk["K"] > 1
                         and self._engine_choice is None):
                     self._decide_engine(wall)
-                peak = None
-                if on_card:
-                    peak = torch.cuda.max_memory_allocated(self.device) / 1e9
-                    torch.cuda.reset_peak_memory_stats(self.device)
+                peak = marks.peak_gb()
+                marks.restart(now)
                 for row in rows:
-                    row.update({"engine": (self._engine_choice if at_scale
-                                           else None),
+                    row.update({"engine": self._row_engine(blk["n"]),
                                 "wall_s": wall, "peak_mem_gb": peak})
                     if blk["kind"] == "block":
                         row["sample_s"] = blk["dispatch_s"] / len(rows)
@@ -2178,8 +2212,6 @@ class ABCSMC:
                 rewind_to_frontier()
 
         depth_cap = max(self.ingest_depth, 1)
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(self.device)
         try:
             while st["t"] < t_max and st["stop"] is None:
                 if stop_requested():
@@ -2441,12 +2473,7 @@ class ABCSMC:
             self.history.done()
             return self.history
         total_sims = 0
-        gen_mark = time.perf_counter()
-        tr_mark = transfer.snapshot()
-        launches_mark = weighted_kde_logpdf_cuda.launches
-        on_card = self.device.type == "cuda"
-        if on_card:
-            torch.cuda.reset_peak_memory_stats(self.device)
+        marks = self._marks = _RowMarks(self.device)
         model_names = [m.name for m in self.models]
         # the lazy History's sequential deposit needs the rows on the
         # card; an adaptive refit reads them on the host
@@ -2477,13 +2504,11 @@ class ABCSMC:
                 written, sims, stop_reason = self._run_onedispatch(
                     t, t_max, total_sims, max_total_nr_simulations)
                 total_sims += sims
-                launches_mark = weighted_kde_logpdf_cuda.launches
                 if written:
                     t += written
-                    gen_mark = time.perf_counter()
-                    tr_mark = transfer.snapshot()
-                    if on_card:
-                        torch.cuda.reset_peak_memory_stats(self.device)
+                    marks.restart()
+                else:
+                    marks.restart_launches()
                 if stop_reason is not None:
                     self.stop_reason = stop_reason
                     logger.info(stop_reason)
@@ -2501,18 +2526,15 @@ class ABCSMC:
                 # the block's launches are on its `blocks` entry (a block
                 # that wrote nothing leaves its wall in the next
                 # generation's: the time was spent)
-                launches_mark = weighted_kde_logpdf_cuda.launches
                 if written:
                     t += written
-                    gen_mark = time.perf_counter()
-                    tr_mark = transfer.snapshot()
-                    if on_card:
-                        torch.cuda.reset_peak_memory_stats(self.device)
+                    marks.restart()
                     if stop_reason is not None:
                         self.stop_reason = stop_reason
                         logger.info(stop_reason)
                         break
                     continue
+                marks.restart_launches()
                 # nothing written: the sequential engine takes t
             current_eps = float(self.eps(t))
             n = self.population_strategy(t)
@@ -2621,22 +2643,17 @@ class ABCSMC:
                     continue
             ess = float(effective_sample_size(population.weight))
             now = time.perf_counter()
-            tr_t = transfer.delta(tr_mark)
-            tr_mark = transfer.snapshot()
+            tr_t = marks.wire()
             self._record({
-                "t": t, "path": "sequential",
-                "engine": (self._engine_choice
-                           if n > self.PROBE_MIN_POP else None),
-                "wall_s": now - gen_mark, "sample_s": sample_s,
+                "t": t, "path": "sequential", "engine": self._row_engine(n),
+                "wall_s": marks.wall(now), "sample_s": sample_s,
                 "eps": current_eps, "n": n,
                 "evaluations": sample.nr_evaluations,
                 "acceptance_rate": acceptance_rate, "ess": ess,
                 "batch": getattr(self.sampler, "last_batch", None),
                 "round_graph": sample.round_graph,
                 "round_replays": sample.round_replays,
-                "cdf_builds": sample.cdf_builds,
-                "kde_launches": (weighted_kde_logpdf_cuda.launches
-                                 - launches_mark),
+                "kde_launches": marks.launches(),
                 "kde_support": ([_pdf_support_rows(p)
                                  for p in params["transition"]]
                                 if t > 0 else []),
@@ -2645,8 +2662,7 @@ class ABCSMC:
                 "refit_s": self._refit_s, **self._distance_row,
                 "adapt_s": self._adapt_s,
                 "append_s": append_s, **sample.round_clock,
-                "peak_mem_gb": (torch.cuda.max_memory_allocated(self.device)
-                                / 1e9 if on_card else None)}, tr_t,
+                "peak_mem_gb": marks.peak_gb()}, tr_t,
                 accepted=sample.raw_accepted)
             self._publish_fleet()
             # the sampler observed its rate per call; the ledger's
@@ -2657,11 +2673,8 @@ class ABCSMC:
             # the engine probe's baseline (t = 0's prior round has no
             # refit or proposal work and would bias it low)
             if t > 0:
-                self._note_sequential_gen_s(now - gen_mark)
-            gen_mark = now
-            launches_mark = weighted_kde_logpdf_cuda.launches
-            if on_card:
-                torch.cuda.reset_peak_memory_stats(self.device)
+                self._note_sequential_gen_s(marks.wall(now))
+            marks.restart(now)
             if self._fused_eligible():
                 # this generation's accepted rows stay on the device as
                 # the next fused block's carry (None after a splice)

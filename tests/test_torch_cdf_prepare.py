@@ -5,11 +5,12 @@ support CDF once a generation; the rounds only draw uniforms and invert
 them.  A run with the prepare step made a no-op builds the same CDFs in
 every round with the same ops, so both runs must write the same History
 bit for bit: populations, weights, model probabilities, every blob and
-the digest column, in the sequential engine and in fused blocks.  The
-timeline's ``cdf_builds`` counts M + 1 CDFs a generation with the prepare
-step, and no softmax runs inside a round.
+the digest column, in the sequential engine and in fused blocks.  A spy
+on ``resampling_cdf`` counts M + 1 CDFs a generation with the prepare
+step and none inside a round, and no softmax runs inside a round.
 """
 
+import contextlib
 import sqlite3
 
 import numpy as np
@@ -23,11 +24,13 @@ from pyabc_tpu_torch.models import make_two_gaussians_problem
 from pyabc_tpu_torch.ops.choice import (choice_from_cdf,
                                         fast_weighted_choice,
                                         resampling_cdf)
+from pyabc_tpu_torch.sampler import rounds
 from pyabc_tpu_torch.sampler.device_loop import RoundProgram
-from pyabc_tpu_torch.sampler.rounds import RoundKernel, cdf_builds_total
+from pyabc_tpu_torch.sampler.rounds import RoundKernel
 from pyabc_tpu_torch.transition import (DiscreteRandomWalkTransition,
                                         LocalTransition,
                                         MultivariateNormalTransition)
+from pyabc_tpu_torch.transition import base as transition_base
 
 ENGINES = {"sequential": {"ingest_mode": "sequential",
                           "history_mode": "eager"},
@@ -51,28 +54,71 @@ class _CountSoftmax(TorchFunctionMode):
         return func(*args, **(kwargs or {}))
 
 
+class _CdfBuilds:
+    """The resampling CDFs built (``resampling_cdf`` calls, under each
+    name the prepare step and a round's draws call it by) for each
+    generation from t = 1: ``gens[i]`` is ``[built by its prepare step,
+    built inside its rounds]``; ``prior``: built inside the rounds before
+    the first prepare step (t = 0)."""
+
+    def __init__(self):
+        self.gens = []
+        self.prior = 0
+        self._where = None
+
+    def spy(self, fn):
+        def resampling_cdf(log_w):
+            if self._where == "prepare":
+                self.gens[-1][0] += 1
+            elif self._where == "round":
+                if self.gens:
+                    self.gens[-1][1] += 1
+                else:
+                    self.prior += 1
+            return fn(log_w)
+        return resampling_cdf
+
+    @contextlib.contextmanager
+    def inside(self, where: str):
+        outer, self._where = self._where, where
+        try:
+            yield
+        finally:
+            self._where = outer
+
+
 def _run(db, engine, monkeypatch, prepared: bool):
     """Config #2 at pop 2000 on the CPU; ``(abc, softmax calls inside
-    rounds)``."""
+    rounds, the CDFs built)``."""
     counter = _CountSoftmax()
+    builds = _CdfBuilds()
     run = RoundProgram.run
+    prepare = (RoundKernel.prepare if prepared
+               else lambda self, params, into=None: params)
 
     def counted_run(self, generator, params):
-        with counter:
+        with counter, builds.inside("round"):
             return run(self, generator, params)
+
+    def counted_prepare(self, params, into=None):
+        if "transition" in params:
+            builds.gens.append([0, 0])
+        with builds.inside("prepare"):
+            return prepare(self, params, into=into)
 
     with monkeypatch.context() as mp:
         mp.setattr(RoundProgram, "run", counted_run)
-        if not prepared:
-            mp.setattr(RoundKernel, "prepare",
-                       lambda self, params, into=None: params)
+        mp.setattr(RoundKernel, "prepare", counted_prepare)
+        for module in (rounds, transition_base):
+            mp.setattr(module, "resampling_cdf",
+                       builds.spy(module.resampling_cdf))
         models, priors, distance, observed, _ = make_two_gaussians_problem()
         abc = pt.ABCSMC(models, priors, distance, population_size=2000,
                         sampler=pt.VectorizedSampler(device="cpu"), seed=3,
                         device="cpu", **ENGINES[engine])
         abc.new("sqlite:///" + str(db), observed)
         abc.run(max_nr_populations=GENS)
-    return abc, counter.calls
+    return abc, counter.calls, builds
 
 
 def _tables(db):
@@ -90,9 +136,10 @@ def _tables(db):
 @pytest.mark.parametrize("engine", sorted(ENGINES))
 def test_prepared_cdfs_write_the_history_of_rounds_that_build_their_own(
         engine, tmp_path, monkeypatch):
-    a, a_softmax = _run(tmp_path / "prepared.db", engine, monkeypatch, True)
-    b, b_softmax = _run(tmp_path / "per_round.db", engine, monkeypatch,
-                        False)
+    a, a_softmax, a_builds = _run(tmp_path / "prepared.db", engine,
+                                  monkeypatch, True)
+    b, b_softmax, b_builds = _run(tmp_path / "per_round.db", engine,
+                                  monkeypatch, False)
     paths = [r["path"] for r in a.timeline]
     assert paths == [r["path"] for r in b.timeline]
     if engine == "fused":
@@ -110,13 +157,15 @@ def test_prepared_cdfs_write_the_history_of_rounds_that_build_their_own(
     assert models_a == models_b and all(row[-1] for row in models_a)
 
     M = len(a.models)
-    assert [r["cdf_builds"] for r in a.timeline] == [0] + [M + 1] * (GENS - 1)
+    assert a_builds.prior == 0
+    assert a_builds.gens == [[M + 1, 0]] * (GENS - 1)
     assert a_softmax == 0
     # the rounds that build their own: M + 1 CDFs each round, and the
     # softmax inside them
-    for r in b.timeline[1:]:
-        rounds = r.get("rounds") or r["evaluations"] // r["batch"]
-        assert r["cdf_builds"] == (M + 1) * rounds
+    assert b_builds.prior == 0
+    assert b_builds.gens == [
+        [0, (M + 1) * (r.get("rounds") or r["evaluations"] // r["batch"])]
+        for r in b.timeline[1:]]
     assert b_softmax >= (M + 1) * (GENS - 1)
 
 
@@ -157,7 +206,8 @@ def test_transitions_draw_the_same_from_a_prepared_cdf(transition):
     assert torch.equal(g1.get_state(), g2.get_state())
 
 
-def test_prepare_counts_its_builds_and_writes_into_the_graphs_inputs():
+def test_prepare_counts_its_builds_and_writes_into_the_graphs_inputs(
+        monkeypatch):
     """``into`` (a captured round's own params): a CDF of the same spec
     is written into that tensor in place; the prior round's params pass
     through untouched."""
@@ -167,9 +217,12 @@ def test_prepare_counts_its_builds_and_writes_into_the_graphs_inputs():
                               "log_w": log_w, "chol": torch.ones(1, 1)},),
               "distance": {}}
     k = RoundKernel.__new__(RoundKernel)
-    before = cdf_builds_total()
+    built = []
+    monkeypatch.setattr(rounds, "resampling_cdf",
+                        lambda log_w: built.append(log_w)
+                        or resampling_cdf(log_w))
     out = k.prepare(params)
-    assert cdf_builds_total() - before == 2
+    assert len(built) == 2
     assert "log_w" not in out["transition"][0]
     assert "model_log_probs" not in out
     assert torch.equal(out["transition"][0]["cdf"], resampling_cdf(log_w))

@@ -35,23 +35,22 @@ from pyabc_tpu_torch.storage.history import _unpack
 from pyabc_tpu_torch.telemetry import aggregate, flight, lanes, spans
 from pyabc_tpu_torch.wire import store, transfer
 
+from torch_process_state import clean_process_state  # noqa: F401
+
 
 @pytest.fixture(autouse=True)
 def _clean_state(monkeypatch):
-    """The tracer sink, flight ring, progress word and fault plan are
-    process-global: every test starts and ends clean, with no run dir,
-    host override or grid switch from the environment."""
+    """The tracer sink, flight ring and progress word are process-global:
+    every test starts and ends clean, with no run dir, host override or
+    grid switch from the environment (the fault plans and preemption
+    flags: ``clean_process_state``)."""
     for env in (health.RUN_DIR_ENV, aggregate.HOST_ENV, spans.TRACE_ENV,
                 lanes.POLL_ENV, store.SUMMARY_GRID_ENV):
         monkeypatch.delenv(env, raising=False)
-    faults.uninstall()
-    ckpt.clear_preempt()
     spans.TRACER.reset()
     flight.RECORDER.reset()
     lanes.PROGRESS.reset()
     yield
-    faults.uninstall()
-    ckpt.clear_preempt()
     spans.TRACER.reset()
     flight.RECORDER.reset()
     lanes.PROGRESS.reset()

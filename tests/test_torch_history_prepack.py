@@ -11,7 +11,6 @@ writer (a resume splice, a restarted attempt, the calibration, the lazy
 History) keeps the one-shot pack.
 """
 
-import signal
 import sqlite3
 
 import numpy as np
@@ -28,6 +27,8 @@ from pyabc_tpu_torch.storage import history as history_mod
 from pyabc_tpu_torch.telemetry import REGISTRY
 from pyabc_tpu_torch.wire import transfer
 
+from torch_process_state import clean_process_state  # noqa: F401
+
 NAMES = {1: ["m0"], 2: ["m0", "m1"]}
 
 
@@ -38,22 +39,6 @@ def codec(request, monkeypatch):
     else:
         monkeypatch.setenv(transfer.WIRE_CODEC_ENV, request.param)
     return request.param
-
-
-@pytest.fixture(autouse=True)
-def _clean_fault_state():
-    # a run with sub-checkpoints arms the port's SIGTERM handler for the
-    # process: put it back, or an in-process SIGTERM of a later test in
-    # this worker stops every later run
-    handler = (signal.getsignal(signal.SIGTERM), ckpt._INSTALLED,
-               ckpt._PREV_HANDLER)
-    faults.uninstall()
-    ckpt.clear_preempt()
-    yield
-    faults.uninstall()
-    signal.signal(signal.SIGTERM, handler[0])
-    ckpt._INSTALLED, ckpt._PREV_HANDLER = handler[1:]
-    ckpt.clear_preempt()
 
 
 def _population(pkg, n, models, seed=0):

@@ -8,7 +8,6 @@ column the JAX package wrote verifies in the port, and the kill -9 /
 SIGTERM recoveries run in child processes that import no JAX."""
 
 import os
-import signal
 import sqlite3
 import subprocess
 import sys
@@ -27,21 +26,9 @@ from pyabc_tpu_torch.resilience import checkpoint as ckpt
 from pyabc_tpu_torch.resilience import journal
 from pyabc_tpu_torch.telemetry import REGISTRY
 
+from torch_process_state import clean_process_state  # noqa: F401
+
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-
-
-@pytest.fixture(autouse=True)
-def _restore_sigterm():
-    """A resumed run with sub-checkpoints arms the port's SIGTERM handler
-    for the process: put it back, so that an in-process SIGTERM of a
-    later test (the JAX package's preemption tests) cannot set the
-    port's flag and stop every later port run in this worker."""
-    handler = (signal.getsignal(signal.SIGTERM), ckpt._INSTALLED,
-               ckpt._PREV_HANDLER)
-    yield
-    signal.signal(signal.SIGTERM, handler[0])
-    ckpt._INSTALLED, ckpt._PREV_HANDLER = handler[1:]
-    ckpt.clear_preempt()
 
 
 def _wire(seed):

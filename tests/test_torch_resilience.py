@@ -10,7 +10,6 @@ one-dispatch engine off with the JAX package's engine paths.  A retried
 dispatch that failed after its rounds had drawn gives the same
 population as a clean run, in every engine; a fatal error raises."""
 
-import signal
 import sqlite3
 
 import numpy as np
@@ -20,7 +19,6 @@ import torch
 import pyabc_tpu as jpt
 import pyabc_tpu_torch as pt
 from pyabc_tpu.models import make_two_gaussians_problem as jax_problem
-from pyabc_tpu.resilience import checkpoint as jax_ckpt
 from pyabc_tpu.resilience import faults as jax_faults
 from pyabc_tpu.resilience import journal as jax_journal
 from pyabc_tpu.resilience import retry as jax_retry
@@ -31,25 +29,7 @@ from pyabc_tpu_torch.resilience import faults, journal, retry
 from pyabc_tpu_torch.telemetry import REGISTRY
 from pyabc_tpu_torch.wire.streaming import WireError
 
-
-@pytest.fixture(autouse=True)
-def _clean_fault_state():
-    # a run with sub-checkpoints arms the port's SIGTERM handler for the
-    # process, and each package's handler chains to the one it found: put
-    # the handler back and clear both flags, or an in-process SIGTERM of a
-    # later test (of either package) stops every later run in this worker
-    handler = (signal.getsignal(signal.SIGTERM), ckpt._INSTALLED,
-               ckpt._PREV_HANDLER)
-    faults.uninstall()
-    jax_faults.uninstall()
-    ckpt.clear_preempt()
-    yield
-    faults.uninstall()
-    jax_faults.uninstall()
-    signal.signal(signal.SIGTERM, handler[0])
-    ckpt._INSTALLED, ckpt._PREV_HANDLER = handler[1:]
-    ckpt.clear_preempt()
-    jax_ckpt.clear_preempt()
+from torch_process_state import clean_process_state  # noqa: F401
 
 
 def _sampler(**kw):

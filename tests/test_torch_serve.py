@@ -61,6 +61,8 @@ from pyabc_tpu_torch.serve.multiplex import (STOP_NAMES, _LaneEngine,
 from pyabc_tpu_torch.serve.queue import serve_root
 from pyabc_tpu_torch.serve.spec import _prior_config
 
+from torch_process_state import clean_process_state  # noqa: F401
+
 #: the importance weights' tolerance against the JAX expression
 W_ATOL, W_RTOL = 1e-6, 1e-5
 
@@ -656,19 +658,14 @@ def test_sigterm_drain_requeues_in_flight(tmp_path):
     for seed in range(3):
         queue.submit(_spec(seed=seed))
     worker = _worker(root=str(tmp_path))
-    old_term = signal.getsignal(signal.SIGTERM)
-    old_int = signal.getsignal(signal.SIGINT)
-    try:
-        worker.install_signal_handlers()
-        # two studies already claimed when the drain signal lands
-        assert queue.claim(worker.worker_id) is not None
-        assert queue.claim(worker.worker_id) is not None
-        signal.raise_signal(signal.SIGTERM)
-        assert worker.draining
-        served = worker.run_forever(queue, once=True)
-    finally:
-        signal.signal(signal.SIGTERM, old_term)
-        signal.signal(signal.SIGINT, old_int)
+    # the handlers go back with clean_process_state
+    worker.install_signal_handlers()
+    # two studies already claimed when the drain signal lands
+    assert queue.claim(worker.worker_id) is not None
+    assert queue.claim(worker.worker_id) is not None
+    signal.raise_signal(signal.SIGTERM)
+    assert worker.draining
+    served = worker.run_forever(queue, once=True)
     assert served == 0  # drained before dispatching anything
     pending = queue.pending()
     assert len(pending) == 3  # both claims bounced back, nothing lost

@@ -19,8 +19,10 @@ from pyabc_tpu.telemetry import lanes as jax_lanes
 from pyabc_tpu.telemetry import metrics as jax_metrics
 from pyabc_tpu.telemetry import spans as jax_spans
 from pyabc_tpu.telemetry import timeline as jax_timeline
-from pyabc_tpu_torch import telemetry
+from pyabc_tpu_torch import smc, telemetry
 from pyabc_tpu_torch.models import make_two_gaussians_problem
+from pyabc_tpu_torch.ops import kde as kde_ops
+from pyabc_tpu_torch.ops.kde_cuda import weighted_kde_logpdf_cuda
 from pyabc_tpu_torch.telemetry import lanes, metrics, spans, timeline
 from pyabc_tpu_torch.wire import transfer
 
@@ -217,6 +219,54 @@ def test_config2_run_timeline_layout_and_paths_equal_jax(run_mode):
     assert builds[0] >= 1 and all(b >= 0 for b in builds)
     assert all((r["compile_s"] > 0) == (r["n_compiles"] > 0)
                for r in rows["ours"])
+
+
+@pytest.mark.parametrize("ingest_mode", ["sequential", "overlap"])
+def test_config2_rows_share_out_the_run_between_their_marks(ingest_mode,
+                                                            monkeypatch):
+    """Each row closes at a restart of the run's row marks: the rows'
+    walls, wire shares and K1 launches add up to the run's between the
+    first restart and the last (every plain KDE call stands in for a K1
+    launch here), and off the card no row has an engine or a peak."""
+    cuts = []
+    restart = smc._RowMarks.restart
+
+    def cut(self, now=None):
+        restart(self, now)
+        cuts.append((self.mark, self._wire, self._launches))
+
+    def kde(*args, **kw):
+        weighted_kde_logpdf_cuda.launches += 1
+        return plain_kde(*args, **kw)
+
+    plain_kde = kde_ops.weighted_kde_logpdf
+    monkeypatch.setattr(smc._RowMarks, "restart", cut)
+    monkeypatch.setattr(kde_ops, "weighted_kde_logpdf", kde)
+    models, priors, distance, observed, _ = make_two_gaussians_problem()
+    abc = pt.ABCSMC(models, priors, distance, population_size=200,
+                    sampler=pt.VectorizedSampler(device="cpu",
+                                                 min_batch_size=2048,
+                                                 max_batch_size=2048),
+                    ingest_mode=ingest_mode, seed=7)
+    abc.new("sqlite://", observed)
+    abc.run(max_nr_populations=5)
+    rows = list(abc.timeline)
+    assert len(rows) == 5
+    assert ({r["path"] for r in rows} == {"sequential"}) == (
+        ingest_mode == "sequential")
+    (t0, wire0, k1_0), (t1, wire1, k1_1) = cuts[0], cuts[-1]
+    assert sum(r["wall_s"] for r in rows) == pytest.approx(t1 - t0,
+                                                           rel=1e-12)
+    wire = transfer.delta(wire0, wire1)
+    assert wire["d2h_calls"] > 0
+    for key in ("d2h_bytes", "d2h_calls", "d2h_s", "compute_s",
+                "overlap_s"):
+        assert sum(abc.generation_transfer[r["t"]][key] for r in rows) \
+            == pytest.approx(wire[key], rel=1e-9, abs=1e-12)
+    assert k1_1 - k1_0 >= len(rows) - 1
+    assert sum(r["kde_launches"] for r in rows) == k1_1 - k1_0
+    assert all(r["engine"] is None and r["peak_mem_gb"] is None
+               for r in rows)
 
 
 def test_traced_run_emits_the_jax_span_names(tmp_path):
